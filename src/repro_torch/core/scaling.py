@@ -1,0 +1,51 @@
+"""Filter / output-neuron scaling factors (paper §4, Eq. 4).
+
+Port of ``repro.core.scaling``.  Every eligible weight W (conv (M,N,K,K),
+dense (M,N)) gets a per-output scale S in R^M, initialised to 1 and applied
+as ``W*_m = W_m * s_m``.  Leaves of unscaled params hold a scalar 1.0
+placeholder so the scales tree mirrors the params tree; the placeholders
+are part of the wire format (the float codecs' scales section carries
+them).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.tree import map_with_path, tree_map
+
+ScalePredicate = Callable[[str, torch.Tensor], bool]
+
+
+def default_predicate(path: str, leaf: torch.Tensor) -> bool:
+    del path
+    return leaf.ndim >= 2
+
+
+def init_scales(params: Any,
+                predicate: ScalePredicate = default_predicate) -> Any:
+    """Ones-initialised scales tree (paper: S <- 1)."""
+
+    def leaf_init(path, leaf):
+        shape = (leaf.shape[0],) if predicate(path, leaf) else ()
+        return torch.ones(shape, dtype=torch.float32, device=leaf.device)
+
+    return map_with_path(leaf_init, params)
+
+
+def scale_mask(params: Any,
+               predicate: ScalePredicate = default_predicate) -> Any:
+    """Tree of Python bools marking leaves that carry real scales."""
+    return map_with_path(lambda path, leaf: predicate(path, leaf), params)
+
+
+def apply_scale(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """W*_m = W_m * s_m; a scalar placeholder broadcasts trivially."""
+    if s.ndim == 0:
+        return w * s
+    return w * s.reshape((s.shape[0],) + (1,) * (w.ndim - 1)).to(w.dtype)
+
+
+def apply_scales_tree(params: Any, scales: Any) -> Any:
+    return tree_map(apply_scale, params, scales)

@@ -1,0 +1,88 @@
+"""Federated data handling: client splits and batching.
+
+Port of ``repro.data.federated`` (IID split only).  ``FederatedSplits``
+holds per-client arrays stacked on a leading client axis plus a shared test
+set; ``FederatedSplits.from_numpy`` takes the reference's arrays as they are
+so both packages train on the same data.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.runtime import not_ported
+
+
+@dataclasses.dataclass
+class FederatedSplits:
+    client_x: torch.Tensor      # (C, n_train, H, W, C)
+    client_y: torch.Tensor      # (C, n_train) int64
+    client_val_x: torch.Tensor  # (C, n_val, ...)
+    client_val_y: torch.Tensor  # (C, n_val)
+    test_x: torch.Tensor
+    test_y: torch.Tensor
+
+    @property
+    def num_clients(self) -> int:
+        return self.client_x.shape[0]
+
+    @property
+    def n_train(self) -> int:
+        return self.client_x.shape[1]
+
+    @classmethod
+    def from_numpy(cls, client_x, client_y, client_val_x, client_val_y,
+                   test_x, test_y, device="cpu") -> "FederatedSplits":
+        def xs(a):
+            return torch.tensor(np.asarray(a, np.float32), device=device)
+
+        def ys(a):
+            return torch.tensor(np.asarray(a).astype(np.int64), device=device)
+
+        return cls(xs(client_x), ys(client_y), xs(client_val_x),
+                   ys(client_val_y), xs(test_x), ys(test_y))
+
+    def to(self, device) -> "FederatedSplits":
+        return FederatedSplits(*(getattr(self, f.name).to(device)
+                                 for f in dataclasses.fields(self)))
+
+
+def split_federated(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
+                    num_clients: int, train_frac: float = 0.7,
+                    val_frac: float = 0.15,
+                    dirichlet_alpha: float | None = None) -> FederatedSplits:
+    """IID random partition into equal client shards plus a test set."""
+    if dirichlet_alpha is not None:
+        raise not_ported("dirichlet splits", "non-IID splits")
+    n = x.shape[0]
+    perm = torch.randperm(n, generator=gen).to(x.device)
+    x, y = x[perm], y[perm]
+    n_test = int(n * (1.0 - train_frac - val_frac))
+    test_x, test_y = x[:n_test], y[:n_test]
+    rest_x, rest_y = x[n_test:], y[n_test:]
+    per = rest_x.shape[0] // num_clients
+    cx = rest_x[: per * num_clients].reshape((num_clients, per)
+                                             + tuple(x.shape[1:]))
+    cy = rest_y[: per * num_clients].reshape(num_clients, per)
+    n_val = max(1, int(cx.shape[1] * val_frac / (train_frac + val_frac)))
+    return FederatedSplits(
+        client_x=cx[:, n_val:], client_y=cy[:, n_val:],
+        client_val_x=cx[:, :n_val], client_val_y=cy[:, :n_val],
+        test_x=test_x, test_y=test_y)
+
+
+def epoch_batches(gen: torch.Generator, n: int,
+                  batch_size: int) -> torch.Tensor:
+    """Shuffled batch index matrix (num_batches, batch_size) for one epoch."""
+    perm = torch.randperm(n, generator=gen)
+    num_batches = n // batch_size
+    return perm[: num_batches * batch_size].reshape(num_batches, batch_size)
+
+
+def client_epoch_batches(gen: torch.Generator, num_clients: int, n: int,
+                         batch_size: int) -> torch.Tensor:
+    """(C, num_batches, batch_size) independent shuffles per client."""
+    return torch.stack([epoch_batches(gen, n, batch_size)
+                        for _ in range(num_clients)])

@@ -1,0 +1,195 @@
+"""Federated simulation engine: one orchestrator, scheduling as policy.
+
+Port of ``repro.fl.engine`` for the sync scheduler.  ``FederatedEngine``
+builds one instance of each ``repro_torch.fl.rounds`` stage and asks the
+scheduler for one ``RoundIntake`` per aggregation, which it folds through
+``Aggregate -> ServerStep -> Evaluate``.
+
+Randomness: standalone runs draw the initial state, cohorts and batch
+orders from one ``torch.Generator`` seeded with ``seed``.  Runs held
+against the reference pass ``init_state`` (the reference's initial
+``ServerState``/``ClientPersistent`` through ``repro_torch.convert``) and
+``plan`` (its per-round cohorts and batch indices) instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.protocol import ProtocolConfig, make_protocol
+from repro_torch.data.federated import FederatedSplits
+from repro_torch.fl.executors import EXECUTORS, make_executor
+from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
+                                   Evaluate, LocalTrain, RoundIntake,
+                                   ServerStep, Uplink)
+from repro_torch.fl.sampling import SamplingConfig
+from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
+from repro_torch.runtime import not_ported, resolve_device
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round: int
+    test_acc: float
+    up_bytes: int
+    down_bytes: int
+    cum_bytes: int
+    mean_val_acc: float
+    update_sparsity: float
+    train_loss: float
+    wall_s: float
+    participants: tuple[int, ...] = ()
+
+
+@dataclasses.dataclass
+class RunResult:
+    config_name: str
+    records: list[RoundRecord]
+    server: Any = None   # final ServerState
+
+
+# fields of the reference's EngineConfig that the port does not run yet,
+# with their defaults and the port-queue item that will bring them
+_NOT_PORTED_FIELDS = {
+    "channel": (None, "wire schema v2, channel, partial updates"),
+    "up_predicate": (None, "wire schema v2, channel, partial updates"),
+    "uplink_workers": (0, "streaming ingest, population, telemetry"),
+    "uplink_batch": (False, "streaming ingest, population, telemetry"),
+    "ingest": ("gather", "streaming ingest, population, telemetry"),
+    "population": (None, "streaming ingest, population, telemetry"),
+    "telemetry": ("off", "streaming ingest, population, telemetry"),
+    "mesh_shape": (None, "executors: vmap, sharded, dist"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    sampling: SamplingConfig = dataclasses.field(
+        default_factory=SamplingConfig)
+    server_opt: ServerOptConfig = dataclasses.field(
+        default_factory=ServerOptConfig)
+    mode: str = "sync"
+    bidirectional: bool = False
+    measure_bytes: bool = True           # real wire round trips
+    codec: Any = "auto"                  # registry name | comms.Codec
+    wire_schema: int = 1
+    device_encode: bool = False          # cohort encode on the device
+    executor: str = "serial"
+    # accepted only at the reference's defaults (not ported yet)
+    channel: Any = None
+    up_predicate: Callable | None = None
+    uplink_workers: int = 0
+    uplink_batch: bool = False
+    ingest: str = "gather"
+    population: int | None = None
+    telemetry: str = "off"
+    mesh_shape: tuple[int, ...] | None = None
+
+    def validate(self) -> None:
+        for name, (default, item) in _NOT_PORTED_FIELDS.items():
+            if getattr(self, name) != default:
+                raise not_ported(f"EngineConfig.{name}={getattr(self, name)!r}",
+                                 item)
+        if self.mode == "async":
+            raise not_ported("async scheduling", "async scheduling")
+        if self.bidirectional:
+            raise not_ported("bidirectional (downlink) compression",
+                             "bidirectional downlink")
+        if self.mode not in SCHEDULERS:
+            raise ValueError(f"unknown engine mode: {self.mode!r}")
+        if self.executor not in EXECUTORS:
+            raise ValueError(f"unknown executor: {self.executor!r}")
+        if self.wire_schema != 1:
+            raise not_ported("wire schema v2",
+                             "wire schema v2, channel, partial updates")
+        if self.device_encode and not self.measure_bytes:
+            raise ValueError("device_encode builds real payloads on device: "
+                             "set measure_bytes=True")
+
+
+class FederatedEngine:
+    """One engine = one stage pipeline + one scheduling policy."""
+
+    def __init__(self, model, cfg: ProtocolConfig, splits: FederatedSplits,
+                 *, seed: int = 42, engine_cfg: EngineConfig | None = None,
+                 init_state=None, plan=None, device=None):
+        engine_cfg = engine_cfg if engine_cfg is not None else EngineConfig()
+        engine_cfg.validate()
+        self.device = resolve_device(device)
+        self.config_name = cfg.name
+        splits = splits.to(self.device)
+        self.num_clients = splits.num_clients
+
+        steps_per_round = max(1, splits.n_train // cfg.batch_size)
+        init, client_round, evaluate = make_protocol(model, cfg,
+                                                     steps_per_round)
+        gen = torch.Generator().manual_seed(seed)
+        if init_state is None:
+            server, persistent0 = init(gen, self.device)
+        else:
+            server, persistent0 = init_state
+        self.server = server
+
+        self.cohort = CohortPlan(engine_cfg.sampling, self.num_clients)
+        self.local_train = LocalTrain(
+            client_round, splits, persistent0, self.num_clients,
+            cfg.batch_size, make_executor(engine_cfg.executor))
+        self.uplink = Uplink(cfg, engine_cfg, server)
+        self.aggregate = Aggregate(self.device)
+        self.server_step = ServerStep(make_server_opt(engine_cfg.server_opt))
+        self.server_step.init(server.params)
+        self.evaluate = Evaluate(evaluate, splits.test_x, splits.test_y)
+        self.scheduler = SCHEDULERS[engine_cfg.mode]()
+        self.scheduler.bind(self, gen, plan)
+
+    @staticmethod
+    def _mean_metric(intake: RoundIntake, name: str) -> float:
+        vals = [c.metrics[name] for c in intake.contributions
+                if c.metrics is not None and name in c.metrics]
+        return float(np.mean(vals)) if vals else float("nan")
+
+    def run(self, rounds: int, *, verbose: bool = False) -> RunResult:
+        records: list[RoundRecord] = []
+        cum = 0
+        with torch.no_grad():
+            while len(records) < rounds:
+                t0 = time.time()
+                intake = self.scheduler.next_round()
+                survivors = [intake.contributions[i]
+                             for i in intake.survivors]
+                up_bytes = sum(c.payload_bytes for c in intake.contributions)
+                down_bytes = 0   # the broadcast is not put on the wire
+                if survivors:
+                    self.server = self.server_step(self.server,
+                                                   self.aggregate(survivors))
+                cum += up_bytes + down_bytes
+                acc = self.evaluate(self.server)
+                rec = RoundRecord(
+                    round=len(records) + 1, test_acc=acc, up_bytes=up_bytes,
+                    down_bytes=down_bytes, cum_bytes=cum,
+                    mean_val_acc=self._mean_metric(intake, "val_acc"),
+                    update_sparsity=self._mean_metric(intake,
+                                                      "update_sparsity"),
+                    train_loss=self._mean_metric(intake, "train_loss"),
+                    wall_s=time.time() - t0,
+                    participants=tuple(c.client for c in survivors))
+                records.append(rec)
+                if verbose:
+                    print(f"[{self.config_name}] "
+                          + self.scheduler.log_line(rec, intake))
+        return RunResult(self.config_name, records, server=self.server)
+
+
+def run_simulation(model, cfg: ProtocolConfig, splits: FederatedSplits,
+                   rounds: int, *, seed: int = 42,
+                   engine: EngineConfig | None = None, init_state=None,
+                   plan=None, device=None, verbose: bool = False) -> RunResult:
+    """Run ``rounds`` aggregations of the federated simulation on
+    ``device`` (CUDA unless ``"cpu"`` is asked for)."""
+    return FederatedEngine(model, cfg, splits, seed=seed, engine_cfg=engine,
+                           init_state=init_state, plan=plan,
+                           device=device).run(rounds, verbose=verbose)

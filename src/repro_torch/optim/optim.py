@@ -1,0 +1,100 @@
+"""Functional optimizers in the reference's own form (not ``torch.optim``).
+
+Port of ``repro.optim.optim``: ``opt = adam(lr); state = opt.init(params);
+updates, state = opt.update(grads, state)``, with updates *added* to the
+params.  Learning rates may be schedules (callables of the int32 step
+tensor), read at the pre-increment step.  Adam is bias-corrected as
+``-lr * (m / bc1) / (sqrt(v / bc2) + eps)``, evaluated in float32 in the
+reference's operation order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Union
+
+import torch
+
+from repro_torch.tree import leaves, tree_map
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+LR = Union[float, Schedule]
+
+
+def _lr_at(lr: LR, step: torch.Tensor) -> torch.Tensor:
+    if callable(lr):
+        return lr(step).to(torch.float32)
+    return torch.tensor(lr, dtype=torch.float32, device=step.device)
+
+
+def _device_of(params: Any) -> torch.device:
+    ls = leaves(params)
+    return ls[0].device if ls else torch.device("cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[..., tuple]
+
+
+class SGDState(NamedTuple):
+    step: torch.Tensor
+    momentum: Any
+
+
+def sgd(lr: LR, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        mom = tree_map(torch.zeros_like, params) if momentum else None
+        return SGDState(torch.zeros((), dtype=torch.int32,
+                                    device=_device_of(params)), mom)
+
+    def update(grads, state, params=None):
+        del params
+        lr_t = _lr_at(lr, state.step)
+        if momentum:
+            new_m = tree_map(lambda m, g: momentum * m + g,
+                             state.momentum, grads)
+            updates = tree_map(lambda m: -lr_t * m, new_m)
+        else:
+            new_m = None
+            updates = tree_map(lambda g: -lr_t * g, grads)
+        return updates, SGDState(state.step + 1, new_m)
+
+    return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+def adam(lr: LR, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    def init(params):
+        return AdamState(
+            torch.zeros((), dtype=torch.int32, device=_device_of(params)),
+            tree_map(torch.zeros_like, params),
+            tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params=None):
+        del params
+        step = state.step + 1
+        lr_t = _lr_at(lr, state.step)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+        stepf = step.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                         device=stepf.device), stepf)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                         device=stepf.device), stepf)
+        updates = tree_map(
+            lambda m, v: -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps),
+            mu, nu)
+        return updates, AdamState(step, mu, nu)
+
+    return Optimizer(init, update)
+
+
+def apply_updates(params: Any, updates: Any) -> Any:
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
