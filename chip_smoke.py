@@ -12,17 +12,24 @@ Phases (any failure exits non-zero):
    all started together), timed, with ``-Xptxas -v`` output;
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, bitwise on q and scales, at the main path's shapes and at ragged
-   ones; then CUDA-event timings (median of 50 launches after warm-up, L2
-   flushed before each) beside the plain version and the memory bound;
+   ones, on random inputs;
 4. slice phase at full width: the paper's ``vgg11_thinned`` on 6,400
    synthetic CIFAR-like images over 8 clients, FSFL, cohorts of 4:
    2 rounds of ``device_encode_int8`` and 1 of ``codec_int8_k4`` through
    ``run_scenario``, with the launch counters set to 0 before and read
-   after each path; then a small-input check that the tiny scenario VGG
-   gives the same bytes and nearly the same model on the card as the
-   plain path on the CPU;
-5. a JSON line with every ported kernel's launches and times, the device
-   line, and the final ``{"ok": true, ...}`` line.
+   after each path.  The first buffer each kernel is given there (a
+   copy) is kept: recon deltas on the quantization grid, where the int8
+   rounding meets exact ties.  Each kernel is held bitwise against its
+   plain version on that buffer and timed on it with CUDA events (median
+   of 50 launches after warm-up, L2 flushed before each) beside the plain
+   version and the memory bound.  Then a small-input check that the tiny
+   scenario VGG, 2 rounds with 3 local steps per client, gives the same
+   bytes and nearly the same model on the card as the plain path on the
+   CPU;
+5. a JSON summary of the run (build, rounds, profile), a JSON line with
+   every ported kernel's launches and times, the device line, and the
+   final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
+   last lines of the output.
 
 Between 4 and 5 one more ``device_encode_int8`` round runs under
 ``torch.profiler`` to print where a round's time goes (device-busy share
@@ -122,7 +129,8 @@ def compare(torch, dc, d, theta: float, block: int, batched: bool) -> float:
     return 0.0
 
 
-def kernel_phase(torch, dc) -> dict:
+def kernel_phase(torch, dc) -> int:
+    """Kernel vs plain on random inputs; returns the number of checks."""
     gen = torch.Generator().manual_seed(0)
     checks = 0
     for n in RAGGED_N:
@@ -133,40 +141,70 @@ def kernel_phase(torch, dc) -> dict:
                     compare(torch, dc, d, theta, block, batched=True)
                     compare(torch, dc, d[0], theta, block, batched=False)
                     checks += 2
-    # the main path's buffers: a 90%-sparse recon delta
+    # the main path's shapes: a 90%-sparse delta
     dense = 1e-3 * torch.randn((MAIN_K, MAIN_N), generator=gen)
     main = (dense * (torch.rand((MAIN_K, MAIN_N), generator=gen) < 0.1)).cuda()
-    err_b = compare(torch, dc, main, 0.0, 128, batched=True)
-    err_s = compare(torch, dc, main[0].contiguous(), 0.0, 128, batched=False)
+    compare(torch, dc, main, 0.0, 128, batched=True)
+    compare(torch, dc, main[0].contiguous(), 0.0, 128, batched=False)
     checks += 2
     print(f"kernel phase: {checks} kernel-vs-plain comparisons, all bitwise")
+    return checks
 
-    single = main[0].contiguous()
-    calls = {
-        "delta_compress_batch": (
-            lambda: dc.delta_compress_batch(main, 0.0),
-            lambda: dc.delta_compress_batch_plain(main, 0.0, 128),
-            (MAIN_K, MAIN_N), err_b),
-        "delta_compress": (
-            lambda: dc.delta_compress(single, 0.0, block=128),
-            lambda: dc.delta_compress_plain(single, 0.0, 128),
-            (1, MAIN_N), err_s),
-    }
+
+def capture_buffers(device_mod) -> tuple[dict, dict]:
+    """Wrap the uplink's two kernel entry points so that a copy of the first
+    buffer each is given is kept; returns (captured, originals)."""
+    captured, originals = {}, {}
+    for name in ("delta_compress_batch", "delta_compress"):
+        fn = originals[name] = getattr(device_mod, name)
+
+        def keep(d, theta, *, block, _fn=fn, _name=name):
+            if _name not in captured:
+                captured[_name] = (d.clone(), theta, block)
+            return _fn(d, theta, block=block)
+        setattr(device_mod, name, keep)
+    return captured, originals
+
+
+def main_path_kernels(torch, dc, captured) -> dict:
+    """Each kernel against its plain version on the buffer the main path
+    gave it, bitwise, then timed on it beside its plain version."""
     timings = {}
-    for name, (kernel, plain, (k, n), err) in calls.items():
+    for name, batched in (("delta_compress_batch", True),
+                          ("delta_compress", False)):
+        if name not in captured:
+            fail(f"the main path gave {name} no buffer")
+        d, theta, block = captured[name]
+        err = compare(torch, dc, d, theta, block, batched=batched)
+        rows = d if batched else d[None]
+        kept = torch.where(rows.abs() >= theta, rows, 0.0)
+        _, scale = dc.delta_compress_batch_plain(rows, theta, block)
+        x = (kept.reshape(rows.shape[0], -1, block)
+             / scale[..., None]).reshape(rows.shape)
+        ties = int((x - x.floor() == 0.5).sum())
+        nkept = int((kept != 0).sum())
+        if batched:
+            kernel = lambda: dc.delta_compress_batch(d, theta, block=block)
+            plain = lambda: dc.delta_compress_batch_plain(d, theta, block)
+        else:
+            kernel = lambda: dc.delta_compress(d, theta, block=block)
+            plain = lambda: dc.delta_compress_plain(d, theta, block)
+        k, n = rows.shape
         t = timings[name] = dict(
             ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
             call_ms=time_ms(torch, kernel, host_ahead=False),
-            bound=bound_ms(k, n, 128), max_abs_err=err,
-            shape=[k, n] if k > 1 else [n])
-        print(f"  {name} {t['shape']} block 128: kernel {t['ms']:.4f} ms "
-              f"(whole wrapper call {t['call_ms']:.4f} ms), plain "
+            bound=bound_ms(k, n, block), max_abs_err=err,
+            shape=list(d.shape), kept=nkept, ties=ties)
+        print(f"  {name} {t['shape']} block {block} on the main path's "
+              f"buffer: bitwise, {nkept} kept elements, "
+              f"{ties} exact half-way ties; kernel {t['ms']:.4f} ms (whole "
+              f"wrapper call {t['call_ms']:.4f} ms), plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
               f"({t['bound'][1]})")
     return timings
 
 
-def slice_phase(torch, dc, fl, models, data) -> dict:
+def slice_phase(torch, dc, fl, models, data):
     task = data.synthetic.CIFAR_LIKE
     x, y = data.synthetic.make_image_dataset(
         torch.Generator().manual_seed(0), task, 6400)
@@ -174,7 +212,7 @@ def slice_phase(torch, dc, fl, models, data) -> dict:
                                             x, y, 8)
     print(f"slice phase: vgg11_thinned, {splits.num_clients} clients x "
           f"{splits.n_train} training images, test set {len(splits.test_y)}")
-    launches = {}
+    launches, rounds_out = {}, []
     for scenario, rounds, kernel, per_round in (
             ("device_encode_int8", 2, "delta_compress_batch", 1),
             ("codec_int8_k4", 1, "delta_compress", 4)):
@@ -188,6 +226,8 @@ def slice_phase(torch, dc, fl, models, data) -> dict:
             print(f"  {scenario} round {rec.round}: test_acc={rec.test_acc:.4f}"
                   f" train_loss={rec.train_loss:.4f} up_bytes={rec.up_bytes}"
                   f" wall_s={rec.wall_s:.3f}")
+            rounds_out.append([scenario, rec.round, rec.test_acc,
+                               rec.train_loss, rec.up_bytes, rec.wall_s])
             if rec.up_bytes != 4 * PAYLOAD_BYTES:
                 fail(f"{scenario}: up_bytes {rec.up_bytes} != "
                      f"{4 * PAYLOAD_BYTES}")
@@ -206,46 +246,61 @@ def slice_phase(torch, dc, fl, models, data) -> dict:
             if not torch.isfinite(leaf).all():
                 fail(f"{scenario}: non-finite server param {name}")
         launches[kernel] = counts[kernel]
-    return launches, splits
+    return launches, splits, rounds_out
 
 
-def small_input_check(torch, fl) -> None:
-    """The tiny scenario VGG, one round from the same seed, on the card and
-    on the CPU's plain path: equal bytes and close models.
+def small_input_check(torch, fl) -> dict:
+    """The tiny scenario VGG with 1,280 samples (3 local steps per client),
+    2 rounds from the same seed, on the card and on the CPU's plain path:
+    equal bytes and nearly the same model.
 
     Convolutions sum in another order in cuDNN than on the CPU, so an
-    element may cross a rounding boundary or the top-k threshold in one
-    client's update; that moves the mean by at most one client's update of
-    it, about ``local_lr`` per local Adam step.  So every server param is
-    held to ``1.5 * local_lr * steps``, fewer than the kept fraction
-    ``1 - fixed_sparsity`` of them may move by more than 1e-6, and test
-    accuracy may differ by at most 3 of the 96 test images (the bounds of
-    tests/test_torch_slice.py against the reference)."""
-    name = "device_encode_int8"
-    cpu = fl.run_scenario(name, rounds=1, device="cpu")
-    gpu = fl.run_scenario(name, rounds=1, device="cuda")
-    cfg = fl.build_protocol(fl.get_scenario(name), 1)
-    _, splits = fl.default_setting(fl.get_scenario(name).num_clients)
-    atol = 1.5 * cfg.local_lr * max(1, splits.n_train // cfg.batch_size)
-    if cpu.records[0].up_bytes != gpu.records[0].up_bytes:
-        fail("small input: up_bytes differ between card and CPU")
-    worst, moved, total = 0.0, 0, 0
-    for m, d in cpu.server.params.items():
-        for n, v in d.items():
-            diff = (gpu.server.params[m][n].cpu() - v).abs()
-            worst = max(worst, diff.max().item())
-            moved += int((diff > 1e-6).sum())
-            total += diff.numel()
-    acc_gap = abs(cpu.records[0].test_acc - gpu.records[0].test_acc)
-    print(f"small input: up_bytes {gpu.records[0].up_bytes} on both, max "
-          f"|param diff| {worst:.3g} (bound {atol:.3g}), {moved} of {total} "
-          f"params moved, test_acc gap {acc_gap:.4f}")
-    if (worst > atol or moved >= (1 - cfg.fixed_sparsity) * total
-            or acc_gap > 3 / 96 + 1e-6):
+    element of one client's update may cross a rounding boundary (the
+    server's mean moves by at most one quantization step) or the top-k
+    threshold (it moves by that client's whole update).  So, as
+    tests/test_torch_slice.py holds the port against the reference: every
+    server param within one quantization step except at most 5 flips, at
+    most 34 (0.5%) params off by more than 1e-6, every scale within one
+    fine step per round, and test accuracy within one of the 192 images."""
+    name, rounds = "device_encode_int8", 2
+    s = fl.get_scenario(name)
+    cfg = fl.build_protocol(s, rounds)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model, splits = fl.default_setting(s.num_clients, n_samples=1280)
+        runs[dev] = fl.run_scenario(name, rounds=rounds, model=model,
+                                    splits=splits, device=dev)
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    n_test = len(splits.test_y)
+    for rc, rg in zip(cpu.records, gpu.records):
+        if rc.up_bytes != rg.up_bytes:
+            fail(f"small input: round {rc.round} up_bytes differ between "
+                 f"card and CPU")
+        if abs(rc.test_acc - rg.test_acc) > 1 / n_test + 1e-6:
+            fail(f"small input: round {rc.round} test_acc {rg.test_acc} on "
+                 f"the card, {rc.test_acc} on the CPU")
+
+    def diffs(attr):
+        return torch.cat([(getattr(gpu.server, attr)[m][n].cpu() - v)
+                          .abs().reshape(-1)
+                          for m, d in getattr(cpu.server, attr).items()
+                          for n, v in d.items()])
+    dp, ds = diffs("params"), diffs("scales")
+    flips = int((dp > cfg.step_size * 1.01).sum())
+    off = int((dp > 1e-6).sum())
+    print(f"small input: {rounds} rounds, up_bytes {gpu.records[-1].up_bytes}"
+          f" on both; max |param diff| {dp.max().item():.3g}, {off} of "
+          f"{dp.numel()} params off by > 1e-6, {flips} flips; max |scale "
+          f"diff| {ds.max().item():.3g} (bound "
+          f"{rounds * cfg.fine_step_size:.3g})")
+    if (flips > 5 or off > 34
+            or ds.max().item() > rounds * cfg.fine_step_size * 1.01):
         fail("small input: the card's model is off the CPU plain path")
+    return {"max_param_diff": dp.max().item(), "params_off": off,
+            "flips": flips, "max_scale_diff": ds.max().item()}
 
 
-def profile_round(torch, fl, models, splits) -> None:
+def profile_round(torch, fl, models, splits) -> dict:
     """One more full-width device_encode_int8 round under torch.profiler:
     device-busy share of the round and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -269,14 +324,17 @@ def profile_round(torch, fl, models, splits) -> None:
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if not events:
         print("profile: the profiler saw no device time (not measured)")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None}
     print(f"profile: one profiled round {wall_ms:.1f} ms wall, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
     mine = [e for e in events if "delta_compress" in e.key]
-    print(f"  delta_compress kernels: {sum(dev_us(e) for e in mine) / 1e3:.3f}"
-          f" ms in {sum(e.count for e in mine)} launch(es)")
+    mine_ms = sum(dev_us(e) for e in mine) / 1e3
+    print(f"  delta_compress kernels: {mine_ms:.3f} ms in "
+          f"{sum(e.count for e in mine)} launch(es)")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "delta_compress_ms": mine_ms}
 
 
 def main() -> int:
@@ -286,6 +344,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import data, fl, models
+    from repro_torch.comms import device as device_mod
     from repro_torch.kernels import build
     from repro_torch.kernels import delta_compress as dc
 
@@ -295,19 +354,24 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    logs = build.build_all(ptxas_verbose=True)
-    print(f"build: {len(build.SOURCES)} source(s) in {time.time() - t0:.1f} s")
+    logs = build.build_all()
+    build_s = time.time() - t0
+    print(f"build: {len(build.SOURCES)} source(s) in {build_s:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    timings = kernel_phase(torch, dc)
+    checks = kernel_phase(torch, dc)
     t1 = time.time()
-    launches, splits = slice_phase(torch, dc, fl, models, data)
+    captured, originals = capture_buffers(device_mod)
+    launches, splits, rounds_out = slice_phase(torch, dc, fl, models, data)
+    for name, fn in originals.items():
+        setattr(device_mod, name, fn)
     print(f"slice phase: {time.time() - t1:.1f} s")
-    small_input_check(torch, fl)
-    profile_round(torch, fl, models, splits)
+    timings = main_path_kernels(torch, dc, captured)
+    small = small_input_check(torch, fl)
+    prof = profile_round(torch, fl, models, splits)
 
     replaces = {"delta_compress": "src/repro/kernels/delta_compress.py:47",
                 "delta_compress_batch":
@@ -325,6 +389,13 @@ def main() -> int:
             "call_ms": t["call_ms"], "shape": t["shape"]})
         if launches[name] < 1:
             fail(f"{name} was not launched on the main path")
+    print(json.dumps({"summary": {
+        "build_s": build_s, "random_input_checks": checks,
+        "rounds [scenario, round, test_acc, train_loss, up_bytes, wall_s]":
+            rounds_out,
+        "main_path_buffers": {n: {"kept": t["kept"], "ties": t["ties"]}
+                              for n, t in timings.items()},
+        "small_input_card_vs_cpu": small, "profiled_round": prof}}))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {dev}")
     print(json.dumps({"ok": True, "device": {

@@ -45,11 +45,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names=SOURCES, *, ptxas_verbose: bool = False) -> dict[str, str]:
+def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every library not built yet, one ``nvcc`` each, in parallel.
 
     Returns the compiler's messages per source (``-Xptxas -v`` adds each
-    kernel's registers and shared memory); raises if a build fails.
+    kernel's registers, spills and shared memory); raises if a build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -59,9 +59,8 @@ def build_all(names=SOURCES, *, ptxas_verbose: bool = False) -> dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose
-                                      else []),
-               "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -13,7 +13,13 @@ boundary, so reconstructions and residuals are held to one quantization
 step per element and at most 1% of the levels may differ; loss and BN
 statistics to rtol 1e-4.  (An element that crosses the top-k threshold
 instead moves by its whole value; these inputs have none, and
-tests/test_torch_slice.py bounds that case.)
+tests/test_torch_slice.py bounds that case.)  The Eq. 4 sub-epochs are
+held too: the validation accuracies that the accept rule compares must be
+equal, the scale levels at most one fine step apart at no more than 3% of
+the scale elements, and the scale optimizer's Adam moments within 1e-4 of
+each leaf's largest (the sums differ at ~1e-6 of it).  The seeds cover
+the accept rule's three outcomes: a sub-epoch that improves, one that ties
+``perf >= best_perf``, and none accepted (a zero scale delta).
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +40,7 @@ from repro_torch.core import sparsify
 from repro_torch.models import cnn
 
 STEP = 4.88e-4
+FINE = 2.38e-6
 
 
 def _model(m):
@@ -152,8 +159,9 @@ def test_scale_levels_teacher_forced_bitwise(seed):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_whole_client_round_within_tolerance(seed):
+@pytest.mark.parametrize("seed,accept", [
+    (0, "improves"), (1, "ties"), (2, "rejects")])
+def test_whole_client_round_within_tolerance(seed, accept):
     model, cfg, server, pers, ref_round = _ref_setup(seed)
     x, y, vx, vy, bidx = _data(seed)
     ref = jax.device_get(jax.jit(ref_round)(
@@ -193,3 +201,33 @@ def test_whole_client_round_within_tolerance(seed):
     assert int(out.persistent.opt_state.step) == int(
         ref.persistent.opt_state.step)
     assert int(out.persistent.sched_step) == int(ref.persistent.sched_step)
+
+    # Eq. 4 sub-epochs: these inputs reach the accept rule's outcome named
+    ref_slv, port_slv = _flat(ref.levels_scales), _flat_port(out.levels_scales)
+    gain = float(ref.metrics["val_acc"]) - float(
+        ref.metrics["val_acc_unscaled"])
+    sent = any(np.any(v) for v in ref_slv.values())
+    assert {"improves": gain > 0 and sent, "ties": gain == 0 and sent,
+            "rejects": not sent}[accept], (gain, sent)
+    # the accept rule compares the same accuracies, so decides the same
+    for m in ("val_acc_unscaled", "val_acc"):
+        assert float(out.metrics[m]) == float(ref.metrics[m]), m
+    ref_srec, port_srec = (_flat(ref.recon_delta_scales),
+                           _flat_port(out.recon_delta_scales))
+    moved = total = 0
+    for k in ref_slv:
+        np.testing.assert_allclose(port_srec[k], ref_srec[k], rtol=0,
+                                   atol=FINE * 1.01, err_msg=k)
+        moved += int(np.sum(port_slv[k] != ref_slv[k]))
+        total += ref_slv[k].size
+    assert moved <= 0.03 * total, (moved, total)
+    # the scale optimizer: Adam moments of the last sub-epoch's step
+    ref_so, port_so = (ref.persistent.scale_opt_state,
+                       out.persistent.scale_opt_state)
+    assert int(port_so.step) == int(ref_so.step)
+    for name in ("mu", "nu"):
+        port_m = _flat_port(getattr(port_so, name))
+        for k, v in _flat(getattr(ref_so, name)).items():
+            np.testing.assert_allclose(port_m[k], v, rtol=0,
+                                       atol=1e-4 * np.abs(v).max(),
+                                       err_msg=f"{name} {k}")
