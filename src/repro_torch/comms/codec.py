@@ -20,19 +20,12 @@ import numpy as np
 
 from repro_torch.core import quant as quant_lib
 from repro_torch.runtime import not_ported
-from repro_torch.tree import map_with_path, sorted_items, tree_map
+from repro_torch.tree import LeafSpec, map_with_path, sorted_items, tree_map
 
 __all__ = ["ClientUpdate", "Codec", "Decoded", "LeafSpec", "WireSpec",
            "check_batch_clients", "get_codec", "rebuild_tree",
            "register_codec", "resolve_codec", "shape_template",
            "sorted_items"]
-
-
-@dataclasses.dataclass(frozen=True)
-class LeafSpec:
-    """Shape of one logical float32 tensor in a wire template (a leaf, not
-    a tuple, so tree walks stop at it)."""
-    shape: tuple
 
 
 def shape_template(tree: Any) -> Any:
@@ -154,6 +147,8 @@ class Codec:
     still-stacked RoundOutput (``None`` = no fast path)."""
 
     name: str = "?"
+    # what encode reads: the reconstructions, or the int32 levels
+    needs: tuple[str, ...] = ("recon",)
 
     def encode(self, upd: ClientUpdate, spec: WireSpec) -> bytes:
         return self._encode_body(upd, spec)
@@ -191,8 +186,6 @@ class Codec:
 
 _REGISTRY: dict[str, Callable[[], Codec]] = {}
 _INSTANCES: dict[str, Codec] = {}
-# reference codecs whose port is still queued (ROADMAP.md)
-_NOT_PORTED = {"golomb", "nnc-cabac"}
 
 
 def register_codec(name: str, factory: Callable[[], Codec]) -> None:
@@ -202,8 +195,6 @@ def register_codec(name: str, factory: Callable[[], Codec]) -> None:
 
 
 def get_codec(name: str) -> Codec:
-    if name in _NOT_PORTED:
-        raise not_ported(f"codec {name!r}", "coding and level codecs")
     if name not in _INSTANCES:
         try:
             _INSTANCES[name] = _REGISTRY[name]()
@@ -215,7 +206,7 @@ def get_codec(name: str) -> Codec:
 
 def resolve_codec(codec: Any, quantize: bool = True) -> Codec:
     """``"auto"``: raw float32 for non-quantizing protocols, else the
-    paper's nnc-cabac stack (not ported yet)."""
+    paper's nnc-cabac stack."""
     if isinstance(codec, Codec):
         return codec
     if codec == "auto":

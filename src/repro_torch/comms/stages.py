@@ -3,6 +3,12 @@
 Port of ``repro.comms.stages``: delta extraction, error feedback (Eq. 5),
 sparsification and uniform quantization.  ``UpstreamStages.compress``
 returns ``(levels, recon, sparse)``, the boundary to the wire codecs.
+
+``UpstreamStages.compress_carry`` is the fused route of the same chain
+with error feedback on: where one threshold per leaf sparsifies
+(``UpstreamStages.fused``), each leaf's carry, threshold, quantization and
+new residual come from one ``level_assign`` kernel launch, bitwise equal
+to ``carry_residual -> compress -> new_residual``.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import torch
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import sparsify as sparsify_lib
-from repro_torch.tree import map_with_path, tree_map
+from repro_torch.kernels.level_assign import level_assign
+from repro_torch.tree import items, map_with_path, rebuild, tree_map
 
 
 def path_fine_mask(params: Any) -> Any:
@@ -73,6 +80,45 @@ class UpstreamStages:
         else:
             raise ValueError(f"unknown compression method: {self.method!r}")
         return levels, recon, sparse
+
+    @property
+    def fused(self) -> bool:
+        """Whether :meth:`compress_carry` applies: sparse, quantized, one
+        threshold per leaf (fixed-rate top-k or Eq. 2, not structured)."""
+        return (self.method == "sparse" and self.quantize
+                and sparsify_lib.one_threshold(self.sparsify))
+
+    def compress_carry(self, raw_delta: Any, residual: Any, fine_mask: Any):
+        """Error feedback + :meth:`compress` + the new residual, fused.
+
+        Per leaf: theta from ``|raw + residual|`` (the kernel forms the same
+        float32 sum), then one ``level_assign`` launch for the levels and
+        the new residual.  Returns ``(levels, recon, new_residual,
+        update_sparsity)``; the sparsity is the zero share of the
+        sparsified tensor (a kept element may still round to level 0).
+        """
+        if not self.fused:
+            raise ValueError("compress_carry needs a fused stage chain")
+        res = dict(items(residual))
+        fine = dict(items(fine_mask))
+        lv_by, recon_by, carry_by = {}, {}, {}
+        zeros, total = 0, 0
+        for path, d in items(raw_delta):
+            carried = d + res[path]
+            theta = sparsify_lib.leaf_threshold(carried, self.sparsify)
+            step = quant_lib.f32(self.quant.step_for(fine[path]), d)
+            lv, carry = level_assign(d.reshape(1, -1),
+                                     res[path].reshape(1, -1), theta, step,
+                                     max_level=self.quant.max_level)
+            lv_by[path] = lv = lv.reshape(d.shape)
+            carry_by[path] = carry.reshape(d.shape)
+            recon_by[path] = lv.to(torch.float32) * step
+            zeros = zeros + (d.numel() - torch.count_nonzero(
+                (torch.abs(carried) >= theta) & (carried != 0)))
+            total += d.numel()
+        sparsity = torch.as_tensor(zeros).to(torch.float32) / total
+        return (rebuild(raw_delta, lv_by), rebuild(raw_delta, recon_by),
+                rebuild(raw_delta, carry_by), sparsity)
 
 
 def quantize_scales_delta(s_delta: Any, fine_step_size: float):

@@ -5,7 +5,8 @@ Port of ``repro.core.protocol``.  One communication epoch for one client:
   1. start from the server state,
   2. train W locally with Adam on the round's batches (scales S frozen),
   3. differential update + error feedback (Eq. 5) + sparsification +
-     uniform quantization (``comms.stages``),
+     uniform quantization (``comms.stages``; with one threshold per leaf,
+     one fused ``level_assign`` kernel launch per leaf),
   4. filter-scale sub-epochs on the sparsely updated model (W and BN
      frozen), keeping the best sub-epoch under ``perf >= best_perf``,
   5. fine quantization of the scale delta.
@@ -189,13 +190,20 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
 
         # ---- 3. codec stages: delta + error feedback + sparsify + quant --
         raw_delta = stages_lib.extract_delta(params1, params0)
-        carried = stages_lib.carry_residual(raw_delta, persistent.residual,
-                                            cfg.error_feedback)
-        levels, recon_delta, sparse_delta = up_stages.compress(carried,
-                                                               fine_mask)
-        new_residual = stages_lib.new_residual(carried, recon_delta,
-                                               cfg.error_feedback,
-                                               persistent.residual)
+        if cfg.error_feedback and up_stages.fused:
+            # one level_assign launch per leaf (bitwise the chain below)
+            levels, recon_delta, new_residual, update_sparsity = (
+                up_stages.compress_carry(raw_delta, persistent.residual,
+                                         fine_mask))
+        else:
+            carried = stages_lib.carry_residual(
+                raw_delta, persistent.residual, cfg.error_feedback)
+            levels, recon_delta, sparse_delta = up_stages.compress(
+                carried, fine_mask)
+            new_residual = stages_lib.new_residual(
+                carried, recon_delta, cfg.error_feedback,
+                persistent.residual)
+            update_sparsity = sparsify_lib.tree_sparsity(sparse_delta)
         # the sparsely updated model that S-training sees (Alg. 1 line 11)
         params_hat = delta_lib.tree_add(params0, recon_delta)
 
@@ -231,7 +239,7 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
             "train_loss": torch.mean(torch.stack(losses)),
             "val_acc_unscaled": perf0,
             "val_acc": best_perf,
-            "update_sparsity": sparsify_lib.tree_sparsity(sparse_delta),
+            "update_sparsity": update_sparsity,
         }
         return RoundOutput(
             levels_params=levels, levels_scales=s_levels,

@@ -34,9 +34,19 @@ class QuantConfig:
         return self.fine_step_size if is_fine else self.step_size
 
 
+_F32: dict[tuple[float, torch.device], torch.Tensor] = {}
+
+
 def f32(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as a float32 0-d tensor on ``like``'s device."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """``value`` as a float32 0-d tensor on ``like``'s device, made once
+    per value and device (a host-to-device copy waits for the stream);
+    callers only read it."""
+    key = (value, like.device)
+    t = _F32.get(key)
+    if t is None:
+        t = _F32[key] = torch.tensor(value, dtype=torch.float32,
+                                     device=like.device)
+    return t
 
 
 def quantize(x: torch.Tensor, step_size: float,

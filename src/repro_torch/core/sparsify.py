@@ -81,13 +81,18 @@ def keep_count(n: int, sparsity: float, minimum: int = 1) -> int:
     return max(minimum, int(round(n * (1.0 - sparsity))))
 
 
+def topk_threshold(dw: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """The k-th largest ``|dw|`` at fixed sparsity, a 0-d tensor on
+    ``dw``'s device."""
+    flat = torch.abs(dw.reshape(-1))
+    k = keep_count(flat.shape[0], sparsity)
+    return torch.topk(flat, k).values[-1]
+
+
 def topk_mask_unstructured(dw: torch.Tensor, sparsity: float) -> torch.Tensor:
     """Magnitude top-k mask at fixed sparsity; keeps every ``|dw|`` at or
     above the k-th largest, exactly as the reference thresholds."""
-    flat = torch.abs(dw.reshape(-1))
-    k = keep_count(flat.shape[0], sparsity)
-    thresh = torch.topk(flat, k).values[-1]
-    return torch.abs(dw) >= thresh
+    return torch.abs(dw) >= topk_threshold(dw, sparsity)
 
 
 def sparsify_topk_unstructured(dw: torch.Tensor,
@@ -135,6 +140,23 @@ def sparsify(dw: torch.Tensor, cfg: SparsifyConfig) -> torch.Tensor:
     if cfg.unstructured:
         out = sparsify_unstructured(out, cfg.delta, cfg.step_size)
     return out
+
+
+def one_threshold(cfg: SparsifyConfig) -> bool:
+    """Whether ``cfg`` sparsifies every leaf by one threshold on ``|dw|``:
+    fixed-rate top-k or Eq. 2, without the structured (row) stage."""
+    return cfg.unstructured and not cfg.structured
+
+
+def leaf_threshold(dw: torch.Tensor, cfg: SparsifyConfig) -> torch.Tensor:
+    """theta of a one-threshold config (:func:`one_threshold`) as a 0-d
+    tensor on ``dw``'s device: ``sparsify(dw, cfg)`` is
+    ``where(|dw| >= theta, dw, 0)``."""
+    if not one_threshold(cfg):
+        raise ValueError("the structured stage has no single threshold")
+    if cfg.fixed_sparsity is not None:
+        return topk_threshold(dw, cfg.fixed_sparsity)
+    return unstructured_threshold(dw, cfg.delta, cfg.step_size)
 
 
 def sparsify_tree(tree, cfg: SparsifyConfig):

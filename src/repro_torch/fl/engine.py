@@ -20,6 +20,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.coding import nnc
 from repro_torch.core.protocol import ProtocolConfig, make_protocol
 from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl.executors import EXECUTORS, make_executor
@@ -29,6 +30,7 @@ from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
 from repro_torch.runtime import not_ported, resolve_device
+from repro_torch.tree import leaves, row, tree_map
 
 
 @dataclasses.dataclass
@@ -109,6 +111,35 @@ class EngineConfig:
         if self.device_encode and not self.measure_bytes:
             raise ValueError("device_encode builds real payloads on device: "
                              "set measure_bytes=True")
+
+
+# ------------------------------------------------------------- byte helpers
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def encode_client_bytes(levels_params: Any, levels_scales: Any,
+                        ternary: bool) -> int:
+    """DeepCABAC bytes of ONE client's update, as the reference accounts
+    them: the ``{"p", "s"}`` level message, plus one float32 magnitude per
+    params tensor for ternary updates."""
+    msg = {"p": tree_map(_host, levels_params),
+           "s": tree_map(_host, levels_scales)}
+    n = len(nnc.encode_tree(msg))
+    if ternary:
+        n += 4 * len(leaves(levels_params))
+    return n
+
+
+def measure_update_bytes(levels_params: Any, levels_scales: Any,
+                         num_clients: int, ternary: bool) -> int:
+    """DeepCABAC bytes summed over client-stacked uploads."""
+    return sum(encode_client_bytes(row(levels_params, i),
+                                   row(levels_scales, i), ternary)
+               for i in range(num_clients))
 
 
 class FederatedEngine:

@@ -6,10 +6,11 @@ compression):
     CohortPlan -> LocalTrain -> Uplink -> Aggregate -> ServerStep -> Evaluate
 
 ``Uplink`` puts every cohort member's update on the wire and aggregates
-only what decodes: per client through ``Codec.encode`` (for
-``int8-blockscale`` one kernel launch per client), or, under
-``EngineConfig.device_encode``, through ``Codec.encode_cohort`` (one launch
-and one device-to-host copy per cohort).
+only what decodes: per client through ``Codec.encode_batch`` (for
+``int8-blockscale`` one kernel launch per client; the level codecs take
+the cohort's levels to the host first), or, under
+``EngineConfig.device_encode``, through ``Codec.encode_cohort`` (one
+device program and one device-to-host copy per cohort).
 """
 from __future__ import annotations
 
@@ -177,11 +178,13 @@ class Uplink:
             payloads = self.codec.encode_cohort(out, self.spec,
                                                 clients=clients)
         if payloads is None:
-            payloads = [self.codec.encode(comms.ClientUpdate(
-                row(out.levels_params, i), row(out.levels_scales, i),
-                row(out.recon_delta_params, i),
-                row(out.recon_delta_scales, i)), self.spec)
-                for i in range(k)]
+            lv_p, lv_s = out.levels_params, out.levels_scales
+            if "levels" in self.codec.needs:   # host coders read numpy
+                lv_p, lv_s = tree_map(torch.Tensor.cpu, (lv_p, lv_s))
+            payloads = self.codec.encode_batch([comms.ClientUpdate(
+                row(lv_p, i), row(lv_s, i), row(out.recon_delta_params, i),
+                row(out.recon_delta_scales, i)) for i in range(k)],
+                self.spec, clients=clients)
         decs = self.codec.decode_batch(payloads, self.spec, clients=clients)
         return [Contribution(
             client=c, delta_params=dec.params, delta_scales=dec.scales,

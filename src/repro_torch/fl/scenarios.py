@@ -1,13 +1,19 @@
 """Scenario registry: named, reproducible federated settings.
 
-Port of ``repro.fl.scenarios`` for the two scenarios whose path reaches a
-kernel: ``codec_int8_k4`` (per-client int8-blockscale encode) and
-``device_encode_int8`` (the whole cohort's payloads from one device
-launch).  Both run the FSFL protocol (Table-2 row ``fsfl``) with cohorts of
-4 of 8 clients.
+Port of ``repro.fl.scenarios`` for the scenarios whose path reaches a
+kernel, all on the FSFL protocol (Table-2 row ``fsfl``, whose client runs
+the ``level_assign`` kernel once per leaf):
+
+* ``sync_full_fedavg_fsfl``: the paper's setting, all 8 clients, FedAvg,
+  nnc-cabac payloads encoded per client on the host;
+* ``device_encode_cabac``: the same with the cohort's row-skip flags
+  computed on the device and one device-to-host copy per cohort;
+* ``codec_int8_k4`` / ``device_encode_int8``: cohorts of 4 of 8 with
+  int8-blockscale payloads, one ``delta_compress`` launch per client or
+  one ``delta_compress_batch`` launch per cohort.
 
     from repro_torch.fl import run_scenario
-    result = run_scenario("device_encode_int8", rounds=2)   # on CUDA
+    result = run_scenario("sync_full_fedavg_fsfl", rounds=2)   # on CUDA
 """
 from __future__ import annotations
 
@@ -109,6 +115,15 @@ def get_scenario(name: str) -> Scenario:
         raise KeyError(f"unknown scenario {name!r}; known: {known}") from None
 
 
+register(Scenario("sync_full_fedavg_fsfl",
+                  "seed-parity setting: all clients, FedAvg server, FSFL "
+                  "protocol"))
+register(Scenario("device_encode_cabac",
+                  "device cohort encode for DeepCABAC: pass-1 row-skip "
+                  "flags computed on device for the stacked cohort, pass-2 "
+                  "range coding on host; payloads byte-identical to the "
+                  "host path",
+                  device_encode=True))
 register(Scenario("codec_int8_k4",
                   "int8-blockscale wire payloads (fused int8 quantizer, "
                   "one launch per client)",

@@ -5,6 +5,7 @@ tensor."""
 from __future__ import annotations
 
 from repro_torch.kernels import delta_compress as dc
+from repro_torch.kernels import level_assign as la
 
 
 def delta_compress(delta, theta, *, block=1024):
@@ -21,3 +22,9 @@ def delta_compress_flat(delta, theta, *, block=1024):
 def delta_compress_batch(deltas, theta, *, block=128):
     """Cohort (K, n) variant: one launch, rows equal to per-client calls."""
     return dc.delta_compress_batch(deltas, theta, block=block)
+
+
+def level_assign(deltas, residuals, theta, step, *, max_level=la.MAX_LEVEL):
+    """Stacked (K, n) rows sharing one theta and step: one launch."""
+    return la.level_assign(deltas, residuals, theta, step,
+                           max_level=max_level)

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.kernels.delta_compress import (delta_compress_batch_plain,
                                                 delta_compress_plain)
+from repro_torch.kernels.level_assign import MAX_LEVEL, level_assign_plain
 
 
 def delta_compress(delta: torch.Tensor, theta: float, block: int):
@@ -17,3 +18,10 @@ def delta_compress(delta: torch.Tensor, theta: float, block: int):
 def delta_compress_batch(deltas: torch.Tensor, theta: float, block: int):
     """Row-stacked oracle: row i == delta_compress(deltas[i], theta, block)."""
     return delta_compress_batch_plain(deltas, theta, block)
+
+
+def level_assign(deltas: torch.Tensor, residuals: torch.Tensor, theta,
+                 step, max_level: int = MAX_LEVEL):
+    """Fused EF carry (Eq. 5) -> threshold sparsify -> uniform quantize on
+    (K, n) rows -> (levels int32, carry float32)."""
+    return level_assign_plain(deltas, residuals, theta, step, max_level)

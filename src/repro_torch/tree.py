@@ -7,7 +7,15 @@ order.  ``None`` is an empty subtree, as in JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """Shape of one logical tensor in a shapes tree (a leaf, not a tuple,
+    so tree walks stop at it)."""
+    shape: tuple
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -56,11 +64,24 @@ def leaves(tree: Any) -> list[Any]:
 
 def map_with_path(fn: Callable[[str, Any], Any], tree: Any,
                   prefix: str = "") -> Any:
-    """``fn(path, leaf)`` over a dict tree."""
+    """``fn(path, leaf)`` over a tree, paths as in :func:`items`."""
+    def sub(k, v):
+        return map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
+        return {k: sub(k, v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(sub(i, v) for i, v in enumerate(tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(sub(i, v) for i, v in enumerate(tree))
     return fn(prefix, tree)
+
+
+def rebuild(template: Any, by_path: dict[str, Any]) -> Any:
+    """``template``'s structure with the leaf at each path from ``by_path``."""
+    return map_with_path(lambda path, _: by_path[path], template)
 
 
 def row(tree: Any, i) -> Any:

@@ -206,5 +206,10 @@ def test_vgg11_int8_payload_size():
 
 @pytest.mark.parametrize("name", ["golomb", "nnc-cabac", "auto"])
 def test_unported_codecs_raise(name):
+    """The level codecs are ported (``"auto"`` is nnc-cabac); the part of
+    them still queued, the schema-v2 frame with BN on the wire, raises."""
+    codec = comms.resolve_codec(name, quantize=True)
+    assert codec.name == ("nnc-cabac" if name == "auto" else name)
+    template = comms.shape_template(convert.to_tensors(_template()))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        comms.resolve_codec(name, quantize=True)
+        comms.WireSpec(params=template, bn=template, version=2)

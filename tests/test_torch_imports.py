@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package ``repro`` (an AST walk,
-so imports inside functions count too)."""
+"""The port stands alone: no module of ``src/repro_torch`` (the coding
+stack and ``run_federated`` included) and nothing in ``chip_smoke.py``
+imports JAX or the JAX package ``repro``, ``repro.obs`` included (an AST
+walk, so imports inside functions count too)."""
 import ast
 from pathlib import Path
 
@@ -28,6 +29,14 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_has_modules():
     assert len(FILES) > 20
+
+
+@pytest.mark.parametrize("module", [
+    "coding/__init__.py", "coding/errors.py", "coding/bitstream.py",
+    "coding/golomb.py", "coding/cabac.py", "coding/nnc.py", "core/fsfl.py",
+    "kernels/level_assign.py"])
+def test_walk_covers_the_main_path_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
