@@ -11,39 +11,60 @@ Phases (any failure exits non-zero):
 2. build every CUDA source of the port with ``nvcc`` (one process each,
    all started together), timed, with ``-Xptxas -v`` output;
 3. kernel phase: each kernel against its plain PyTorch version on the
-   card on random inputs, bitwise: ``delta_compress`` on q and scales at
-   the main path's shapes and ragged ones; ``level_assign`` on levels and
-   carry (bit patterns) at every ``vgg11_thinned`` leaf shape (K = 1) and
-   at (8, 849,834), with exact half-step and threshold ties;
+   card on random inputs: ``delta_compress`` bitwise on q and scales at
+   the main path's shapes and ragged ones; ``level_assign`` bitwise on
+   levels and carry (bit patterns) at every ``vgg11_thinned`` leaf shape
+   (K = 1) and at (8, 849,834), with exact half-step and threshold ties;
+   ``delta_apply`` bitwise at every leaf size and 849,834 with coef +1,
+   -1 and 0.5 and on unaligned views; ``row_stats`` at rtol 1e-6 at the
+   six (M, N) views of the weight leaves and ragged shapes;
 4. slice phase at full width: the paper's ``vgg11_thinned`` on 6,400
-   synthetic CIFAR-like images over 8 clients, FSFL (fixed sparsity 0.9).
-   The paper's main path first: 2 rounds of ``sync_full_fedavg_fsfl``
-   through ``run_federated`` (all 8 clients, FedAvg, nnc-cabac), whose
-   clients run ``level_assign`` once per leaf (224 launches a round), then
-   1 round of ``device_encode_cabac``, whose device-encoded payloads are
-   held byte for byte against the host encode of the same levels.  Then
-   the int8 uplink: 1 round each of ``device_encode_int8`` and
-   ``codec_int8_k4`` (cohorts of 4) through ``run_scenario``.  The launch
-   counters are set to 0 before and read after each path.  The first
-   buffer each kernel is given there (a copy) is kept (for
-   ``level_assign`` the first client's 28 leaves): each kernel is held
-   bitwise against its plain version on it and timed on it with CUDA
-   events (median of 50 launches after warm-up, L2 flushed before each)
-   beside the plain version and the memory bound.  Then a small-input
-   check, per uplink, that the tiny scenario VGG, 2 rounds with 3 local
-   steps per client, gives the same bytes and nearly the same model on
-   the card as the plain path on the CPU;
+   synthetic CIFAR-like images over 8 clients, FSFL (fixed sparsity 0.9),
+   batch 32 (17 local steps).  The launch counters are set to 0 before
+   and read after each path, and a path whose kernel was not launched
+   the expected number of times fails:
+
+   * the paper's main path: 2 rounds of ``sync_full_fedavg_fsfl`` through
+     ``run_federated`` (all 8 clients, FedAvg, nnc-cabac; ``level_assign``
+     once per leaf, 224 launches a round), then 1 round of
+     ``device_encode_cabac``, whose device-encoded payloads are held byte
+     for byte against the host encode of the same levels;
+   * the int8 uplink: 1 round each of ``device_encode_int8`` and
+     ``codec_int8_k4`` (cohorts of 4) through ``run_scenario``;
+   * bidirectional compression (§5.2).  Path A: 2 rounds of
+     ``run_federated(bidirectional=True)`` and 1 of ``bidi_sync_full``
+     (nnc-cabac both legs, ``level_assign`` on both: 252 a round).  Path
+     B: 2 rounds of the adaptive Eqs. 2+3 setting ``fsfl_dyn``,
+     bidirectional (``row_stats`` once per weight leaf per client and on
+     the downlink: 90 a round).  Path C: 2 rounds with int8-blockscale on
+     both legs, cohorts of 4 (``delta_apply`` 56 a round: the downlink's
+     residual and the server's apply, per leaf), the server's params
+     after each apply held bitwise against the host decode of the
+     broadcast plus the old params;
+
+   Each kernel is then held against its plain version on copies of the
+   first buffers its path gave it (``level_assign``: the first client's
+   28 leaves; ``delta_apply``: the first downlink's 28 residual calls;
+   ``row_stats``: the first client's 10 weight leaves, with the Eq. 3
+   keep masks and 50% ``topk_rows`` indices compared and any flip away
+   from a near-tie failing) and timed there with CUDA events (median of
+   50 launches after warm-up, L2 flushed before each, a spin kernel
+   ahead) beside the plain version and the bound.  Then a small-input
+   check per uplink and for ``bidi_sync_full``: the tiny scenario VGG, 2
+   rounds with 3 local steps per client, gives the same bytes and nearly
+   the same model on the card as the plain path on the CPU;
 5. a JSON summary of the run (build, rounds, profiles), a JSON line with
    every ported kernel's launches and times, the device line, and the
    final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
    last lines of the output.
 
-Between 4 and 5 one more round of ``sync_full_fedavg_fsfl`` and one of
-``device_encode_int8`` run under ``torch.profiler`` to print where a
-round's time goes (device-busy share, the kernels that take the most
-device time, and the host time in the CABAC coder's spans); the
-profiler's own host overhead makes those rounds slower than the
-unprofiled ones.
+Between 4 and 5 one more round of path C (4 clients, host and device
+activity), one of ``bidi_sync_full`` and one of path B (8 clients, device
+activity only, which the profiler processes in about a minute) run under
+``torch.profiler`` to print where a round's time goes: device-busy
+share, the kernels that take the most device time, and the host time in
+the coder's spans.  The profiler's own host overhead makes those rounds
+slower than the unprofiled ones.
 
 It imports nothing of the JAX package.  Without CUDA, or without the
 repository's ``src/`` beside it, it exits 1 and prints no result.
@@ -76,9 +97,18 @@ VGG_PARAMS, VGG_LEAVES = 849_834, 28
 # level and carry written
 LA_OPS_PER_ELEMENT = 10
 LA_BYTES_PER_ELEMENT = 16
+# delta_apply per element: w and q read, out written; q * s, coef *, +
+DA_BYTES_PER_ELEMENT = 9
+DA_OPS_PER_ELEMENT = 3
+DOWN_PAYLOAD_BYTES = 876_876     # the v1 int8 broadcast: params only
+# row_stats per element: |w| and + ; held to its plain version at rtol
+RS_OPS_PER_ELEMENT = 2
+RS_RTOL = 1e-6
+VGG_WEIGHTS = 10                 # leaves of two or more dimensions
 # host spans of the coding stack (repro_torch.runtime.span)
 SPANS = ("codec.encode_batch", "codec.decode_batch", "nnc.encode",
          "nnc.decode", "cabac.pass1.state_scan", "cabac.pass2.range_encode")
+PORT_SPANS = SPANS + ("downlink", "downlink.compress")
 
 
 def fail(msg: str) -> None:
@@ -135,6 +165,14 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_times(torch, kernel, plain, spin: int = 2_000_000) -> dict:
+    """Device times of the kernel and of its plain version, and the time
+    of a whole wrapper call (host included), in ms."""
+    return dict(ms=time_ms(torch, kernel, spin=spin),
+                plain_ms=time_ms(torch, plain, spin=spin),
+                call_ms=time_ms(torch, kernel, host_ahead=False))
 
 
 def compare(torch, dc, d, theta: float, block: int, batched: bool) -> float:
@@ -277,8 +315,7 @@ def main_path_kernels(torch, dc, captured) -> dict:
             plain = lambda: dc.delta_compress_plain(d, theta, block)
         k, n = rows.shape
         t = timings[name] = dict(
-            ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
-            call_ms=time_ms(torch, kernel, host_ahead=False),
+            **kernel_times(torch, kernel, plain),
             bound=bound_ms(k, n, block), max_abs_err=err,
             shape=list(d.shape), kept=nkept, ties=ties)
         print(f"  {name} {t['shape']} block {block} on the main path's "
@@ -347,22 +384,6 @@ def int8_slice_phase(torch, dc, la, fl, models, splits, rounds_out):
         check_server(torch, scenario, res.server)
         launches[kernel] = counts[kernel]
     return launches
-
-
-def capture_level_assign(stages_mod, keep: int) -> list:
-    """Wrap the fused stage chain's kernel entry point so that copies of
-    the first ``keep`` calls' inputs are kept; returns the list."""
-    captured = []
-    fn = stages_mod.level_assign
-
-    def wrapped(d, r, theta, step, *, max_level):
-        if len(captured) < keep:
-            captured.append((d.clone(), r.clone(), theta.clone(),
-                             step.clone()))
-        return fn(d, r, theta, step, max_level=max_level)
-
-    stages_mod.level_assign = wrapped
-    return captured
 
 
 def checked_cohort_encode(torch, codecs_mod, comms, tree_row, tree_map,
@@ -475,11 +496,8 @@ def la_main_path(torch, la, captured) -> dict:
              largest[0].numel(), 2_000_000),
             ("client", chain(la.level_assign), chain(la.level_assign_plain),
              sum(c[0].numel() for c in captured), 40_000_000)):
-        out[label] = dict(
-            ms=time_ms(torch, kernel, spin=spin),
-            plain_ms=time_ms(torch, plain, spin=spin),
-            call_ms=time_ms(torch, kernel, host_ahead=False),
-            bound=la_bound_ms(n), elements=n)
+        out[label] = dict(**kernel_times(torch, kernel, plain, spin),
+                          bound=la_bound_ms(n), elements=n)
         o = out[label]
         print(f"  level_assign {label} ({n} elements) on the main path's "
               f"buffer: bitwise; kernel {o['ms']:.4f} ms (whole wrapper "
@@ -541,11 +559,11 @@ def small_input_check(torch, fl, rounds_mod, name: str) -> dict:
         diff = sum(int((lc[k] != lg[k]).sum()) for k in lc)
         differing.append(diff)
         exact = diff == 0 or name.endswith("int8")
-        if (rc.up_bytes != rg.up_bytes if exact
-                else abs(rc.up_bytes - rg.up_bytes) > 0.005 * rc.up_bytes):
-            fail(f"small input {name}: round {rc.round} up_bytes "
-                 f"{rg.up_bytes} on the card, {rc.up_bytes} on the CPU "
-                 f"({diff} differing levels)")
+        for leg in ("up_bytes", "down_bytes"):
+            c, g = getattr(rc, leg), getattr(rg, leg)
+            if c != g if exact else abs(c - g) > 0.005 * c:
+                fail(f"small input {name}: round {rc.round} {leg} {g} on "
+                     f"the card, {c} on the CPU ({diff} differing levels)")
         if abs(rc.test_acc - rg.test_acc) > 1 / n_test + 1e-6:
             fail(f"small input {name}: round {rc.round} test_acc "
                  f"{rg.test_acc} on the card, {rc.test_acc} on the CPU")
@@ -560,9 +578,12 @@ def small_input_check(torch, fl, rounds_mod, name: str) -> dict:
     off = int((dp > 1e-6).sum())
     print(f"small input {name}: {rounds} rounds, up_bytes "
           f"{[r.up_bytes for r in gpu.records]} on the card, "
-          f"{[r.up_bytes for r in cpu.records]} on the CPU; differing levels "
-          f"{differing}; max |param diff| {dp.max().item():.3g}, {off} of "
-          f"{dp.numel()} params off by > 1e-6, {flips} flips; max |scale "
+          f"{[r.up_bytes for r in cpu.records]} on the CPU; down_bytes "
+          f"{[r.down_bytes for r in gpu.records]} on the card, "
+          f"{[r.down_bytes for r in cpu.records]} on the CPU; differing "
+          f"levels {differing}; max |param diff| {dp.max().item():.3g}, "
+          f"{off} of {dp.numel()} params off by > 1e-6, {flips} flips; "
+          f"max |scale "
           f"diff| {ds.max().item():.3g} (bound "
           f"{rounds * cfg.fine_step_size:.3g})")
     if (flips > 5 or off > 34
@@ -573,39 +594,53 @@ def small_input_check(torch, fl, rounds_mod, name: str) -> dict:
             "flips": flips, "max_scale_diff": ds.max().item(),
             "differing_levels": differing,
             "up_bytes_card": [r.up_bytes for r in gpu.records],
-            "up_bytes_cpu": [r.up_bytes for r in cpu.records]}
+            "up_bytes_cpu": [r.up_bytes for r in cpu.records],
+            "down_bytes_card": [r.down_bytes for r in gpu.records],
+            "down_bytes_cpu": [r.down_bytes for r in cpu.records]}
 
 
-def profile_round(torch, run, label: str, mine: str) -> dict:
+def profile_round(torch, run, label: str, mine: str,
+                  host: bool = True) -> dict:
     """One more full-width round under torch.profiler: device-busy share,
     the top kernels by device time, the kernels whose name holds ``mine``,
-    and the host time in the coding stack's spans."""
+    and, with ``host``, the host time in the coding stack's spans.  Without
+    ``host`` only device activity is traced, which the profiler processes
+    in a fraction of the time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    t_end = None
+    with profile(activities=activities) as prof:
         t0 = time.time()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+        t_end = time.time()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
     averages = prof.key_averages()
+    processing_s = time.time() - t_end
     spans = {e.key: e.cpu_time_total / 1e3 for e in averages
              if e.key in SPANS}
-    # the kernels themselves: an operator's entry repeats its kernels' time
+    # the kernels themselves: an operator's entry repeats its kernels'
+    # time, and so does a span's device-side annotation (a span that
+    # encloses kernels, such as downlink.compress, is listed on the device)
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
+              and dev_us(e) > 0 and e.key not in PORT_SPANS
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if not events:
         print(f"profile {label}: the profiler saw no device time "
               f"(not measured)")
         return {"wall_ms": wall_ms, "busy_ms": None, "host_spans_ms": spans}
     print(f"profile {label}: one profiled round {wall_ms:.1f} ms wall, "
-          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+          f"the profiler's processing took {processing_s:.1f} s")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
     ours = [e for e in events if mine in e.key]
@@ -616,9 +651,378 @@ def profile_round(torch, run, label: str, mine: str) -> dict:
         if key in spans:
             print(f"  host span {key}: {spans[key]:.1f} ms")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, f"{mine}_ms": ours_ms,
+            "busy_share": busy_ms / wall_ms, "processing_s": processing_s,
+            f"{mine}_ms": ours_ms,
             f"{mine}_launches": sum(e.count for e in ours),
             "host_spans_ms": spans}
+
+
+# ------------------------------------------------------------ slice 3
+
+def da_bound_ms(n: int, block: int = 128) -> tuple[float, str]:
+    """Least time for ``delta_apply`` over ``n`` elements: w and q read,
+    out written (9 bytes each), one scale per block, against 3 float32
+    operations each."""
+    nbytes = n * DA_BYTES_PER_ELEMENT + 4 * -(-n // block)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * DA_OPS_PER_ELEMENT / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rs_bound_ms(m: int, n: int) -> tuple[float, str]:
+    """Least time for ``row_stats`` on (m, n): every element read once and
+    one score per row written, against |.| and + per element."""
+    t_bytes = (4 * m * n + 4 * m) / HBM_BYTES_PER_S * 1e3
+    t_ops = m * n * RS_OPS_PER_ELEMENT / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def da_compare(torch, da, w, q, s, coef: float, block: int = 128) -> float:
+    """delta_apply kernel vs plain on the card, bit patterns; returns 0."""
+    out = da.delta_apply(w, q, s, coef, block=block)
+    want = da.delta_apply_plain(w, q, s, coef, block)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+        fail(f"delta_apply disagrees with its plain version (n "
+             f"{w.shape[0]}, coef {coef}, block {block}): "
+             f"{float((out - want).abs().max())}")
+    return 0.0
+
+
+def rs_compare(torch, rs, w) -> float:
+    """row_stats kernel vs plain on the card at rtol 1e-6; returns the max
+    relative difference."""
+    got = rs.row_stats(w)
+    want = rs.row_stats_plain(w)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not rel <= RS_RTOL:
+        fail(f"row_stats is {rel:.3g} (relative) off its plain version at "
+             f"{tuple(w.shape)}")
+    return rel
+
+
+def slice3_kernel_phase(torch, da, rs, models) -> int:
+    """delta_apply (bitwise) and row_stats (rtol 1e-6) against their plain
+    versions on random inputs at every vgg11_thinned leaf; returns the
+    number of checks."""
+    gen = torch.Generator().manual_seed(2)
+    params, _ = models.vgg11_thinned().init(torch.Generator().manual_seed(0))
+    leaves = [v for d in params.values() for v in d.values()]
+    checks = 0
+    for n in sorted({v.numel() for v in leaves}) + [VGG_PARAMS, 5, 129]:
+        w = (0.1 * torch.randn(n, generator=gen)).cuda()
+        q = torch.randint(-127, 128, (n,), generator=gen,
+                          dtype=torch.int8).cuda()
+        s = (1e-3 * torch.rand(-(-n // 128), generator=gen) + 1e-6).cuda()
+        for coef in (1.0, -1.0, 0.5):
+            da_compare(torch, da, w, q, s, coef)
+            checks += 1
+        if n > 8:       # views off a 16-byte boundary: the scalar pass
+            m = n - 3
+            da_compare(torch, da, w[3:], q[:m], s[:-(-m // 128)], -1.0)
+            checks += 1
+    worst = 0.0
+    views = sorted({(v.shape[0], v.numel() // v.shape[0]) for v in leaves
+                    if v.ndim >= 2})
+    for m, n in views + [(1, 1), (7, 1000), (130, 513)]:
+        rows = torch.rand((m, 1), generator=gen) + 0.2
+        w = (1e-3 * rows * torch.randn((m, n), generator=gen)).cuda()
+        worst = max(worst, rs_compare(torch, rs, w))
+        checks += 1
+    print(f"kernel phase: {checks} delta_apply (bitwise) and row_stats "
+          f"(max relative difference {worst:.3g}) comparisons at the "
+          f"{len(views)} weight views and every leaf size")
+    return checks
+
+
+def capture_calls(module, name: str, keep: int, clone) -> list:
+    """Wrap ``module.name`` so that ``clone(args, kwargs)`` of the first
+    ``keep`` calls is kept; returns the list.  The caller puts the
+    original back."""
+    captured = []
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        if len(captured) < keep:
+            captured.append(clone(args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    return captured
+
+
+def bidi_records(torch, scenario, res, splits, rounds_out, clients) -> None:
+    for rec in res.records:
+        print(f"  {scenario} round {rec.round}: test_acc={rec.test_acc:.4f} "
+              f"train_loss={rec.train_loss:.4f} up_bytes={rec.up_bytes} "
+              f"down_bytes={rec.down_bytes} "
+              f"sparsity={rec.update_sparsity:.4f} wall_s={rec.wall_s:.3f}")
+        rounds_out.append([scenario, rec.round, rec.test_acc,
+                           rec.train_loss, rec.up_bytes, rec.wall_s,
+                           rec.down_bytes])
+        if not (math.isfinite(rec.train_loss) and 0.0 <= rec.test_acc <= 1.0
+                and rec.up_bytes > 0 and rec.down_bytes > 0):
+            fail(f"{scenario}: bad round record {rec}")
+        if len(rec.participants) != clients:
+            fail(f"{scenario}: {len(rec.participants)} participants")
+    check_server(torch, scenario, res.server)
+
+
+def path_a(torch, la, fl, fsfl, models, splits, rounds_out) -> dict:
+    """Path A, the paper's bidirectional setting: 2 rounds of
+    run_federated(bidirectional=True) with fsfl, then 1 round of
+    bidi_sync_full; nnc-cabac on both legs, level_assign on both."""
+    launches = {}
+    for scenario, rounds in (("run_federated bidirectional", 2),
+                             ("bidi_sync_full", 1)):
+        cfg = fl.build_protocol(fl.get_scenario("bidi_sync_full"), rounds)
+        la.reset_counters()
+        if scenario == "bidi_sync_full":
+            res = fl.run_scenario(scenario, rounds=rounds,
+                                  model=models.vgg11_thinned(),
+                                  splits=splits, device="cuda")
+        else:
+            res = fsfl.run_federated(models.vgg11_thinned(), cfg, splits,
+                                     rounds, bidirectional=True,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        count = la.LAUNCHES["level_assign"]
+        bidi_records(torch, scenario, res, splits, rounds_out,
+                     splits.num_clients)
+        want = VGG_LEAVES * (splits.num_clients + 1) * rounds
+        print(f"  {scenario} launches: level_assign {count} "
+              f"({count / rounds:.0f} a round: {VGG_LEAVES} per client "
+              f"and {VGG_LEAVES} on the downlink)")
+        if count != want:
+            fail(f"{scenario}: level_assign launched {count} times, "
+                 f"expected {want}")
+        launches[scenario] = count
+    return launches
+
+
+def fsfl_dyn_config(protocol_mod, rounds: int):
+    """The reference's Fig. 4 setting (benchmarks/compression.py,
+    ``fsfl_dyn``): Eqs. 2+3 thresholds, no fixed rate, error feedback,
+    scaling."""
+    return protocol_mod.ProtocolConfig(
+        name="fsfl_dyn", method="sparse", delta=1.0, gamma=1.0,
+        batch_size=32, local_lr=2e-3, error_feedback=True, scaling=True,
+        scale_lr=2e-2, scale_subepochs=2, total_rounds=rounds)
+
+
+def path_b(torch, rs, sparsify_mod, protocol_mod, fsfl, models, splits,
+           rounds_out):
+    """Path B, the adaptive Eqs. 2+3 setting, bidirectional: 2 rounds of
+    run_federated(bidirectional=True) with fsfl_dyn; row_stats once per
+    weight leaf per client and on the downlink.  Returns (launches, the
+    first client's captured row_stats inputs)."""
+    rounds = 2
+    captured = capture_calls(sparsify_mod, "row_stats", VGG_WEIGHTS,
+                             lambda a, k: a[0].clone())
+    rs.reset_counters()
+    res = fsfl.run_federated(models.vgg11_thinned(),
+                             fsfl_dyn_config(protocol_mod, rounds), splits,
+                             rounds, bidirectional=True, device="cuda")
+    torch.cuda.synchronize()
+    count = rs.LAUNCHES["row_stats"]
+    sparsify_mod.row_stats = rs.row_stats
+    bidi_records(torch, "fsfl_dyn bidirectional", res, splits, rounds_out,
+                 splits.num_clients)
+    want = VGG_WEIGHTS * (splits.num_clients + 1) * rounds
+    print(f"  fsfl_dyn bidirectional launches: row_stats {count} "
+          f"({count / rounds:.0f} a round: {VGG_WEIGHTS} per client and "
+          f"{VGG_WEIGHTS} on the downlink)")
+    if count != want:
+        fail(f"fsfl_dyn: row_stats launched {count} times, expected {want}")
+    return count, captured
+
+
+def path_c(torch, da, dc, la, fl, rounds_mod, codecs_mod, models, splits,
+           rounds_out):
+    """Path C, the int8 broadcast: cohorts of 4, int8-blockscale on both
+    legs; the server's params after each apply are held bitwise against
+    the host decode of the broadcast payload plus the old params.
+    Returns (delta_apply launches, captured first calls, checked leaves)."""
+    from repro_torch.tree import items, sorted_items
+    rounds = 2
+    captured = capture_calls(rounds_mod, "delta_apply", VGG_LEAVES,
+                             lambda a, k: (a[0].clone(), a[1].clone(),
+                                           a[2].clone(), a[3]))
+    payloads = []
+    orig_sections = codecs_mod.Int8BlockScaleCodec.device_sections
+
+    def device_sections(self, payload, spec, device):
+        payloads.append((payload, spec))
+        return orig_sections(self, payload, spec, device)
+
+    applied = []
+    orig_apply = rounds_mod.Broadcast.apply
+
+    def apply(self, params):
+        out = orig_apply(self, params)
+        if self.int8 is not None:
+            applied.append(({k: v.cpu() for k, v in items(params)},
+                            {k: v.cpu() for k, v in items(out)}))
+        return out
+
+    codecs_mod.Int8BlockScaleCodec.device_sections = device_sections
+    rounds_mod.Broadcast.apply = apply
+    for mod in (da, dc, la):
+        mod.reset_counters()
+    res = fl.run_simulation(
+        models.vgg11_thinned(),
+        fl.build_protocol(fl.get_scenario("codec_int8_k4"), rounds), splits,
+        rounds, engine=fl.EngineConfig(
+            sampling=fl.SamplingConfig(cohort_size=4),
+            codec="int8-blockscale", bidirectional=True), device="cuda")
+    torch.cuda.synchronize()
+    counts = {"delta_apply": da.LAUNCHES["delta_apply"],
+              **dc.LAUNCHES, "level_assign": la.LAUNCHES["level_assign"]}
+    codecs_mod.Int8BlockScaleCodec.device_sections = orig_sections
+    rounds_mod.Broadcast.apply = orig_apply
+    rounds_mod.delta_apply = da.delta_apply
+    bidi_records(torch, "int8 bidirectional k4", res, splits, rounds_out, 4)
+    for rec in res.records:
+        if rec.up_bytes != 4 * PAYLOAD_BYTES:
+            fail(f"int8 bidirectional: up_bytes {rec.up_bytes}")
+        if rec.down_bytes != 4 * DOWN_PAYLOAD_BYTES:
+            fail(f"int8 bidirectional: down_bytes {rec.down_bytes} != "
+                 f"{4 * DOWN_PAYLOAD_BYTES}")
+    print(f"  int8 bidirectional k4 launches: {counts}")
+    want = {"delta_apply": 2 * VGG_LEAVES * rounds, "delta_compress":
+            5 * rounds, "delta_compress_batch": 0,
+            "level_assign": 5 * VGG_LEAVES * rounds}
+    if counts != want:
+        fail(f"int8 bidirectional: launches {counts}, expected {want}")
+    if len(applied) != rounds or len(payloads) != rounds:
+        fail(f"int8 bidirectional: {len(applied)} applies and "
+             f"{len(payloads)} broadcast payloads in {rounds} rounds")
+    checked = 0
+    for (before, after), (payload, spec) in zip(applied, payloads):
+        decoded = dict(sorted_items(codecs_mod.Int8BlockScaleCodec()
+                                    ._decode_body(payload, spec).params))
+        for path, w in before.items():
+            want_np = w.numpy() + decoded[path]
+            if not (after[path].numpy().view("int32")
+                    == want_np.view("int32")).all():
+                fail(f"int8 bidirectional: server param {path} is not the "
+                     f"host decode plus add")
+            checked += 1
+    print(f"  int8 bidirectional: the server's params after {rounds} "
+          f"applies bitwise equal to the host decode plus add "
+          f"({checked} leaves)")
+    return counts["delta_apply"], captured, checked
+
+
+def da_main_path(torch, da, captured) -> dict:
+    """delta_apply against its plain version on the buffers path C gave
+    it (the first downlink's 28 residual launches, coef -1), bitwise, then
+    timed: the first buffer, the largest, and the chain of 28."""
+    if len(captured) != VGG_LEAVES:
+        fail(f"path C gave delta_apply {len(captured)} buffers, expected "
+             f"{VGG_LEAVES}")
+    for w, q, s, coef in captured:
+        da_compare(torch, da, w, q, s, coef)
+    first = captured[0]
+    largest = max(captured, key=lambda c: c[0].numel())
+
+    def chain(fn):
+        return lambda: [fn(*c) for c in captured]
+
+    out = {}
+    for label, kernel, plain, n, spin in (
+            ("first", lambda: da.delta_apply(*first),
+             lambda: da.delta_apply_plain(*first, 128),
+             first[0].numel(), 2_000_000),
+            ("largest", lambda: da.delta_apply(*largest),
+             lambda: da.delta_apply_plain(*largest, 128),
+             largest[0].numel(), 2_000_000),
+            ("leaves", chain(da.delta_apply),
+             chain(lambda w, q, s, c: da.delta_apply_plain(w, q, s, c, 128)),
+             sum(c[0].numel() for c in captured), 40_000_000)):
+        out[label] = dict(**kernel_times(torch, kernel, plain, spin),
+                          bound=da_bound_ms(n), elements=n)
+        o = out[label]
+        print(f"  delta_apply {label} ({n} elements, coef {first[3]}) on "
+              f"path C's buffer: bitwise; kernel {o['ms']:.4f} ms (whole "
+              f"wrapper call {o['call_ms']:.4f} ms), plain "
+              f"{o['plain_ms']:.4f} ms, bound {o['bound'][0]:.5f} ms "
+              f"({o['bound'][1]})")
+    out["first"]["shape"] = list(first[0].shape)
+    out["largest"]["shape"] = list(largest[0].shape)
+    return out
+
+
+def rs_main_path(torch, rs, captured) -> dict:
+    """row_stats against its plain version on the buffers path B gave it
+    (the first client's 10 weight leaves) at rtol 1e-6; the Eq. 3 keep
+    masks and topk_rows indices from both, flipped rows counted only where
+    the score is within rtol of the threshold; then timed."""
+    if len(captured) != VGG_WEIGHTS:
+        fail(f"path B gave row_stats {len(captured)} buffers, expected "
+             f"{VGG_WEIGHTS}")
+    worst, worst_abs, flips, topk_flips, kept = 0.0, 0.0, 0, 0, 0
+    for w in captured:
+        worst = max(worst, rs_compare(torch, rs, w))
+        sk, sp = rs.row_stats(w), rs.row_stats_plain(w)
+        worst_abs = max(worst_abs, float((sk - sp).abs().max()))
+        tk, tp = torch.mean(sk), torch.mean(sp)
+        mk, mp = sk >= tk, sp >= tp
+        kept += int(mk.sum())
+        bad = mk != mp
+        if bad.any():
+            near = (sp[bad] - tp).abs() <= RS_RTOL * tp
+            if not near.all():
+                fail(f"row_stats: an Eq. 3 keep mask flips at a row away "
+                     f"from its threshold ({tuple(w.shape)})")
+            flips += int(bad.sum())
+        k = max(1, round(w.shape[0] * 0.5))
+        ik = torch.sort(torch.sort(sk, descending=True,
+                                   stable=True).indices[:k]).values
+        ip = torch.sort(torch.sort(sp, descending=True,
+                                   stable=True).indices[:k]).values
+        if not torch.equal(ik, ip):
+            kth = torch.sort(sp, descending=True).values[k - 1]
+            if (sp[ik[~torch.isin(ik, ip)]] - kth).abs().max() > (
+                    RS_RTOL * kth):
+                fail(f"row_stats: topk_rows indices differ away from a tie "
+                     f"({tuple(w.shape)})")
+            topk_flips += 1
+    print(f"  row_stats on path B's {len(captured)} buffers: max relative "
+          f"difference {worst:.3g}; Eq. 3 keep masks equal but for {flips} "
+          f"near-tie rows ({kept} rows kept); topk_rows (50%) indices equal "
+          f"but for {topk_flips} near-tie leaves")
+    first = captured[0]
+    largest = max(captured, key=lambda w: w.numel())
+
+    def chain(fn):
+        return lambda: [fn(w) for w in captured]
+
+    out = {"flips": flips, "topk_flips": topk_flips, "max_rel": worst,
+           "max_abs_err": worst_abs}
+    for label, kernel, plain, shape, spin in (
+            ("first", lambda: rs.row_stats(first),
+             lambda: rs.row_stats_plain(first), [tuple(first.shape)],
+             2_000_000),
+            ("largest", lambda: rs.row_stats(largest),
+             lambda: rs.row_stats_plain(largest), [tuple(largest.shape)],
+             2_000_000),
+            ("leaves", chain(rs.row_stats), chain(rs.row_stats_plain),
+             [tuple(w.shape) for w in captured], 20_000_000)):
+        bound = sum(rs_bound_ms(m, n)[0] for m, n in shape)
+        out[label] = dict(
+            **kernel_times(torch, kernel, plain, spin),
+            bound=(bound, rs_bound_ms(*shape[0])[1]),
+            shape=[list(x) for x in shape])
+        o = out[label]
+        where = (f"{shape[0]}" if len(shape) == 1
+                 else f"({len(shape)} launches)")
+        print(f"  row_stats {label} {where} on path B's buffers: kernel "
+              f"{o['ms']:.4f} ms (whole wrapper "
+              f"call {o['call_ms']:.4f} ms), plain {o['plain_ms']:.4f} ms, "
+              f"bound {o['bound'][0]:.6f} ms ({o['bound'][1]})")
+    return out
 
 
 def main() -> int:
@@ -632,10 +1036,14 @@ def main() -> int:
     from repro_torch.comms import device as device_mod
     from repro_torch.comms import stages as stages_mod
     from repro_torch.core import fsfl
+    from repro_torch.core import protocol as protocol_mod
+    from repro_torch.core import sparsify as sparsify_mod
     from repro_torch.fl import rounds as rounds_mod
     from repro_torch.kernels import build
+    from repro_torch.kernels import delta_apply as da
     from repro_torch.kernels import delta_compress as dc
     from repro_torch.kernels import level_assign as la
+    from repro_torch.kernels import row_stats as rs
     from repro_torch.tree import row, tree_map
 
     t_start = time.time()
@@ -662,13 +1070,16 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     t1 = phase("build", t0)
-    checks = kernel_phase(torch, dc) + la_kernel_phase(torch, la, models)
+    checks = (kernel_phase(torch, dc) + la_kernel_phase(torch, la, models)
+              + slice3_kernel_phase(torch, da, rs, models))
     t1 = phase("kernel phase", t1)
     splits = full_width_splits(torch, data)
     rounds_out = []
 
     # the paper's main path: nnc-cabac, all 8 clients, level_assign
-    la_captured = capture_level_assign(stages_mod, VGG_LEAVES)
+    la_captured = capture_calls(
+        stages_mod, "level_assign", VGG_LEAVES,
+        lambda a, k: tuple(x.clone() for x in a))
     cohorts = []
     orig_cohort = checked_cohort_encode(torch, codecs_mod, comms, row,
                                         tree_map, cohorts)
@@ -686,23 +1097,46 @@ def main() -> int:
         setattr(device_mod, name, fn)
     t1 = phase("int8 slice phase", t1)
 
+    # slice 3: bidirectional compression (paths A, B and C)
+    a_launches = path_a(torch, la, fl, fsfl, models, splits, rounds_out)
+    t1 = phase("path A (bidirectional, nnc-cabac)", t1)
+    rs_launches, rs_captured = path_b(torch, rs, sparsify_mod, protocol_mod,
+                                      fsfl, models, splits, rounds_out)
+    t1 = phase("path B (bidirectional, fsfl_dyn)", t1)
+    da_launches, da_captured, c_checked = path_c(
+        torch, da, dc, la, fl, rounds_mod, codecs_mod, models, splits,
+        rounds_out)
+    t1 = phase("path C (bidirectional, int8)", t1)
+
     timings = main_path_kernels(torch, dc, captured)
     la_timing = la_main_path(torch, la, la_captured)
+    da_timing = da_main_path(torch, da, da_captured)
+    rs_timing = rs_main_path(torch, rs, rs_captured)
     t1 = phase("main-path buffers", t1)
     small = {name: small_input_check(torch, fl, rounds_mod, name)
-             for name in ("sync_full_fedavg_fsfl", "device_encode_int8")}
+             for name in ("sync_full_fedavg_fsfl", "device_encode_int8",
+                          "bidi_sync_full")}
     t1 = phase("small-input checks", t1)
+    bidi_int8 = fl.Scenario("bidi_int8_k4", cohort_size=4,
+                            codec="int8-blockscale", bidirectional=True)
     prof = {
-        "sync_full_fedavg_fsfl": profile_round(
+        "bidi_int8_k4": profile_round(
             torch, lambda: fl.run_scenario(
-                "sync_full_fedavg_fsfl", rounds=1,
-                model=models.vgg11_thinned(), splits=splits, device="cuda"),
-            "sync_full_fedavg_fsfl", "level_assign"),
-        "device_encode_int8": profile_round(
+                bidi_int8, rounds=1, model=models.vgg11_thinned(),
+                splits=splits, device="cuda"),
+            "bidi_int8_k4 (path C)", "delta_apply"),
+        "bidi_sync_full": profile_round(
             torch, lambda: fl.run_scenario(
-                "device_encode_int8", rounds=1,
-                model=models.vgg11_thinned(), splits=splits, device="cuda"),
-            "device_encode_int8", "delta_compress")}
+                "bidi_sync_full", rounds=1, model=models.vgg11_thinned(),
+                splits=splits, device="cuda"),
+            "bidi_sync_full (path A, device activity only)", "level_assign",
+            host=False),
+        "fsfl_dyn_bidirectional": profile_round(
+            torch, lambda: fsfl.run_federated(
+                models.vgg11_thinned(), fsfl_dyn_config(protocol_mod, 1),
+                splits, 1, bidirectional=True, device="cuda"),
+            "fsfl_dyn bidirectional (path B, device activity only)",
+            "row_stats", host=False)}
     phase("profiled rounds", t1)
 
     replaces = {"delta_compress": "src/repro/kernels/delta_compress.py:47",
@@ -721,6 +1155,10 @@ def main() -> int:
             "call_ms": t["call_ms"], "shape": t["shape"]})
         if launches[name] < 1:
             fail(f"{name} was not launched on the main path")
+
+    def timed(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "call_ms", "bound")}
+
     first = la_timing["first"]
     kernels.append({
         "name": "level_assign", "route": "cuda",
@@ -731,24 +1169,60 @@ def main() -> int:
         "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
         "library_ms": None, "call_ms": first["call_ms"],
         "shape": first["shape"],
-        "largest": {k: la_timing["largest"][k] for k in
-                    ("shape", "ms", "plain_ms", "call_ms", "bound")},
-        "client_28_leaves": {k: la_timing["client"][k] for k in
-                             ("elements", "ms", "plain_ms", "call_ms",
-                              "bound")}})
+        "largest": {"shape": la_timing["largest"]["shape"],
+                    **timed(la_timing["largest"])},
+        "client_28_leaves": {"elements": la_timing["client"]["elements"],
+                             **timed(la_timing["client"])},
+        "launches_bidirectional_path_a":
+            a_launches["run_federated bidirectional"]})
     if la_launches["sync_full_fedavg_fsfl"] < 1:
         fail("level_assign was not launched on the main path")
+    first = da_timing["first"]
+    kernels.append({
+        "name": "delta_apply", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/delta_apply.cu",
+        "replaces": "src/repro/kernels/delta_compress.py:150",
+        "launches": da_launches, "max_abs_err": 0.0,
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+        "library_ms": None, "call_ms": first["call_ms"],
+        "shape": first["shape"],
+        "largest": {"shape": da_timing["largest"]["shape"],
+                    **timed(da_timing["largest"])},
+        "downlink_28_leaves": {"elements": da_timing["leaves"]["elements"],
+                               **timed(da_timing["leaves"])}})
+    first = rs_timing["first"]
+    kernels.append({
+        "name": "row_stats", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/row_stats.cu",
+        "replaces": "src/repro/kernels/row_stats.py:28",
+        "launches": rs_launches, "max_abs_err": rs_timing["max_abs_err"],
+        "max_rel_err": rs_timing["max_rel"],
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+        "library_ms": None, "call_ms": first["call_ms"],
+        "shape": first["shape"][0],
+        "largest": {"shape": rs_timing["largest"]["shape"][0],
+                    **timed(rs_timing["largest"])},
+        "client_10_leaves": timed(rs_timing["leaves"]),
+        "keep_mask_near_tie_flips": rs_timing["flips"]})
+    for k in kernels:
+        if k["launches"] < 1:
+            fail(f"{k['name']} was not launched on its path")
     print(json.dumps({"summary": {
         "build_s": build_s, "phase_s": phases,
         "total_s": time.time() - t_start, "random_input_checks": checks,
-        "rounds [scenario, round, test_acc, train_loss, up_bytes, wall_s]":
-            rounds_out,
+        "rounds [scenario, round, test_acc, train_loss, up_bytes, wall_s"
+        "(, down_bytes)]": rounds_out,
         "main_path_buffers": {
             **{n: {"kept": t["kept"], "ties": t["ties"]}
                for n, t in timings.items()},
             "level_assign": {"kept": la_timing["kept"],
-                             "ties": la_timing["ties"]}},
+                             "ties": la_timing["ties"]},
+            "row_stats": {"keep_mask_near_tie_flips": rs_timing["flips"],
+                          "topk_near_tie_leaves": rs_timing["topk_flips"]}},
         "device_encoded_nnc_payloads": cohorts,
+        "path_c_leaves_checked_against_host_decode": c_checked,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {dev}")

@@ -21,6 +21,7 @@ level stream.  Payloads are byte-identical to the reference's.
 from __future__ import annotations
 
 import copy
+import sys
 
 import numpy as np
 import torch
@@ -122,6 +123,34 @@ class Int8BlockScaleCodec(Codec):
     def encode_cohort(self, out, spec: WireSpec, *, clients=None):
         return comms_device.int8_encode_cohort(self, out, spec,
                                                clients=clients)
+
+    def device_sections(self, payload: bytes, spec: WireSpec,
+                        device) -> dict[str, tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+        """Each params leaf's wire int8 levels ``(n + pad,)`` (padded to
+        the block) and float32 block scales ``(ceil(n / block),)``, as
+        views into ONE host-to-device copy of ``payload``.  Dequantized
+        per block and cut to ``n``, they are :meth:`_decode_body`'s
+        params bit for bit; the scales section is not read."""
+        if sys.byteorder != "little":
+            raise RuntimeError("the wire format is little-endian")
+        buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        buf = buf.to(device)
+        off = 0
+        out = {}
+        for path, s in spec.param_items():
+            n = int(np.prod(s.shape)) if s.shape else 1
+            padded = n + (-n) % self.block
+            nblk = padded // self.block
+            if off + padded + 4 * nblk > len(payload):
+                raise ValueError(f"int8-blockscale payload of "
+                                 f"{len(payload)} bytes ends inside leaf "
+                                 f"{path!r}")
+            q = buf[off:off + padded].view(torch.int8)
+            off += padded
+            out[path] = (q, buf[off:off + 4 * nblk].view(torch.float32))
+            off += 4 * nblk
+        return out
 
     def _decode_body(self, payload: bytes, spec: WireSpec) -> Decoded:
         off = 0

@@ -4,6 +4,8 @@ Port of ``repro.core.fsfl``.  ``run_federated`` configures the engine for
 full participation, a FedAvg server with lr 1, the sync scheduler and wire
 schema v1 with the ``"auto"`` codec (nnc-cabac for quantizing protocols),
 and runs ``rounds`` rounds.  Clients run through the serial executor.
+With ``bidirectional`` the server's update is compressed for the broadcast
+too (§5.2), quantized with ``down_step_size``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,6 @@ from repro_torch.fl.engine import (EngineConfig, RoundRecord,  # noqa: F401
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig
 from repro_torch.models.cnn import CNNModel
-from repro_torch.runtime import not_ported
 
 __all__ = ["RoundRecord", "RunResult", "measure_update_bytes",
            "run_federated"]
@@ -32,14 +33,12 @@ def run_federated(model: CNNModel, cfg: ProtocolConfig,
     ``"cpu"`` is asked for).  ``seed`` draws the initial state and batch
     orders; ``init_state``/``plan`` fix them instead (see
     ``repro_torch.fl.engine.FederatedEngine``)."""
-    if bidirectional:
-        raise not_ported("bidirectional (downlink) compression "
-                         f"(down_step_size={down_step_size})",
-                         "bidirectional downlink")
     engine = EngineConfig(
         sampling=SamplingConfig(cohort_size=None),
         server_opt=ServerOptConfig(name="fedavg", lr=1.0),
         mode="sync",
+        bidirectional=bidirectional,
+        down_step_size=down_step_size,
         measure_bytes=measure_bytes)
     return run_simulation(model, cfg, splits, rounds, seed=seed,
                           engine=engine, init_state=init_state, plan=plan,

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.row_stats import row_stats
 from repro_torch.tree import leaves, tree_map
 
 
@@ -50,10 +51,15 @@ def sparsify_unstructured(dw: torch.Tensor, delta: float = 1.0,
 # ------------------------------------------------------------ Eq. 3
 
 def row_scores(dw: torch.Tensor) -> torch.Tensor:
-    """Mean ``|dw|`` per output slice (dim 0), shape (M,)."""
+    """Mean ``|dw|`` per output slice (dim 0), shape (M,).
+
+    A leaf of two or more dimensions goes through the ``row_stats`` kernel
+    on its ``(M, -1)`` view (its plain version on a CPU tensor)."""
     if dw.ndim == 0:
         return torch.abs(dw)[None]
-    return torch.mean(torch.abs(dw.reshape(dw.shape[0], -1)), dim=1)
+    if dw.ndim == 1:
+        return torch.mean(torch.abs(dw.reshape(dw.shape[0], -1)), dim=1)
+    return row_stats(dw.reshape(dw.shape[0], -1))
 
 
 def structured_threshold(dw: torch.Tensor, gamma: float) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Port of ``repro.fl.engine`` for the sync scheduler.  ``FederatedEngine``
 builds one instance of each ``repro_torch.fl.rounds`` stage and asks the
 scheduler for one ``RoundIntake`` per aggregation, which it folds through
-``Aggregate -> ServerStep -> Evaluate``.
+``Aggregate -> ServerStep (-> Downlink) -> Evaluate``.  With
+``EngineConfig.bidirectional`` the server's update is compressed and put
+on the wire before it is applied (§5.2), and ``down_bytes`` counts it.
 
 Randomness: standalone runs draw the initial state, cohorts and batch
 orders from one ``torch.Generator`` seeded with ``seed``.  Runs held
@@ -21,12 +23,13 @@ import numpy as np
 import torch
 
 from repro_torch.coding import nnc
+from repro_torch.core import quant as quant_lib
 from repro_torch.core.protocol import ProtocolConfig, make_protocol
 from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl.executors import EXECUTORS, make_executor
 from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
-                                   Evaluate, LocalTrain, RoundIntake,
-                                   ServerStep, Uplink)
+                                   Downlink, Evaluate, LocalTrain,
+                                   RoundIntake, ServerStep, Uplink)
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
 from repro_torch.runtime import not_ported, resolve_device
@@ -76,6 +79,7 @@ class EngineConfig:
         default_factory=ServerOptConfig)
     mode: str = "sync"
     bidirectional: bool = False
+    down_step_size: float = quant_lib.STEP_SIZE_BI
     measure_bytes: bool = True           # real wire round trips
     codec: Any = "auto"                  # registry name | comms.Codec
     wire_schema: int = 1
@@ -98,9 +102,6 @@ class EngineConfig:
                                  item)
         if self.mode == "async":
             raise not_ported("async scheduling", "async scheduling")
-        if self.bidirectional:
-            raise not_ported("bidirectional (downlink) compression",
-                             "bidirectional downlink")
         if self.mode not in SCHEDULERS:
             raise ValueError(f"unknown engine mode: {self.mode!r}")
         if self.executor not in EXECUTORS:
@@ -173,6 +174,9 @@ class FederatedEngine:
         self.aggregate = Aggregate(self.device)
         self.server_step = ServerStep(make_server_opt(engine_cfg.server_opt))
         self.server_step.init(server.params)
+        self.downlink = Downlink(cfg, engine_cfg.down_step_size,
+                                 server.params, self.uplink.codec,
+                                 engine_cfg.bidirectional)
         self.evaluate = Evaluate(evaluate, splits.test_x, splits.test_y)
         self.scheduler = SCHEDULERS[engine_cfg.mode]()
         self.scheduler.bind(self, gen, plan)
@@ -193,10 +197,12 @@ class FederatedEngine:
                 survivors = [intake.contributions[i]
                              for i in intake.survivors]
                 up_bytes = sum(c.payload_bytes for c in intake.contributions)
-                down_bytes = 0   # the broadcast is not put on the wire
+                down_bytes = 0
                 if survivors:
-                    self.server = self.server_step(self.server,
-                                                   self.aggregate(survivors))
+                    self.server, down_bytes = self.server_step(
+                        self.server, self.aggregate(survivors),
+                        self.downlink, intake.receivers,
+                        self.uplink.transmit)
                 cum += up_bytes + down_bytes
                 acc = self.evaluate(self.server)
                 rec = RoundRecord(

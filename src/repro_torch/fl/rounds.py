@@ -1,9 +1,9 @@
 """Round-lifecycle stages: the paper's Algorithm 1 as composable objects.
 
-Port of ``repro.fl.rounds`` (sync scheduling, gather ingest, no downlink
-compression):
+Port of ``repro.fl.rounds`` (sync scheduling, gather ingest):
 
-    CohortPlan -> LocalTrain -> Uplink -> Aggregate -> ServerStep -> Evaluate
+    CohortPlan -> LocalTrain -> Uplink -> Aggregate -> ServerStep
+    (-> Downlink) -> Evaluate
 
 ``Uplink`` puts every cohort member's update on the wire and aggregates
 only what decodes: per client through ``Codec.encode_batch`` (for
@@ -11,6 +11,12 @@ only what decodes: per client through ``Codec.encode_batch`` (for
 the cohort's levels to the host first), or, under
 ``EngineConfig.device_encode``, through ``Codec.encode_cohort`` (one
 device program and one device-to-host copy per cohort).
+
+``Downlink`` compresses the server's update for the broadcast (§5.2) with
+its own error feedback and puts it through the same codec; ``ServerStep``
+applies the decoded broadcast.  With ``int8-blockscale`` the apply and the
+downlink's residual are ``delta_apply`` launches on the payload's int8
+levels and block scales, one per leaf each.
 """
 from __future__ import annotations
 
@@ -21,15 +27,21 @@ import numpy as np
 import torch
 
 from repro_torch import comms
+from repro_torch.comms import stages as stages_lib
+from repro_torch.comms.codecs import Int8BlockScaleCodec
 from repro_torch.core import delta as delta_lib
+from repro_torch.core import quant as quant_lib
+from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.core.protocol import ProtocolConfig, ServerState
 from repro_torch.data.federated import client_epoch_batches
 from repro_torch.fl.executors import ClientExecutor
 from repro_torch.fl.sampling import (EmptyCohortError, SamplingConfig,
                                      sample_cohort)
 from repro_torch.fl.server_opt import server_update
+from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.optim import apply_updates
-from repro_torch.tree import row, tree_map
+from repro_torch.runtime import span
+from repro_torch.tree import items, rebuild, row, tree_map
 
 # ---------------------------------------------------------------- tree utils
 
@@ -72,9 +84,11 @@ class AggregatedRound:
 @dataclasses.dataclass
 class RoundIntake:
     """A scheduler's hand-off for ONE aggregation: every charged upload,
-    and the indices of those that aggregate."""
+    the indices of those that aggregate, and how many clients receive the
+    following broadcast."""
     contributions: list[Contribution]
     survivors: list[int]
+    receivers: int = 0
 
 
 # ---------------------------------------------------------------- cohort plan
@@ -217,8 +231,11 @@ class Aggregate:
 # ---------------------------------------------------------------- server step
 
 class ServerStep:
-    """Stage 5: fold one AggregatedRound into the server state.  The
-    broadcast is not compressed (the reference's inactive Downlink)."""
+    """Stage 5: fold one AggregatedRound into the server state.
+
+    The aggregated delta is a pseudo-gradient for the server optimizer;
+    the resulting update is what the Downlink may compress before it is
+    applied (the broadcast quantity, §5.2)."""
 
     def __init__(self, opt):
         self.opt = opt
@@ -227,14 +244,134 @@ class ServerStep:
     def init(self, params: Any) -> None:
         self.state = self.opt.init(params)
 
-    def __call__(self, server: ServerState,
-                 agg: AggregatedRound) -> ServerState:
+    def __call__(self, server: ServerState, agg: AggregatedRound,
+                 downlink: "Downlink", receivers: int,
+                 transmit: bool) -> tuple[ServerState, int]:
         updates, self.state = server_update(self.opt, self.state,
                                             agg.delta_params, server.params)
+        down_bytes = 0
+        with span("downlink"):
+            if downlink.active:
+                broadcast, down_bytes = downlink.compress(updates, receivers,
+                                                          transmit)
+                params = broadcast.apply(server.params)
+            else:
+                params = apply_updates(server.params, updates)
         return ServerState(
-            params=apply_updates(server.params, updates),
+            params=params,
             scales=delta_lib.tree_add(server.scales, agg.delta_scales),
-            bn_state=agg.bn_state)
+            bn_state=agg.bn_state), down_bytes
+
+
+# ---------------------------------------------------------------- downlink
+
+@dataclasses.dataclass
+class Broadcast:
+    """The decoded server->clients update.
+
+    ``recon`` is its float32 tree on the device; for ``int8-blockscale``
+    it is ``None`` and ``int8`` maps each leaf's path to its wire int8
+    levels and float32 block scales (device views of the payload), which
+    :meth:`apply` adds without building a float reconstruction."""
+    recon: Any = None
+    int8: dict[str, tuple[torch.Tensor, torch.Tensor]] | None = None
+    block: int = Int8BlockScaleCodec.block
+
+    def apply(self, params: Any) -> Any:
+        """``params + recon``: ``apply_updates``, or one ``delta_apply``
+        launch (coef +1) per leaf."""
+        if self.int8 is None:
+            return apply_updates(params, self.recon)
+        by_path = {path: apply_int8(w, *self.int8[path], 1.0, self.block)
+                   for path, w in items(params)}
+        return rebuild(params, by_path)
+
+
+def apply_int8(w: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+               coef: float, block: int) -> torch.Tensor:
+    """``w + coef * q * scale`` for one leaf of any shape; ``q`` may carry
+    the wire's padding past ``w.numel()``."""
+    flat = delta_apply(w.reshape(-1), q[:w.numel()], scales, coef,
+                       block=block)
+    return flat.reshape(w.shape)
+
+
+class Downlink:
+    """Stage 6: bidirectional server->clients compression with error
+    feedback (§5.2).
+
+    It works on the server *update* (the quantity broadcast): Eq. 5 carry
+    of its own residual, sparsification by the protocol's rules, uniform
+    quantization with ``step_size`` (``STEP_SIZE_BI``) on every leaf (no
+    fine mask), then the uplink's codec as a params-only message.  The
+    engine applies the DECODED broadcast and ``down_bytes`` is
+    ``receivers * len(payload)``.
+
+    Routes, as the uplink's (``comms.stages.UpstreamStages``): with one
+    threshold per leaf the carry, threshold, levels and the level codecs'
+    new residual come from one ``level_assign`` launch per leaf; the
+    structured stage takes the unfused chain, whose Eq. 3 scores come from
+    ``row_stats``.  With ``int8-blockscale`` the payload re-quantizes
+    ``levels * step`` per block (``delta_compress``, theta 0) and the new
+    residual is ``carried - q * scale`` (``delta_apply``, coef -1).
+    """
+
+    def __init__(self, cfg: ProtocolConfig, step_size: float, params0: Any,
+                 codec, bidirectional: bool):
+        self.active = bidirectional and cfg.method != "none"
+        self.codec = codec
+        self.stages = stages_lib.UpstreamStages(
+            method="sparse", quantize=True,
+            sparsify=sparsify_lib.SparsifyConfig(
+                delta=cfg.delta, gamma=cfg.gamma, step_size=step_size,
+                unstructured=cfg.unstructured, structured=cfg.structured,
+                fixed_sparsity=cfg.fixed_sparsity),
+            quant=quant_lib.QuantConfig(step_size=step_size,
+                                        fine_step_size=cfg.fine_step_size))
+        self.spec = comms.WireSpec(
+            params=comms.shape_template(params0), scales=None,
+            fine_mask=None, step_size=step_size,
+            fine_step_size=cfg.fine_step_size)
+        self.coarse = tree_map(lambda _: False, params0)
+        self.residual = tree_map(torch.zeros_like, params0)
+        self.last_payload_bytes = 0
+
+    def compress(self, updates: Any, receivers: int,
+                 transmit: bool) -> tuple[Broadcast, int]:
+        with span("downlink.compress", receivers=receivers):
+            carried = delta_lib.tree_add(updates, self.residual)
+            if self.stages.fused:
+                lv, recon, carry, _ = self.stages.compress_carry(
+                    updates, self.residual, self.coarse)
+            else:
+                lv, recon, _ = self.stages.compress(carried, self.coarse)
+                carry = delta_lib.tree_sub(carried, recon)
+            if not transmit:
+                self.residual = carry
+                return Broadcast(recon=recon), 0
+            payload = self.codec.encode(comms.ClientUpdate(
+                levels_params=lv, levels_scales=None, recon_params=recon,
+                recon_scales=None), self.spec)
+            self.last_payload_bytes = len(payload)
+            down = receivers * len(payload)
+            dev = items(updates)[0][1].device
+            if isinstance(self.codec, Int8BlockScaleCodec):
+                sections = self.codec.device_sections(payload, self.spec,
+                                                      dev)
+                self.residual = rebuild(carried, {
+                    path: apply_int8(c, *sections[path], -1.0,
+                                     self.codec.block)
+                    for path, c in items(carried)})
+                return Broadcast(int8=sections,
+                                 block=self.codec.block), down
+            decoded = tree_map(lambda x: torch.tensor(x, device=dev),
+                               self.codec.decode(payload, self.spec).params)
+            # a level codec decodes to exactly levels * step, so the
+            # fused chain's carry is the residual; other codecs may not
+            lossless_levels = "levels" in self.codec.needs
+            self.residual = (carry if lossless_levels else
+                             delta_lib.tree_sub(carried, decoded))
+            return Broadcast(recon=decoded), down
 
 
 # ---------------------------------------------------------------- evaluate
@@ -283,12 +420,14 @@ class SyncScheduler:
         clients = [int(c) for c in idx]
         out = eng.local_train.train_cohort(idx, bidx, eng.server)
         contribs = eng.uplink.intake(out, clients)
-        return RoundIntake(contribs, list(range(len(clients))))
+        return RoundIntake(contribs, list(range(len(clients))),
+                           receivers=len(clients))
 
     def log_line(self, rec, intake: RoundIntake) -> str:
         return (f"round {rec.round:3d} acc={rec.test_acc:.3f} "
                 f"cohort={len(intake.survivors)}/{len(intake.contributions)} "
                 f"up={rec.up_bytes / 1e6:.3f}MB "
+                f"down={rec.down_bytes / 1e6:.3f}MB "
                 f"sparsity={rec.update_sparsity:.3f}")
 
 

@@ -8,6 +8,9 @@ the ``level_assign`` kernel once per leaf):
   nnc-cabac payloads encoded per client on the host;
 * ``device_encode_cabac``: the same with the cohort's row-skip flags
   computed on the device and one device-to-host copy per cohort;
+* ``bidi_sync_full``: the paper's setting with the server's broadcast
+  compressed too (§5.2): its own error feedback, top-k, ``STEP_SIZE_BI``
+  levels (one ``level_assign`` launch per leaf) and nnc-cabac;
 * ``codec_int8_k4`` / ``device_encode_int8``: cohorts of 4 of 8 with
   int8-blockscale payloads, one ``delta_compress`` launch per client or
   one ``delta_compress_batch`` launch per cohort.
@@ -124,6 +127,9 @@ register(Scenario("device_encode_cabac",
                   "range coding on host; payloads byte-identical to the "
                   "host path",
                   device_encode=True))
+register(Scenario("bidi_sync_full",
+                  "bidirectional compression of the server broadcast (§5.2)",
+                  bidirectional=True))
 register(Scenario("codec_int8_k4",
                   "int8-blockscale wire payloads (fused int8 quantizer, "
                   "one launch per client)",

@@ -4,8 +4,10 @@ the CUDA kernel on a CUDA tensor and takes the plain version on a CPU
 tensor."""
 from __future__ import annotations
 
+from repro_torch.kernels import delta_apply as da
 from repro_torch.kernels import delta_compress as dc
 from repro_torch.kernels import level_assign as la
+from repro_torch.kernels import row_stats as rs
 
 
 def delta_compress(delta, theta, *, block=1024):
@@ -28,3 +30,14 @@ def level_assign(deltas, residuals, theta, step, *, max_level=la.MAX_LEVEL):
     """Stacked (K, n) rows sharing one theta and step: one launch."""
     return la.level_assign(deltas, residuals, theta, step,
                            max_level=max_level)
+
+
+def delta_apply(w, q, scales, coef=1.0, *, block=1024):
+    """Flat (n,) w and q, ``ceil(n/block)`` scales: ``w + coef * q * s``."""
+    return da.delta_apply(w, q, scales, coef, block=block)
+
+
+def row_stats(w):
+    """(M, N) -> (M,) mean |w| per row: the true row sum over N, with no
+    padding to block sizes (the reference pads and rescales)."""
+    return rs.row_stats(w)

@@ -5,9 +5,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.delta_apply import delta_apply_plain
 from repro_torch.kernels.delta_compress import (delta_compress_batch_plain,
                                                 delta_compress_plain)
 from repro_torch.kernels.level_assign import MAX_LEVEL, level_assign_plain
+from repro_torch.kernels.row_stats import row_stats_plain
 
 
 def delta_compress(delta: torch.Tensor, theta: float, block: int):
@@ -25,3 +27,14 @@ def level_assign(deltas: torch.Tensor, residuals: torch.Tensor, theta,
     """Fused EF carry (Eq. 5) -> threshold sparsify -> uniform quantize on
     (K, n) rows -> (levels int32, carry float32)."""
     return level_assign_plain(deltas, residuals, theta, step, max_level)
+
+
+def delta_apply(w: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                block: int, mean_coef: float = 1.0) -> torch.Tensor:
+    """Fused dequant + apply: w + coef * (q * scale) (server-side update)."""
+    return delta_apply_plain(w, q, scales, mean_coef, block)
+
+
+def row_stats(w: torch.Tensor) -> torch.Tensor:
+    """Per-output-row mean |w|: the Eq. 3 structured-sparsity score."""
+    return row_stats_plain(w)

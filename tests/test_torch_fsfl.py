@@ -52,7 +52,7 @@ from repro_torch import convert
 from repro_torch.core import fsfl
 from repro_torch.core.protocol import baseline_configs
 from repro_torch.data.federated import FederatedSplits
-from repro_torch.fl import rounds
+from repro_torch.fl import rounds, scenarios
 from repro_torch.kernels import level_assign as la
 from repro_torch.models import cnn
 
@@ -155,6 +155,14 @@ def test_run_federated_matches_reference(name, monkeypatch):
 
 
 def test_bidirectional_is_not_ported():
-    with pytest.raises(NotImplementedError, match="bidirectional downlink"):
-        fsfl.run_federated(None, baseline_configs()["fsfl"], None, 1,
-                           bidirectional=True, device="cpu")
+    """Kept under its first name: bidirectional compression is ported now
+    (tests/test_torch_bidi.py holds it against the reference), so
+    ``run_federated(bidirectional=True)`` runs and puts the broadcast on
+    the wire with ``down_step_size``."""
+    model, splits = scenarios.default_setting(2, n_samples=320)
+    cfg = baseline_configs(**COMMON)["fsfl"]
+    res = fsfl.run_federated(model, cfg, splits, 1, bidirectional=True,
+                             down_step_size=2.0 ** -12, device="cpu")
+    rec = res.records[0]
+    assert rec.down_bytes > 0
+    assert rec.cum_bytes == rec.up_bytes + rec.down_bytes
