@@ -18,11 +18,15 @@ Phases (any failure exits non-zero):
    ``delta_apply`` bitwise at every leaf size and 849,834 with coef +1,
    -1 and 0.5 and on unaligned views; ``row_stats`` at rtol 1e-6 at the
    six (M, N) views of the weight leaves and ragged shapes;
+   ``scaled_matmul``'s forward, dx, dw and ds within the float32 error
+   bound at the dense layers' shapes (M = 32, 120, 960) and ragged ones;
 4. slice phase at full width: the paper's ``vgg11_thinned`` on 6,400
    synthetic CIFAR-like images over 8 clients, FSFL (fixed sparsity 0.9),
    batch 32 (17 local steps).  The launch counters are set to 0 before
    and read after each path, and a path whose kernel was not launched
-   the expected number of times fails:
+   the expected number of times fails.  Every path runs the dense layers
+   on ``scaled_matmul`` (forward, dx, dw, ds: 866, 816, 272, 544 a round
+   over 8 clients, 434, 408, 136, 272 over cohorts of 4):
 
    * the paper's main path: 2 rounds of ``sync_full_fedavg_fsfl`` through
      ``run_federated`` (all 8 clients, FedAvg, nnc-cabac; ``level_assign``
@@ -47,12 +51,16 @@ Phases (any failure exits non-zero):
    28 leaves; ``delta_apply``: the first downlink's 28 residual calls;
    ``row_stats``: the first client's 10 weight leaves, with the Eq. 3
    keep masks and 50% ``topk_rows`` indices compared and any flip away
-   from a near-tie failing) and timed there with CUDA events (median of
-   50 launches after warm-up, L2 flushed before each, a spin kernel
-   ahead) beside the plain version and the bound.  Then a small-input
-   check per uplink and for ``bidi_sync_full``: the tiny scenario VGG, 2
-   rounds with 3 local steps per client, gives the same bytes and nearly
-   the same model on the card as the plain path on the CPU;
+   from a near-tie failing; ``scaled_matmul``: each direction at each
+   shape the main path gave it) and timed there with CUDA events (median
+   of 50 launches after warm-up, L2 flushed before each, a spin kernel
+   ahead) beside the plain version, the bound and, for ``scaled_matmul``,
+   ``torch.mm`` and a multiply.  Then a small-input check per uplink and
+   for ``bidi_sync_full``: the tiny scenario VGG, 2 rounds with 3 local
+   steps per client, with cuDNN's deterministic algorithms, gives the
+   same bytes and nearly the same model on the card as the plain path on
+   the CPU, with the clients' discrete decisions counted apart
+   (``compare_small_runs``);
 5. a JSON summary of the run (build, rounds, profiles), a JSON line with
    every ported kernel's launches and times, the device line, and the
    final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
@@ -71,6 +79,7 @@ repository's ``src/`` beside it, it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -105,6 +114,8 @@ DOWN_PAYLOAD_BYTES = 876_876     # the v1 int8 broadcast: params only
 RS_OPS_PER_ELEMENT = 2
 RS_RTOL = 1e-6
 VGG_WEIGHTS = 10                 # leaves of two or more dimensions
+STEPS = 17                       # local steps a round: 560 images, batch 32
+SCALE_SUBEPOCHS = 2
 # host spans of the coding stack (repro_torch.runtime.span)
 SPANS = ("codec.encode_batch", "codec.decode_batch", "nnc.encode",
          "nnc.decode", "cabac.pass1.state_scan", "cabac.pass2.range_encode")
@@ -346,19 +357,20 @@ def check_server(torch, name, server) -> None:
                     fail(f"{name}: non-finite server value {m}/{n}")
 
 
-def int8_slice_phase(torch, dc, la, fl, models, splits, rounds_out):
+def int8_slice_phase(torch, dc, la, sm, fl, models, splits, rounds_out):
     launches = {}
     for scenario, rounds, kernel, per_round in (
             ("device_encode_int8", 1, "delta_compress_batch", 1),
             ("codec_int8_k4", 1, "delta_compress", 4)):
-        dc.reset_counters()
-        la.reset_counters()
+        for mod in (dc, la, sm):
+            mod.reset_counters()
         res = fl.run_scenario(scenario, rounds=rounds,
                               model=models.vgg11_thinned(), splits=splits,
                               device="cuda")
         torch.cuda.synchronize()
         counts = dict(dc.LAUNCHES)
         la_count = la.LAUNCHES["level_assign"]
+        check_sm(sm, scenario, 4, rounds)
         for rec in res.records:
             print(f"  {scenario} round {rec.round}: test_acc={rec.test_acc:.4f}"
                   f" train_loss={rec.train_loss:.4f} up_bytes={rec.up_bytes}"
@@ -413,7 +425,7 @@ def checked_cohort_encode(torch, codecs_mod, comms, tree_row, tree_map,
     return orig
 
 
-def nnc_slice_phase(torch, la, fl, fsfl, models, splits, rounds_out,
+def nnc_slice_phase(torch, la, sm, fl, fsfl, models, splits, rounds_out,
                     checked: list):
     """The paper's main path: 2 rounds of sync_full_fedavg_fsfl through
     run_federated, then 1 round of device_encode_cabac."""
@@ -423,6 +435,7 @@ def nnc_slice_phase(torch, la, fl, fsfl, models, splits, rounds_out,
         s = fl.get_scenario(scenario)
         cfg = fl.build_protocol(s, rounds)
         la.reset_counters()
+        sm.reset_counters()
         if scenario == "sync_full_fedavg_fsfl":
             res = fsfl.run_federated(models.vgg11_thinned(), cfg, splits,
                                      rounds, device="cuda")
@@ -432,6 +445,7 @@ def nnc_slice_phase(torch, la, fl, fsfl, models, splits, rounds_out,
                                   splits=splits, device="cuda")
         torch.cuda.synchronize()
         count = la.LAUNCHES["level_assign"]
+        check_sm(sm, scenario, splits.num_clients, rounds)
         for rec in res.records:
             print(f"  {scenario} round {rec.round}: "
                   f"test_acc={rec.test_acc:.4f} "
@@ -511,101 +525,343 @@ def la_main_path(torch, la, captured) -> dict:
     return out
 
 
-def capture_levels(rounds_mod) -> tuple[list, object]:
-    """Wrap ``Uplink.intake`` so that each round's stacked params levels
-    are kept on the host; returns (log, original)."""
-    log = []
-    orig = rounds_mod.Uplink.intake
+SMALL_ROUNDS = 2
+SMALL_SAMPLES = 1280     # 3 local steps per client on the tiny VGG
+SMALL_SCENARIOS = ("sync_full_fedavg_fsfl", "device_encode_int8",
+                   "bidi_sync_full")
+MAX_FLIPS = 5            # params off by more than one quantization step
+MAX_OFF = 34             # params off by more than 1e-6 (0.5% of 6,786)
+MAX_COUNTED = 1          # clients a round whose scales are counted apart
+# float32 noise keeps the two devices' scale gradients within about 1e-6
+# of their norm in a step; a max-pool or ReLU that routes the backward
+# another way parts them by 1e-5 to 1e-2 (PERF.md §2)
+GRAD_EVENT = 1e-4
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms, and no autotuning, for the
+    duration; the previous settings are restored after."""
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = old
+
+
+def record_small_run(torch, fl, rounds_mod, name: str, device: str):
+    """One run of scenario ``name`` on the tiny scenario VGG with 1,280
+    samples (3 local steps per client) for 2 rounds on ``device``, with
+    each round's discrete decisions kept on the host: per client its params
+    and scale levels, the kept Eq. 4 sub-epoch (``scale_epoch``, 0 for
+    none), its decoded scale delta as the server aggregates it, and the
+    gradient and update of each of its scale steps; the broadcast's
+    reconstruction where there is a downlink; the server's state after the
+    round.  Returns (RunResult, the per-round log, the number of test
+    images)."""
+    from repro_torch.core import protocol as protocol_mod
+    from repro_torch.fl import executors
+    from repro_torch.tree import items
+
+    def host(tree):
+        return {path: torch.as_tensor(v).detach().cpu()
+                for path, v in items(tree)}
+
+    def is_scales(tree):
+        return all(v.ndim <= 1 for _, v in items(tree))
+
+    s = fl.get_scenario(name)
+    model, splits = fl.default_setting(s.num_clients, n_samples=SMALL_SAMPLES)
+    log, steps = [], []     # steps: per client trained, its scale steps
+    intake0 = rounds_mod.Uplink.intake
+    step0 = rounds_mod.ServerStep.__call__
+    compress0 = rounds_mod.Downlink.compress
+    bind0 = executors.SerialExecutor.bind
+    grad0 = protocol_mod._grad_tree
+    apply0 = protocol_mod.apply_updates
+
+    def bind(self, client_round):
+        def traced(*args):
+            steps.append([])
+            return client_round(*args)
+        bind0(self, traced)
+
+    def grad_tree(loss, tree):
+        grads = grad0(loss, tree)
+        if is_scales(tree):
+            steps[-1].append({"grad": host(grads)})
+        return grads
+
+    def apply_updates(params, updates):
+        if is_scales(params):
+            steps[-1][-1]["update"] = host(updates)
+        return apply0(params, updates)
 
     def intake(self, out, clients):
-        log.append({f"{m}/{n}": v.cpu() for m, d in out.levels_params.items()
-                    for n, v in d.items()})
-        return orig(self, out, clients)
+        contribs = intake0(self, out, clients)
+        if len(steps) != len(clients):
+            raise RuntimeError(f"{len(steps)} clients trained, "
+                               f"{len(clients)} in the cohort")
+        decoded = [host(c.delta_scales) for c in contribs]
+        log.append({"clients": list(clients),
+                    "params": host(out.levels_params),
+                    "scales": host(out.levels_scales),
+                    "scale_epoch": out.metrics["scale_epoch"].cpu(),
+                    "scale_delta": {p: torch.stack([d[p] for d in decoded])
+                                    for p in decoded[0]},
+                    "scale_steps": list(steps), "down": {}})
+        steps.clear()
+        return contribs
 
-    rounds_mod.Uplink.intake = intake
-    return log, orig
+    def server_step(self, server, agg, downlink, receivers, transmit):
+        new, down = step0(self, server, agg, downlink, receivers, transmit)
+        log[-1]["server_params"] = host(new.params)
+        log[-1]["server_scales"] = host(new.scales)
+        return new, down
+
+    def compress(self, updates, receivers, transmit):
+        broadcast, down = compress0(self, updates, receivers, transmit)
+        if broadcast.recon is not None:
+            log[-1]["down"] = host(broadcast.recon)
+        return broadcast, down
+
+    patches = [(rounds_mod.Uplink, "intake", intake, intake0),
+               (rounds_mod.ServerStep, "__call__", server_step, step0),
+               (rounds_mod.Downlink, "compress", compress, compress0),
+               (executors.SerialExecutor, "bind", bind, bind0),
+               (protocol_mod, "_grad_tree", grad_tree, grad0),
+               (protocol_mod, "apply_updates", apply_updates, apply0)]
+    for owner, attr, new, _ in patches:
+        setattr(owner, attr, new)
+    try:
+        res = fl.run_scenario(name, rounds=SMALL_ROUNDS, model=model,
+                              splits=splits, device=device)
+    finally:
+        for owner, attr, _, old in patches:
+            setattr(owner, attr, old)
+    return res, log, len(splits.test_y)
 
 
-def small_input_check(torch, fl, rounds_mod, name: str) -> dict:
-    """The tiny scenario VGG with 1,280 samples (3 local steps per client),
-    2 rounds from the same seed, on the card and on the CPU's plain path:
-    equal bytes and nearly the same model.
+def scale_event(base_steps, run_steps) -> tuple[int | None, list[float]]:
+    """The first scale step (0-based) at which the two runs' scale
+    gradients part by more than ``GRAD_EVENT`` of their norm in some leaf,
+    or None; and that ratio at every step."""
+    ratios = []
+    for a, b in zip(base_steps, run_steps, strict=True):
+        ratios.append(max(
+            (float((b["grad"][path] - g).norm() / g.norm().clamp_min(1e-30))
+             for path, g in a["grad"].items() if g.ndim == 1), default=0.0))
+    event = next((t for t, r in enumerate(ratios) if r > GRAD_EVENT), None)
+    return event, ratios
 
-    Convolutions sum in another order in cuDNN than on the CPU, so an
-    element of one client's update may cross a rounding boundary (the
-    server's mean moves by at most one quantization step) or the top-k
-    threshold (it moves by that client's whole update).  So, as
-    tests/test_torch_slice.py holds the port against the reference: every
-    server param within one quantization step except at most 5 flips, at
-    most 34 (0.5%) params off by more than 1e-6, every scale within one
-    fine step per round, and test accuracy within one of the 192 images.
-    Bytes: the int8 payload's length is fixed, so equal; an nnc-cabac
-    payload is equal where every client's levels are, else within 0.5%."""
-    rounds = 2
-    s = fl.get_scenario(name)
-    cfg = fl.build_protocol(s, rounds)
-    runs, levels = {}, {}
-    for dev in ("cpu", "cuda"):
-        model, splits = fl.default_setting(s.num_clients, n_samples=1280)
-        levels[dev], orig = capture_levels(rounds_mod)
-        runs[dev] = fl.run_scenario(name, rounds=rounds, model=model,
-                                    splits=splits, device=dev)
-        rounds_mod.Uplink.intake = orig
-    cpu, gpu = runs["cpu"], runs["cuda"]
-    n_test = len(splits.test_y)
-    differing = []
-    for rc, rg, lc, lg in zip(cpu.records, gpu.records, levels["cpu"],
-                              levels["cuda"]):
-        diff = sum(int((lc[k] != lg[k]).sum()) for k in lc)
-        differing.append(diff)
-        exact = diff == 0 or name.endswith("int8")
+
+def scale_cap(base_steps, run_steps, start: int) -> dict:
+    """Per scale leaf, how far apart the two runs' scale steps can move a
+    client's scale delta when they part at step ``start``: the difference
+    of their updates before it, both updates whole from it on."""
+    cap = {}
+    for t, (a, b) in enumerate(zip(base_steps, run_steps, strict=True)):
+        for path, u in a["update"].items():
+            v = b["update"][path]
+            cap[path] = cap.get(path, 0.0) + (
+                (v - u).abs() if t < start else u.abs() + v.abs())
+    return cap
+
+
+def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
+                       n_test: int) -> tuple[dict, list[str]]:
+    """Hold ``run`` and its recorded decisions (``record_small_run``)
+    against ``base`` and its own; returns (counts, failures).
+
+    Convolutions sum in another order in cuDNN than on the CPU, and a
+    client's training may then take another discrete decision.  Those are
+    counted apart, per round and per client, and bounded by what they move:
+
+    * a params level that crosses a rounding boundary moves the server's
+      mean by at most one quantization step, a top-k flip by that client's
+      whole update (``flips``): every server param within one quantization
+      step except at most 5 flips, and at most 34 (0.5%) params off by more
+      than 1e-6;
+    * a client whose scale levels lie more than one level apart is counted
+      apart only for a discrete cause found in its record: another kept
+      sub-epoch (the Eq. 4 accept decision), a top-k flip in its params, or
+      a scale step at which the two runs' scale gradients part by more than
+      ``GRAD_EVENT`` of their norm (a max-pool or ReLU routing the backward
+      another way).  At most 1 such client a round.  Its two decoded scale
+      deltas may lie apart by no more than its scale steps can move them
+      from the cause on (``scale_cap``, plus one fine step), and that
+      difference over the cohort size is taken out of the server's scales;
+      every scale must then lie within one fine step a round (a client's
+      scale level may cross one rounding boundary);
+    * test accuracy within one image; bytes equal where every client's
+      params levels are (int8 payloads always), else within 0.5%.
+
+    Differing downlink levels are counted and printed; they move server
+    params by one downlink step, which the params bounds hold."""
+    failures, rounds = [], []
+    fine = cfg.fine_step_size
+    d_scales = {path: run_log[-1]["server_scales"][path] - v
+                for path, v in base_log[-1]["server_scales"].items()}
+    raw = max(float(d.abs().max()) for d in d_scales.values())
+    for r, (rb, rr, lb, lr) in enumerate(zip(base.records, run.records,
+                                             base_log, run_log), 1):
+        if lb["clients"] != lr["clients"]:
+            failures.append(f"round {r}: cohorts {lr['clients']} and "
+                            f"{lb['clients']}")
+            continue
+        k = len(lb["clients"])
+        per_client = []
+        for i, c in enumerate(lb["clients"]):
+            topk = rounding = 0
+            for path, v in lb["params"].items():
+                a, b = v[i], lr["params"][path][i]
+                topk += int(((a == 0) != (b == 0)).sum())
+                rounding += int(((a != b) & (a != 0) & (b != 0)).sum())
+            level_diff = [(v[i] - lr["scales"][path][i]).abs()
+                          for path, v in lb["scales"].items()]
+            widest = int(max(float(d.max()) for d in level_diff))
+            epochs = (int(lb["scale_epoch"][i]), int(lr["scale_epoch"][i]))
+            event, ratios = scale_event(lb["scale_steps"][i],
+                                        lr["scale_steps"][i])
+            causes = (["kept sub-epoch"] if epochs[0] != epochs[1] else []) + (
+                ["top-k flip"] if topk else []) + (
+                [f"scale step {event + 1}"] if event is not None else [])
+            counted = bool(causes) and widest > 1
+            diff = {p: lr["scale_delta"][p][i] - v[i]
+                    for p, v in lb["scale_delta"].items()}
+            moved = max(float(d.abs().max()) for d in diff.values()) / k
+            over = 0.0
+            if counted:
+                start = 0 if epochs[0] != epochs[1] or topk else event
+                cap = scale_cap(lb["scale_steps"][i], lr["scale_steps"][i],
+                                start)
+                over = max(float((d.abs() - cap[p] - fine * 1.01).max())
+                           for p, d in diff.items())
+                if over > 0:
+                    failures.append(
+                        f"round {r}: client {c}'s scale delta moved "
+                        f"{over:.3g} more than its scale steps can from its "
+                        f"{', '.join(causes)} on")
+                for p, d in diff.items():
+                    d_scales[p] = d_scales[p] - d / k
+            per_client.append({
+                "client": c, "scale_epoch": epochs, "topk_flips": topk,
+                "rounding": rounding, "grad_ratios": ratios,
+                "causes": causes, "counted": counted,
+                "scale_levels": sum(int((d != 0).sum()) for d in level_diff),
+                "max_scale_level_diff": widest, "moves_server_scale": moved,
+                "over_cap": max(over, 0.0)})
+        counted = sum(p["counted"] for p in per_client)
+        down = sum(int((v != lr["down"][path]).sum())
+                   for path, v in lb["down"].items())
+        levels = sum(p["topk_flips"] + p["rounding"] for p in per_client)
+        rounds.append({"round": r, "counted": counted,
+                       "params_levels": levels, "down_levels": down,
+                       "clients": [p for p in per_client if p["causes"]
+                                   or p["topk_flips"] or p["rounding"]
+                                   or p["scale_levels"]]})
+        if counted > MAX_COUNTED:
+            failures.append(f"round {r}: the scales of {counted} clients "
+                            f"counted apart (at most {MAX_COUNTED})")
+        exact = levels == 0 or name.endswith("int8")
         for leg in ("up_bytes", "down_bytes"):
-            c, g = getattr(rc, leg), getattr(rg, leg)
-            if c != g if exact else abs(c - g) > 0.005 * c:
-                fail(f"small input {name}: round {rc.round} {leg} {g} on "
-                     f"the card, {c} on the CPU ({diff} differing levels)")
-        if abs(rc.test_acc - rg.test_acc) > 1 / n_test + 1e-6:
-            fail(f"small input {name}: round {rc.round} test_acc "
-                 f"{rg.test_acc} on the card, {rc.test_acc} on the CPU")
+            b, g = getattr(rb, leg), getattr(rr, leg)
+            if b != g if exact else abs(b - g) > 0.005 * b:
+                failures.append(f"round {r}: {leg} {g} against {b} "
+                                f"({levels} differing levels)")
+        if abs(rb.test_acc - rr.test_acc) > 1 / n_test + 1e-6:
+            failures.append(f"round {r}: test_acc {rr.test_acc} against "
+                            f"{rb.test_acc}")
 
-    def diffs(attr):
-        return torch.cat([(getattr(gpu.server, attr)[m][n].cpu() - v)
-                          .abs().reshape(-1)
-                          for m, d in getattr(cpu.server, attr).items()
-                          for n, v in d.items()])
-    dp, ds = diffs("params"), diffs("scales")
+    dp = torch.cat([(run_log[-1]["server_params"][path] - v).abs().reshape(-1)
+                    for path, v in base_log[-1]["server_params"].items()])
     flips = int((dp > cfg.step_size * 1.01).sum())
     off = int((dp > 1e-6).sum())
-    print(f"small input {name}: {rounds} rounds, up_bytes "
-          f"{[r.up_bytes for r in gpu.records]} on the card, "
-          f"{[r.up_bytes for r in cpu.records]} on the CPU; down_bytes "
-          f"{[r.down_bytes for r in gpu.records]} on the card, "
-          f"{[r.down_bytes for r in cpu.records]} on the CPU; differing "
-          f"levels {differing}; max |param diff| {dp.max().item():.3g}, "
-          f"{off} of {dp.numel()} params off by > 1e-6, {flips} flips; "
-          f"max |scale "
-          f"diff| {ds.max().item():.3g} (bound "
-          f"{rounds * cfg.fine_step_size:.3g})")
-    if (flips > 5 or off > 34
-            or ds.max().item() > rounds * cfg.fine_step_size * 1.01):
+    rest = max(float(d.abs().max()) for d in d_scales.values())
+    bound = SMALL_ROUNDS * fine
+    if flips > MAX_FLIPS:
+        failures.append(f"{flips} server params off by more than one "
+                        f"quantization step (at most {MAX_FLIPS})")
+    if off > MAX_OFF:
+        failures.append(f"{off} server params off by more than 1e-6 (at "
+                        f"most {MAX_OFF})")
+    if rest > bound * 1.01:
+        failures.append(f"server scales {rest:.3g} apart where no counted "
+                        f"client moved them (bound {bound:.3g}; "
+                        f"{raw:.3g} in all)")
+    report = {"max_param_diff": float(dp.max()), "params_off": off,
+              "flips": flips, "max_scale_diff": raw,
+              "max_scale_diff_others": rest, "scale_bound": bound,
+              "counted": [x["counted"] for x in rounds],
+              "differing_levels": [x["params_levels"] for x in rounds],
+              "differing_down_levels": [x["down_levels"] for x in rounds],
+              "rounds": rounds,
+              "up_bytes": [[x.up_bytes for x in base.records],
+                           [x.up_bytes for x in run.records]],
+              "down_bytes": [[x.down_bytes for x in base.records],
+                             [x.down_bytes for x in run.records]]}
+    return report, failures
+
+
+def small_input_check(torch, fl, rounds_mod, name: str,
+                      cpu_runs: dict) -> dict:
+    """Scenario ``name`` on the tiny VGG, 2 rounds from the same seed on
+    the card and on the CPU's plain path, held together by
+    ``compare_small_runs``; fails on any failure it reports.  The card's
+    run uses cuDNN's deterministic algorithms, so the verdict can be
+    reproduced; the CPU run is kept in ``cpu_runs``."""
+    cfg = fl.build_protocol(fl.get_scenario(name), SMALL_ROUNDS)
+    if name not in cpu_runs:
+        cpu_runs[name] = record_small_run(torch, fl, rounds_mod, name, "cpu")
+    cpu, cpu_log, n_test = cpu_runs[name]
+    with deterministic_cudnn(torch):
+        card, card_log, _ = record_small_run(torch, fl, rounds_mod, name,
+                                             "cuda")
+    report, failures = compare_small_runs(torch, cfg, name, cpu, cpu_log,
+                                          card, card_log, n_test)
+    print(f"small input {name}: {SMALL_ROUNDS} rounds, up_bytes "
+          f"{report['up_bytes'][1]} on the card, {report['up_bytes'][0]} on "
+          f"the CPU; down_bytes {report['down_bytes'][1]} on the card, "
+          f"{report['down_bytes'][0]} on the CPU; counted apart: "
+          f"{report['flips']} flips, clients' scales {report['counted']} a "
+          f"round; differing levels {report['differing_levels']}, downlink "
+          f"{report['differing_down_levels']}; max |param diff| "
+          f"{report['max_param_diff']:.3g}, {report['params_off']} params "
+          f"off by > 1e-6; max |scale diff| {report['max_scale_diff']:.3g}, "
+          f"{report['max_scale_diff_others']:.3g} without the counted "
+          f"clients (bound {report['scale_bound']:.3g}); cuDNN "
+          f"deterministic")
+    for rnd in report["rounds"]:
+        for c in rnd["clients"]:
+            worst = max(c["grad_ratios"], default=0.0)
+            apart = (f" (counted apart for {', '.join(c['causes'])}: moves a "
+                     f"server scale by {c['moves_server_scale']:.3g})"
+                     if c["counted"] else
+                     f" (causes found: {', '.join(c['causes'])})"
+                     if c["causes"] else "")
+            print(f"  round {rnd['round']} client {c['client']}: kept "
+                  f"sub-epoch {c['scale_epoch'][1]} on the card, "
+                  f"{c['scale_epoch'][0]} on the CPU; params levels: "
+                  f"{c['topk_flips']} top-k flips, {c['rounding']} rounding "
+                  f"crossings; scale gradients apart by at most {worst:.2g} "
+                  f"of their norm; {c['scale_levels']} scale levels differ, "
+                  f"by at most {c['max_scale_level_diff']}{apart}")
+    if failures:
         fail(f"small input {name}: the card's model is off the CPU plain "
-             f"path")
-    return {"max_param_diff": dp.max().item(), "params_off": off,
-            "flips": flips, "max_scale_diff": ds.max().item(),
-            "differing_levels": differing,
-            "up_bytes_card": [r.up_bytes for r in gpu.records],
-            "up_bytes_cpu": [r.up_bytes for r in cpu.records],
-            "down_bytes_card": [r.down_bytes for r in gpu.records],
-            "down_bytes_cpu": [r.down_bytes for r in cpu.records]}
+             f"path: " + "; ".join(failures))
+    return report
 
 
 def profile_round(torch, run, label: str, mine: str,
                   host: bool = True) -> dict:
     """One more full-width round under torch.profiler: device-busy share,
-    the top kernels by device time, the kernels whose name holds ``mine``,
-    and, with ``host``, the host time in the coding stack's spans.  Without
-    ``host`` only device activity is traced, which the profiler processes
-    in a fraction of the time."""
+    the top kernels by device time, the kernels whose name holds ``mine``
+    and those of ``scaled_matmul``, and, with ``host``, the host time in
+    the coding stack's spans.  Without ``host`` only device activity is
+    traced, which the profiler processes in a fraction of the time."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if host:
@@ -643,18 +899,195 @@ def profile_round(torch, run, label: str, mine: str,
           f"the profiler's processing took {processing_s:.1f} s")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
-    ours = [e for e in events if mine in e.key]
-    ours_ms = sum(dev_us(e) for e in ours) / 1e3
-    print(f"  {mine} kernels: {ours_ms:.3f} ms in "
-          f"{sum(e.count for e in ours)} launch(es)")
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms, "processing_s": processing_s,
+           "host_spans_ms": spans}
+    for name in (mine, "scaled_matmul"):
+        ours = [e for e in events if name in e.key]
+        out[f"{name}_ms"] = sum(dev_us(e) for e in ours) / 1e3
+        out[f"{name}_launches"] = sum(e.count for e in ours)
+        print(f"  {name} kernels: {out[f'{name}_ms']:.3f} ms in "
+              f"{out[f'{name}_launches']} launch(es)")
     for key in SPANS:
         if key in spans:
             print(f"  host span {key}: {spans[key]:.1f} ms")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, "processing_s": processing_s,
-            f"{mine}_ms": ours_ms,
-            f"{mine}_launches": sum(e.count for e in ours),
-            "host_spans_ms": spans}
+    return out
+
+
+# ------------------------------------------------------------ slice 4
+
+def sm_expected(clients: int, rounds: int, steps: int = STEPS,
+                sub: int = SCALE_SUBEPOCHS) -> dict:
+    """``scaled_matmul`` launches of ``rounds`` FSFL rounds over ``clients``
+    clients: each of the 2 dense layers runs forward in every weight step,
+    scale step and validation pass (``sub`` + 1) and in the server's
+    evaluation, dx in every step, dw in the weight steps, ds in the scale
+    steps."""
+    per = {"forward": 2 * (steps + sub * steps + sub + 1),
+           "dx": 2 * (steps + sub * steps), "dw": 2 * steps,
+           "ds": 2 * sub * steps}
+    return {d: rounds * (clients * n + (2 if d == "forward" else 0))
+            for d, n in per.items()}
+
+
+SM_RUNS: dict[str, dict] = {}    # scaled_matmul launches per path run
+
+
+def check_sm(sm, label: str, clients: int, rounds: int) -> dict:
+    """The path's ``scaled_matmul`` launches, read after it ran, against
+    ``sm_expected``; kept in ``SM_RUNS``."""
+    got, want = dict(sm.LAUNCHES), sm_expected(clients, rounds)
+    SM_RUNS[label] = got
+    print(f"  {label} launches: scaled_matmul {got} "
+          f"({ {d: n // rounds for d, n in got.items()} } a round)")
+    if got != want:
+        fail(f"{label}: scaled_matmul launched {got}, expected {want}")
+    return got
+
+
+def sm_bound_ms(direction: str, m: int, n: int, k: int) -> tuple[float, str]:
+    """Least time of one ``scaled_matmul`` direction: its operands read once
+    and its output written once (float32), against 2 M N K multiply-adds
+    and its scaling, over the card's float32 rate outside the tensor
+    cores."""
+    inputs = {"forward": m * k + n * k + n, "dx": m * n + n * k + n,
+              "dw": m * n + m * k + n, "ds": m * n + m * k + n * k}
+    outputs = {"forward": m * n, "dx": m * k, "dw": n * k, "ds": n}
+    extra = {"forward": m * n, "dx": m * n, "dw": n * k, "ds": 2 * m * n}
+    t_bytes = 4 * (inputs[direction] + outputs[direction]) / (
+        HBM_BYTES_PER_S) * 1e3
+    t_ops = (2 * m * n * k + extra[direction]) / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_dims(direction: str, a, b) -> tuple[int, int, int]:
+    """(M, N, K) of a direction's first two operands: x (M, K) and w (N, K)
+    for the forward, else dy (M, N) and w (N, K) or x (M, K)."""
+    if direction == "forward":
+        return a.shape[0], b.shape[0], a.shape[1]
+    return a.shape[0], a.shape[1], b.shape[1]
+
+
+SM_PLAIN = {"forward": "scaled_matmul_plain", "dx": "dx_plain",
+            "dw": "dw_plain", "ds": "ds_plain"}
+
+
+def sm_err_bound(torch, direction: str, a, b, c):
+    """The float32 error bound of kernel against plain, 2 (R + 2) u times
+    the sum of the absolute products, computed in float64: R is the depth
+    of the sums, K or M products, and M + K for ds, a sum over M of dy
+    times a sum over K."""
+    a, b, c = (t.double().abs() for t in (a, b, c))
+    u = 2.0 ** -24
+    if direction == "forward":       # x, w, s
+        return 2 * (a.shape[1] + 2) * u * (a @ (b * c[:, None]).T)
+    if direction == "dx":            # dy, w, s
+        return 2 * (a.shape[1] + 2) * u * ((a * c) @ b)
+    if direction == "dw":            # dy, x, s
+        return 2 * (a.shape[0] + 2) * u * ((a * c).T @ b)
+    return 2 * (a.shape[0] + b.shape[1] + 2) * u * torch.sum(
+        a * (b @ c.T), dim=0)        # dy, x, w
+
+
+def sm_compare(torch, sm, direction: str, a, b, c) -> tuple[float, float]:
+    """One direction's kernel against its plain version on the card;
+    fails beyond the float32 error bound.  Returns (max |difference|,
+    largest share of the bound used)."""
+    got = getattr(sm, direction)(a, b, c)
+    want = getattr(sm, SM_PLAIN[direction])(a, b, c)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"scaled_matmul {direction}: shape {tuple(got.shape)} against "
+             f"{tuple(want.shape)}")
+    err = (got.double() - want.double()).abs()
+    bound = sm_err_bound(torch, direction, a, b, c)
+    share = float((err / bound.clamp_min(1e-300)).max()) if err.numel() else 0.0
+    if not bool((err <= bound).all()):
+        fail(f"scaled_matmul {direction} at {tuple(a.shape)} x "
+             f"{tuple(b.shape)}: {float(err.max()):.3g} off its plain "
+             f"version, {share:.3g} of the float32 error bound")
+    return float(err.max()) if err.numel() else 0.0, share
+
+
+def sm_kernel_phase(torch, sm) -> int:
+    """Each direction of ``scaled_matmul`` against its plain version on
+    random inputs at the main path's shapes (M = 32, 120, 960 against the
+    (128, 128) and (10, 128) dense weights) and ragged ones; returns the
+    number of checks."""
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(m, n, 128) for m in (32, 120, 960) for n in (128, 10)] + [
+        (1, 1, 1), (5, 3, 7), (33, 129, 130), (17, 16, 32), (70, 33, 65)]
+    worst, checks = dict.fromkeys(sm.DIRECTIONS, 0.0), 0
+    for m, n, k in shapes:
+        x = torch.randn((m, k), generator=gen).cuda()
+        w = (torch.randn((n, k), generator=gen) / math.sqrt(k)).cuda()
+        s = (0.8 + 0.4 * torch.rand(n, generator=gen)).cuda()
+        dy = torch.randn((m, n), generator=gen).cuda()
+        for d, args in (("forward", (x, w, s)), ("dx", (dy, w, s)),
+                        ("dw", (dy, x, s)), ("ds", (dy, x, w))):
+            worst[d] = max(worst[d], sm_compare(torch, sm, d, *args)[1])
+            checks += 1
+    print(f"kernel phase: {checks} scaled_matmul-vs-plain comparisons (4 "
+          f"directions at {len(shapes)} shapes), within the float32 error "
+          f"bound; largest share of it used: "
+          f"{ {d: round(v, 4) for d, v in worst.items()} }")
+    return checks
+
+
+def capture_sm(sm) -> tuple[dict, dict]:
+    """Wrap the four ``scaled_matmul`` directions so that a copy of the
+    first call at each distinct set of shapes is kept; returns (captured
+    per direction, originals)."""
+    captured = {d: {} for d in sm.DIRECTIONS}
+    originals = {d: getattr(sm, d) for d in sm.DIRECTIONS}
+    for d in sm.DIRECTIONS:
+        def wrapped(a, b, c, _d=d, _fn=originals[d]):
+            key = (tuple(a.shape), tuple(b.shape))
+            if key not in captured[_d]:
+                captured[_d][key] = (a.clone(), b.clone(), c.clone())
+            return _fn(a, b, c)
+        setattr(sm, d, wrapped)
+    return captured, originals
+
+
+def sm_main_path(torch, sm, captured) -> dict:
+    """Each direction against its plain version on every buffer set the
+    main path gave it (the first client's first weight step, scale step
+    and validation pass, and the server's evaluation), then timed there
+    beside its plain version, the library's ``torch.mm`` plus a multiply,
+    and its bound."""
+    library = {
+        "forward": lambda x, w, s: torch.mm(x, w.t()).mul_(s),
+        "dx": lambda dy, w, s: torch.mm(dy * s, w),
+        "dw": lambda dy, x, s: torch.mm(dy.t(), x).mul_(s[:, None]),
+        "ds": lambda dy, x, w: torch.mm(x, w.t()).mul_(dy).sum(0)}
+    out = {}
+    for d in sm.DIRECTIONS:
+        if not captured[d]:
+            fail(f"the main path gave scaled_matmul {d} no buffer")
+        rows = []
+        for (sa, sb), (a, b, c) in captured[d].items():
+            err, share = sm_compare(torch, sm, d, a, b, c)
+            m, n, k = sm_dims(d, a, b)
+            fn = getattr(sm, d)
+            plain = getattr(sm, SM_PLAIN[d])
+            lib = library[d]
+            t = kernel_times(torch, lambda: fn(a, b, c),
+                             lambda: plain(a, b, c))
+            t["library_ms"] = time_ms(torch, lambda: lib(a, b, c))
+            rows.append(dict(shapes=[list(sa), list(sb)], mnk=[m, n, k],
+                             max_abs_err=err, bound_share=share,
+                             bound=sm_bound_ms(d, m, n, k), **t))
+            r = rows[-1]
+            print(f"  scaled_matmul {d} {sa} x {sb} on the main path's "
+                  f"buffer: {err:.3g} off its plain version ({share:.3f} of "
+                  f"the float32 error bound); kernel {r['ms']:.4f} ms "
+                  f"(whole wrapper call {r['call_ms']:.4f} ms), plain "
+                  f"{r['plain_ms']:.4f} ms, torch.mm and a multiply "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+                  f"({r['bound'][1]})")
+        out[d] = rows
+    return out
 
 
 # ------------------------------------------------------------ slice 3
@@ -769,7 +1202,7 @@ def bidi_records(torch, scenario, res, splits, rounds_out, clients) -> None:
     check_server(torch, scenario, res.server)
 
 
-def path_a(torch, la, fl, fsfl, models, splits, rounds_out) -> dict:
+def path_a(torch, la, sm, fl, fsfl, models, splits, rounds_out) -> dict:
     """Path A, the paper's bidirectional setting: 2 rounds of
     run_federated(bidirectional=True) with fsfl, then 1 round of
     bidi_sync_full; nnc-cabac on both legs, level_assign on both."""
@@ -778,6 +1211,7 @@ def path_a(torch, la, fl, fsfl, models, splits, rounds_out) -> dict:
                              ("bidi_sync_full", 1)):
         cfg = fl.build_protocol(fl.get_scenario("bidi_sync_full"), rounds)
         la.reset_counters()
+        sm.reset_counters()
         if scenario == "bidi_sync_full":
             res = fl.run_scenario(scenario, rounds=rounds,
                                   model=models.vgg11_thinned(),
@@ -788,6 +1222,7 @@ def path_a(torch, la, fl, fsfl, models, splits, rounds_out) -> dict:
                                      device="cuda")
         torch.cuda.synchronize()
         count = la.LAUNCHES["level_assign"]
+        check_sm(sm, scenario, splits.num_clients, rounds)
         bidi_records(torch, scenario, res, splits, rounds_out,
                      splits.num_clients)
         want = VGG_LEAVES * (splits.num_clients + 1) * rounds
@@ -811,7 +1246,7 @@ def fsfl_dyn_config(protocol_mod, rounds: int):
         scale_lr=2e-2, scale_subepochs=2, total_rounds=rounds)
 
 
-def path_b(torch, rs, sparsify_mod, protocol_mod, fsfl, models, splits,
+def path_b(torch, rs, sm, sparsify_mod, protocol_mod, fsfl, models, splits,
            rounds_out):
     """Path B, the adaptive Eqs. 2+3 setting, bidirectional: 2 rounds of
     run_federated(bidirectional=True) with fsfl_dyn; row_stats once per
@@ -821,11 +1256,13 @@ def path_b(torch, rs, sparsify_mod, protocol_mod, fsfl, models, splits,
     captured = capture_calls(sparsify_mod, "row_stats", VGG_WEIGHTS,
                              lambda a, k: a[0].clone())
     rs.reset_counters()
+    sm.reset_counters()
     res = fsfl.run_federated(models.vgg11_thinned(),
                              fsfl_dyn_config(protocol_mod, rounds), splits,
                              rounds, bidirectional=True, device="cuda")
     torch.cuda.synchronize()
     count = rs.LAUNCHES["row_stats"]
+    check_sm(sm, "fsfl_dyn bidirectional", splits.num_clients, rounds)
     sparsify_mod.row_stats = rs.row_stats
     bidi_records(torch, "fsfl_dyn bidirectional", res, splits, rounds_out,
                  splits.num_clients)
@@ -838,8 +1275,8 @@ def path_b(torch, rs, sparsify_mod, protocol_mod, fsfl, models, splits,
     return count, captured
 
 
-def path_c(torch, da, dc, la, fl, rounds_mod, codecs_mod, models, splits,
-           rounds_out):
+def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
+           splits, rounds_out):
     """Path C, the int8 broadcast: cohorts of 4, int8-blockscale on both
     legs; the server's params after each apply are held bitwise against
     the host decode of the broadcast payload plus the old params.
@@ -868,7 +1305,7 @@ def path_c(torch, da, dc, la, fl, rounds_mod, codecs_mod, models, splits,
 
     codecs_mod.Int8BlockScaleCodec.device_sections = device_sections
     rounds_mod.Broadcast.apply = apply
-    for mod in (da, dc, la):
+    for mod in (da, dc, la, sm):
         mod.reset_counters()
     res = fl.run_simulation(
         models.vgg11_thinned(),
@@ -879,6 +1316,7 @@ def path_c(torch, da, dc, la, fl, rounds_mod, codecs_mod, models, splits,
     torch.cuda.synchronize()
     counts = {"delta_apply": da.LAUNCHES["delta_apply"],
               **dc.LAUNCHES, "level_assign": la.LAUNCHES["level_assign"]}
+    check_sm(sm, "int8 bidirectional k4", 4, rounds)
     codecs_mod.Int8BlockScaleCodec.device_sections = orig_sections
     rounds_mod.Broadcast.apply = orig_apply
     rounds_mod.delta_apply = da.delta_apply
@@ -1044,6 +1482,7 @@ def main() -> int:
     from repro_torch.kernels import delta_compress as dc
     from repro_torch.kernels import level_assign as la
     from repro_torch.kernels import row_stats as rs
+    from repro_torch.kernels import scaled_matmul as sm
     from repro_torch.tree import row, tree_map
 
     t_start = time.time()
@@ -1071,40 +1510,46 @@ def main() -> int:
 
     t1 = phase("build", t0)
     checks = (kernel_phase(torch, dc) + la_kernel_phase(torch, la, models)
-              + slice3_kernel_phase(torch, da, rs, models))
+              + slice3_kernel_phase(torch, da, rs, models)
+              + sm_kernel_phase(torch, sm))
     t1 = phase("kernel phase", t1)
     splits = full_width_splits(torch, data)
     rounds_out = []
 
-    # the paper's main path: nnc-cabac, all 8 clients, level_assign
+    # the paper's main path: nnc-cabac, all 8 clients, level_assign and
+    # scaled_matmul
+    sm_captured, sm_originals = capture_sm(sm)
     la_captured = capture_calls(
         stages_mod, "level_assign", VGG_LEAVES,
         lambda a, k: tuple(x.clone() for x in a))
     cohorts = []
     orig_cohort = checked_cohort_encode(torch, codecs_mod, comms, row,
                                         tree_map, cohorts)
-    la_launches = nnc_slice_phase(torch, la, fl, fsfl, models, splits,
+    la_launches = nnc_slice_phase(torch, la, sm, fl, fsfl, models, splits,
                                   rounds_out, cohorts)
     codecs_mod.NncCabacCodec.encode_cohort = orig_cohort
     stages_mod.level_assign = la.level_assign
+    for d, fn in sm_originals.items():
+        setattr(sm, d, fn)
     t1 = phase("nnc slice phase", t1)
 
     # the int8 uplink
     captured, originals = capture_buffers(device_mod)
-    launches = int8_slice_phase(torch, dc, la, fl, models, splits,
+    launches = int8_slice_phase(torch, dc, la, sm, fl, models, splits,
                                 rounds_out)
     for name, fn in originals.items():
         setattr(device_mod, name, fn)
     t1 = phase("int8 slice phase", t1)
 
     # slice 3: bidirectional compression (paths A, B and C)
-    a_launches = path_a(torch, la, fl, fsfl, models, splits, rounds_out)
+    a_launches = path_a(torch, la, sm, fl, fsfl, models, splits, rounds_out)
     t1 = phase("path A (bidirectional, nnc-cabac)", t1)
-    rs_launches, rs_captured = path_b(torch, rs, sparsify_mod, protocol_mod,
-                                      fsfl, models, splits, rounds_out)
+    rs_launches, rs_captured = path_b(torch, rs, sm, sparsify_mod,
+                                      protocol_mod, fsfl, models, splits,
+                                      rounds_out)
     t1 = phase("path B (bidirectional, fsfl_dyn)", t1)
     da_launches, da_captured, c_checked = path_c(
-        torch, da, dc, la, fl, rounds_mod, codecs_mod, models, splits,
+        torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models, splits,
         rounds_out)
     t1 = phase("path C (bidirectional, int8)", t1)
 
@@ -1112,10 +1557,11 @@ def main() -> int:
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
     rs_timing = rs_main_path(torch, rs, rs_captured)
+    sm_timing = sm_main_path(torch, sm, sm_captured)
     t1 = phase("main-path buffers", t1)
-    small = {name: small_input_check(torch, fl, rounds_mod, name)
-             for name in ("sync_full_fedavg_fsfl", "device_encode_int8",
-                          "bidi_sync_full")}
+    cpu_runs = {}
+    small = {name: small_input_check(torch, fl, rounds_mod, name, cpu_runs)
+             for name in SMALL_SCENARIOS}
     t1 = phase("small-input checks", t1)
     bidi_int8 = fl.Scenario("bidi_int8_k4", cohort_size=4,
                             codec="int8-blockscale", bidirectional=True)
@@ -1206,6 +1652,31 @@ def main() -> int:
                     **timed(rs_timing["largest"])},
         "client_10_leaves": timed(rs_timing["leaves"]),
         "keep_mask_near_tie_flips": rs_timing["flips"]})
+    main_sm = SM_RUNS["sync_full_fedavg_fsfl"]
+    for d in sm.DIRECTIONS:
+        rows = sm_timing[d]
+        # the train step's (32, 128) x (128, 128) product of the first
+        # dense layer: the main path's most frequent shape
+        first = next((r for r in rows if r["mnk"] == [32, 128, 128]),
+                     rows[0])
+        kernels.append({
+            "name": "scaled_matmul" if d == "forward"
+            else f"scaled_matmul_{d}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/scaled_matmul.cu",
+            "replaces": "src/repro/kernels/scaled_matmul.py:37",
+            "launches": main_sm[d],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_share_of_error_bound": max(r["bound_share"] for r in rows),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+            "library_ms": first["library_ms"], "call_ms": first["call_ms"],
+            "mnk": first["mnk"],
+            "main_path_shapes": [{k: r[k] for k in (
+                "shapes", "mnk", "ms", "plain_ms", "library_ms", "call_ms",
+                "bound")} for r in rows],
+            "launches_per_path": {label: runs[d]
+                                  for label, runs in SM_RUNS.items()}})
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

@@ -136,8 +136,10 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
     # ------------------------------------------------------------- losses
 
     def logits_fn(params, scales, bn_state, x, train):
+        # Eq. 4: the conv leaves are scaled here; the dense layers apply
+        # their scales inside the product (scaled_matmul)
         scaled = scaling_lib.apply_scales_tree(params, scales)
-        return model.apply(scaled, bn_state, x, train=train)
+        return model.apply(scaled, bn_state, x, train=train, scales=scales)
 
     def loss_fn(params, scales, bn_state, x, y, train):
         logits, new_bn = logits_fn(params, scales, bn_state, x, train)
@@ -211,9 +213,10 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
         perf0 = accuracy(params_hat, scales0, bn1, val_x, val_y)
         best_perf = perf0
         scales1, sopt = scales0, persistent.scale_opt_state
+        best_epoch = 0   # the kept sub-epoch (1-based); 0: none improved
         if cfg.scaling:
             scales = best_s = scales0
-            for _ in range(cfg.scale_subepochs):
+            for epoch in range(1, cfg.scale_subepochs + 1):
                 for idx in batch_idx:
                     with torch.enable_grad():
                         s_req = _requiring_grad(scales)
@@ -227,7 +230,7 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
                     scales = apply_updates(scales, upd)
                 perf = accuracy(params_hat, scales, bn1, val_x, val_y)
                 if bool(perf >= best_perf):
-                    best_s, best_perf = scales, perf
+                    best_s, best_perf, best_epoch = scales, perf, epoch
             scales1 = best_s  # == scales0 if no sub-epoch improved
 
         # ---- 5. quantize the S delta (fine step size) --------------------
@@ -240,6 +243,10 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
             "val_acc_unscaled": perf0,
             "val_acc": best_perf,
             "update_sparsity": update_sparsity,
+            # the Eq. 4 accept decision, a discrete event that parity
+            # checks count apart
+            "scale_epoch": torch.tensor(float(best_epoch),
+                                        device=perf0.device),
         }
         return RoundOutput(
             levels_params=levels, levels_scales=s_levels,

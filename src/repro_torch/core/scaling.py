@@ -47,5 +47,15 @@ def apply_scale(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return w * s.reshape((s.shape[0],) + (1,) * (w.ndim - 1)).to(w.dtype)
 
 
+def at_matmul(w: torch.Tensor, s: torch.Tensor) -> bool:
+    """A dense weight (N, K) with a per-row scale (N,): the models' dense
+    apply takes the scale inside its product (``kernels.scaled_matmul``)."""
+    return w.ndim == 2 and s.ndim == 1
+
+
 def apply_scales_tree(params: Any, scales: Any) -> Any:
-    return tree_map(apply_scale, params, scales)
+    """Every leaf times its scale, except the dense leaves that
+    ``at_matmul`` names: the model's dense apply takes those scales inside
+    its product, so they stay unscaled here."""
+    return tree_map(lambda w, s: w if at_matmul(w, s) else apply_scale(w, s),
+                    params, scales)

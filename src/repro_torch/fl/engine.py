@@ -56,6 +56,46 @@ class RunResult:
     records: list[RoundRecord]
     server: Any = None   # final ServerState
 
+    @property
+    def final_acc(self) -> float:
+        """Last round's test accuracy; NaN when no rounds ran."""
+        if not self.records:
+            return float("nan")
+        return self.records[-1].test_acc
+
+    def rounds_to_acc(self, target: float) -> int | None:
+        """The first round whose test accuracy reaches ``target``."""
+        for r in self.records:
+            if r.test_acc >= target:
+                return r.round
+        return None
+
+    def bytes_to_acc(self, target: float) -> int | None:
+        """Cumulative bytes up to the first round that reaches
+        ``target``."""
+        for r in self.records:
+            if r.test_acc >= target:
+                return r.cum_bytes
+        return None
+
+    def metric_series(self, name: str) -> list[tuple[int, float]]:
+        """(round, value) pairs for a RoundRecord field, skipping rounds
+        where the metric is absent (None or NaN), as after an all-drop
+        round."""
+        out = []
+        for r in self.records:
+            v = getattr(r, name, None)
+            if v is None or (isinstance(v, float) and np.isnan(v)):
+                continue
+            out.append((r.round, float(v)))
+        return out
+
+    def mean_metric(self, name: str) -> float:
+        """Run-level mean of a RoundRecord field over the rounds that carry
+        it; NaN when no round does."""
+        vals = [v for _, v in self.metric_series(name)]
+        return float(np.mean(vals)) if vals else float("nan")
+
 
 # fields of the reference's EngineConfig that the port does not run yet,
 # with their defaults and the port-queue item that will bring them

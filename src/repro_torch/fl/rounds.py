@@ -416,9 +416,15 @@ class SyncScheduler:
             bidx = torch.tensor(np.asarray(bidx), dtype=torch.long)
         else:
             idx = eng.cohort.select(self.gen)
-            bidx = eng.local_train.batches(self.gen, len(idx))
+            bidx = (eng.local_train.batches(self.gen, len(idx)) if len(idx)
+                    else None)
         clients = [int(c) for c in idx]
-        out = eng.local_train.train_cohort(idx, bidx, eng.server)
+        try:
+            out = eng.local_train.train_cohort(idx, bidx, eng.server)
+        except EmptyCohortError:
+            # a zero-size cohort: an all-drop round, with no contributions
+            # and no server step (the engine skips it without survivors)
+            return RoundIntake([], [], receivers=0)
         contribs = eng.uplink.intake(out, clients)
         return RoundIntake(contribs, list(range(len(clients))),
                            receivers=len(clients))

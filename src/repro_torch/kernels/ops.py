@@ -8,6 +8,13 @@ from repro_torch.kernels import delta_apply as da
 from repro_torch.kernels import delta_compress as dc
 from repro_torch.kernels import level_assign as la
 from repro_torch.kernels import row_stats as rs
+from repro_torch.kernels import scaled_matmul as sm
+
+
+def scaled_matmul(x, w, s):
+    """y = x @ (s * W)^T for any (M, K), (N, K), (N,): no padding to block
+    multiples (the reference pads to 128); differentiable."""
+    return sm.scaled_matmul(x, w, s)
 
 
 def delta_compress(delta, theta, *, block=1024):

@@ -10,6 +10,14 @@ from repro_torch.kernels.delta_compress import (delta_compress_batch_plain,
                                                 delta_compress_plain)
 from repro_torch.kernels.level_assign import MAX_LEVEL, level_assign_plain
 from repro_torch.kernels.row_stats import row_stats_plain
+from repro_torch.kernels.scaled_matmul import scaled_matmul_plain
+
+
+def scaled_matmul(x: torch.Tensor, w: torch.Tensor,
+                  s: torch.Tensor) -> torch.Tensor:
+    """y = x @ (s * W)^T -- Eq. 4 applied at matmul time; x (M, K), w (N, K)
+    output-rows-first, s (N,), float32 accumulate."""
+    return scaled_matmul_plain(x, w, s)
 
 
 def delta_compress(delta: torch.Tensor, theta: float, block: int):

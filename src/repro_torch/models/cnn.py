@@ -5,7 +5,9 @@ Port of ``repro.models.cnn`` (VGG only).  Conventions as in the reference:
 * conv weights (O, I, Kh, Kw), dense weights (O, I): dim 0 is the filter /
   output-neuron axis the scaling factors and sparsifiers act on;
 * ``apply(params, state, x, train)`` takes NHWC images and returns
-  ``(logits, new_state)``; the model permutes to NCHW inside;
+  ``(logits, new_state)``; the model permutes to NCHW inside; given the
+  scales tree (``scales=``) its dense layers apply their Eq. 4 scales at
+  matmul time (``kernels.scaled_matmul``);
 * BatchNorm is functional: training normalises with the biased batch
   variance and updates the running stats as ``0.9*old + 0.1*batch``;
   ``train=False`` uses (and keeps) the running stats, which is how
@@ -19,6 +21,9 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.scaling import at_matmul
+from repro_torch.kernels.scaled_matmul import scaled_matmul
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -49,8 +54,14 @@ def dense_init(gen, out_d: int, in_d: int, device) -> dict:
             "b": torch.zeros((out_d,), dtype=torch.float32, device=device)}
 
 
-def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].T + p["b"]
+def dense_apply(p: dict, x: torch.Tensor,
+                s: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ W^T + b``; with a per-row scale ``s`` (N,) the product is Eq.
+    4 at matmul time, ``x @ (s * W)^T``, on the ``scaled_matmul`` kernel
+    (its plain version on the CPU), and ``W`` is not scaled first."""
+    if s is None or not at_matmul(p["w"], s):
+        return x @ p["w"].T + p["b"]
+    return scaled_matmul(x, p["w"], s) + p["b"]
 
 
 def bn_init(c: int, device):
@@ -106,8 +117,16 @@ def make_vgg(name: str, widths, num_classes: int, in_channels: int = 3,
         params["fc1"] = dense_init(gen, num_classes, dense_width, device)
         return params, state
 
-    def apply(params, state, x, train=False):
+    def apply(params, state, x, train=False, scales=None):
+        """With ``scales`` (the scales tree), each dense layer applies its
+        weight's per-row scale inside its product; the caller has scaled
+        the other leaves (``core.scaling.apply_scales_tree``)."""
         new_state = dict(state)
+
+        def dense(name, x):
+            s = None if scales is None else scales[name]["w"]
+            return dense_apply(params[name], x, s)
+
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         for i in range(len(widths)):
             x = conv_apply(params[f"conv{i}"], x)
@@ -117,8 +136,8 @@ def make_vgg(name: str, widths, num_classes: int, in_channels: int = 3,
             if i in pool_after:
                 x = F.max_pool2d(x, 2, 2)  # VALID: odd edges are dropped
         x = torch.mean(x, dim=(2, 3))  # global average pool
-        x = F.relu(dense_apply(params["fc0"], x))
-        return dense_apply(params["fc1"], x), new_state
+        x = F.relu(dense("fc0", x))
+        return dense("fc1", x), new_state
 
     return CNNModel(name, init, apply)
 

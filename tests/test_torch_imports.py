@@ -35,7 +35,7 @@ def test_port_has_modules():
     "coding/__init__.py", "coding/errors.py", "coding/bitstream.py",
     "coding/golomb.py", "coding/cabac.py", "coding/nnc.py", "core/fsfl.py",
     "kernels/level_assign.py", "kernels/delta_apply.py",
-    "kernels/row_stats.py"])
+    "kernels/row_stats.py", "kernels/scaled_matmul.py"])
 def test_walk_covers_the_main_path_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 
