@@ -6,9 +6,10 @@ returns ``(levels, recon, sparse)``, the boundary to the wire codecs.
 
 ``UpstreamStages.compress_carry`` is the fused route of the same chain
 with error feedback on: where one threshold per leaf sparsifies
-(``UpstreamStages.fused``), each leaf's carry, threshold, quantization and
-new residual come from one ``level_assign`` kernel launch, bitwise equal
-to ``carry_residual -> compress -> new_residual``.
+(``UpstreamStages.fused``), every leaf's carry, quantization and new
+residual come from one ``level_assign_leaves`` kernel launch (each leaf
+with its own threshold), bitwise equal to ``carry_residual -> compress ->
+new_residual``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import sparsify as sparsify_lib
-from repro_torch.kernels.level_assign import level_assign
+from repro_torch.kernels.level_assign import level_assign_leaves
 from repro_torch.tree import items, map_with_path, rebuild, tree_map
 
 
@@ -92,30 +93,36 @@ class UpstreamStages:
         """Error feedback + :meth:`compress` + the new residual, fused.
 
         Per leaf: theta from ``|raw + residual|`` (the kernel forms the same
-        float32 sum), then one ``level_assign`` launch for the levels and
-        the new residual.  Returns ``(levels, recon, new_residual,
-        update_sparsity)``; the sparsity is the zero share of the
-        sparsified tensor (a kept element may still round to level 0).
+        float32 sum); then one ``level_assign_leaves`` call for every leaf's
+        levels and new residual, one kernel launch on the card.  Returns
+        ``(levels, recon, new_residual, update_sparsity)``; the sparsity is
+        the zero share of the sparsified tensor (a kept element may still
+        round to level 0).
         """
         if not self.fused:
             raise ValueError("compress_carry needs a fused stage chain")
         res = dict(items(residual))
         fine = dict(items(fine_mask))
-        lv_by, recon_by, carry_by = {}, {}, {}
+        paths, deltas, residuals, thetas, steps = [], [], [], [], []
         zeros, total = 0, 0
         for path, d in items(raw_delta):
             carried = d + res[path]
             theta = sparsify_lib.leaf_threshold(carried, self.sparsify)
-            step = quant_lib.f32(self.quant.step_for(fine[path]), d)
-            lv, carry = level_assign(d.reshape(1, -1),
-                                     res[path].reshape(1, -1), theta, step,
-                                     max_level=self.quant.max_level)
-            lv_by[path] = lv = lv.reshape(d.shape)
-            carry_by[path] = carry.reshape(d.shape)
-            recon_by[path] = lv.to(torch.float32) * step
+            paths.append(path)
+            deltas.append(d)
+            residuals.append(res[path])
+            thetas.append(theta)
+            steps.append(self.quant.step_for(fine[path]))
             zeros = zeros + (d.numel() - torch.count_nonzero(
                 (torch.abs(carried) >= theta) & (carried != 0)))
             total += d.numel()
+        levels, carries = level_assign_leaves(
+            deltas, residuals, torch.stack(thetas), steps,
+            max_level=self.quant.max_level)
+        lv_by = dict(zip(paths, levels))
+        carry_by = dict(zip(paths, carries))
+        recon_by = {path: lv.to(torch.float32) * quant_lib.f32(step, lv)
+                    for path, lv, step in zip(paths, levels, steps)}
         sparsity = torch.as_tensor(zeros).to(torch.float32) / total
         return (rebuild(raw_delta, lv_by), rebuild(raw_delta, recon_by),
                 rebuild(raw_delta, carry_by), sparsity)

@@ -6,7 +6,7 @@ Port of ``repro.core.protocol``.  One communication epoch for one client:
   2. train W locally with Adam on the round's batches (scales S frozen),
   3. differential update + error feedback (Eq. 5) + sparsification +
      uniform quantization (``comms.stages``; with one threshold per leaf,
-     one fused ``level_assign`` kernel launch per leaf),
+     one fused ``level_assign`` kernel launch over all the leaves),
   4. filter-scale sub-epochs on the sparsely updated model (W and BN
      frozen), keeping the best sub-epoch under ``perf >= best_perf``,
   5. fine quantization of the scale delta.
@@ -193,7 +193,8 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
         # ---- 3. codec stages: delta + error feedback + sparsify + quant --
         raw_delta = stages_lib.extract_delta(params1, params0)
         if cfg.error_feedback and up_stages.fused:
-            # one level_assign launch per leaf (bitwise the chain below)
+            # one level_assign launch over the leaves (bitwise the chain
+            # below)
             levels, recon_delta, new_residual, update_sparsity = (
                 up_stages.compress_carry(raw_delta, persistent.residual,
                                          fine_mask))

@@ -309,7 +309,7 @@ class Downlink:
 
     Routes, as the uplink's (``comms.stages.UpstreamStages``): with one
     threshold per leaf the carry, threshold, levels and the level codecs'
-    new residual come from one ``level_assign`` launch per leaf; the
+    new residual come from one ``level_assign`` launch over the leaves; the
     structured stage takes the unfused chain, whose Eq. 3 scores come from
     ``row_stats``.  With ``int8-blockscale`` the payload re-quantizes
     ``levels * step`` per block (``delta_compress``, theta 0) and the new

@@ -2,7 +2,7 @@
 
 Port of ``repro.fl.scenarios`` for the scenarios whose path reaches a
 kernel, all on the FSFL protocol (Table-2 row ``fsfl``, whose client runs
-the ``level_assign`` kernel once per leaf):
+the ``level_assign`` kernel once per client, over all its leaves):
 
 * ``sync_full_fedavg_fsfl``: the paper's setting, all 8 clients, FedAvg,
   nnc-cabac payloads encoded per client on the host;
@@ -10,7 +10,7 @@ the ``level_assign`` kernel once per leaf):
   computed on the device and one device-to-host copy per cohort;
 * ``bidi_sync_full``: the paper's setting with the server's broadcast
   compressed too (§5.2): its own error feedback, top-k, ``STEP_SIZE_BI``
-  levels (one ``level_assign`` launch per leaf) and nnc-cabac;
+  levels (one ``level_assign`` launch per broadcast) and nnc-cabac;
 * ``codec_int8_k4`` / ``device_encode_int8``: cohorts of 4 of 8 with
   int8-blockscale payloads, one ``delta_compress`` launch per client or
   one ``delta_compress_batch`` launch per cohort.

@@ -8,17 +8,29 @@
 //   q       = clip(round_half_even(kept / step), -max_level, max_level)
 //   levels  = (int32) q
 //   carry   = carried - q * step                     (next residual)
-// theta and step are float32 scalars read from device memory, so a top-k
-// threshold computed on the device never has to come back to the host.
+// theta is a float32 read from device memory, so a top-k threshold
+// computed on the device never has to come back to the host.
 //
-// Bound: device memory.  Each element reads d and r (8 bytes) and writes
-// the level and the carry (8 bytes): 16 bytes against about 8 float
-// operations, far below the card's float32 rate.  The design is one plain
-// pass with 16-byte accesses: a thread covers 4 consecutive elements with
-// float4/int4 loads and stores when every pointer is 16-byte aligned and
-// each row starts on a 16-byte boundary (n % 4 == 0, or one row), with a
-// scalar tail for the last n % 4 elements; otherwise a coalesced scalar
-// pass.  Grid: x over chunks of 1,024 elements, y over rows.
+// Two entry points.  `level_assign_launch` takes (rows, n) with one theta
+// and one step.  `level_assign_leaves_launch` takes a client's (or a
+// broadcast's) leaves in ONE launch, each leaf with its own theta (a
+// device array, one per leaf) and its own step (by value).
+//
+// Bound: device memory.  Each element reads d and r (8 bytes) and writes the
+// level and the carry (8 bytes): 16 bytes against about 8 float operations,
+// far below the card's float32 rate.  A leaf of the port's model holds 32 to
+// 147,456 elements, so one launch per leaf ran at launch latency: on an H100,
+// a client's 28 launches took about 25 times what the bytes of its 849,834
+// elements need.  So the grouped entry covers up to 64 leaves a launch: their
+// input pointers, sizes, output offsets, steps and the first CTA of each leaf
+// go in a by-value table (no host-to-device copy), one CTA per 1,024-element
+// chunk of the concatenation finds its leaf by a binary search of that table,
+// and the outputs are two flat buffers whose leaf offsets are multiples of 4
+// elements.  Within a chunk the pass is the plain one with 16-byte accesses: a
+// thread covers 4 consecutive elements with float4/int4 loads and stores when
+// every pointer is 16-byte aligned and each row starts on a 16-byte boundary
+// (n % 4 == 0, or one row), with a scalar tail for the last n % 4 elements;
+// otherwise a coalesced scalar pass.
 //
 // Bitwise contract with the plain PyTorch version (level_assign_plain in
 // repro_torch/kernels/level_assign.py) and with the reference's
@@ -48,21 +60,14 @@ __device__ __forceinline__ void assign(float d, float r, float theta,
   *carry = __fsub_rn(carried, __fmul_rn(q, step));
 }
 
-__global__ void level_assign_kernel(const float* __restrict__ d,
-                                    const float* __restrict__ r,
-                                    const float* __restrict__ theta_p,
-                                    const float* __restrict__ step_p,
-                                    int* __restrict__ lv,
-                                    float* __restrict__ carry, int64_t n,
-                                    float max_level, bool vec) {
-  const float theta = *theta_p;
-  const float step = *step_p;
-  const int64_t row = static_cast<int64_t>(blockIdx.y) * n;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  const float* dr = d + row;
-  const float* rr = r + row;
-  int* lr = lv + row;
-  float* cr = carry + row;
+// Elements [base, base + kTile) of one row of n elements.
+__device__ __forceinline__ void assign_chunk(const float* __restrict__ dr,
+                                             const float* __restrict__ rr,
+                                             int* __restrict__ lr,
+                                             float* __restrict__ cr,
+                                             int64_t base, int64_t n,
+                                             float theta, float step,
+                                             float max_level, bool vec) {
   if (vec) {
     const int64_t i = base + static_cast<int64_t>(threadIdx.x) * kVec;
     if (i + kVec <= n) {
@@ -87,6 +92,49 @@ __global__ void level_assign_kernel(const float* __restrict__ d,
       if (j < n) assign(dr[j], rr[j], theta, step, max_level, lr + j, cr + j);
     }
   }
+}
+
+__global__ void level_assign_kernel(const float* __restrict__ d,
+                                    const float* __restrict__ r,
+                                    const float* __restrict__ theta_p,
+                                    const float* __restrict__ step_p,
+                                    int* __restrict__ lv,
+                                    float* __restrict__ carry, int64_t n,
+                                    float max_level, bool vec) {
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * n;
+  assign_chunk(d + row, r + row, lv + row, carry + row,
+               static_cast<int64_t>(blockIdx.x) * kTile, n, *theta_p,
+               *step_p, max_level, vec);
+}
+
+constexpr int kMaxLeaves = 64;
+
+// One launch's leaves, passed by value.
+struct LeafTable {
+  const float* d[kMaxLeaves];
+  const float* r[kMaxLeaves];
+  int64_t n[kMaxLeaves];
+  int64_t off[kMaxLeaves];          // in the flat outputs, a multiple of 4
+  float step[kMaxLeaves];
+  int chunk_start[kMaxLeaves + 1];  // first CTA of each leaf; [leaves] = all
+  unsigned long long vec;           // bit l: leaf l takes the float4 path
+  int leaves;
+};
+
+__global__ void level_assign_leaves_kernel(
+    const __grid_constant__ LeafTable t, const float* __restrict__ thetas,
+    int* __restrict__ lv, float* __restrict__ carry, float max_level) {
+  const int b = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = t.leaves - 1;    // the last leaf starting at or before b
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.chunk_start[mid] <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  const int64_t off = t.off[lo];
+  assign_chunk(t.d[lo], t.r[lo], lv + off, carry + off,
+               static_cast<int64_t>(b - t.chunk_start[lo]) * kTile, t.n[lo],
+               thetas[lo], t.step[lo], max_level, (t.vec >> lo) & 1ull);
 }
 
 bool aligned16(const void* p) {
@@ -114,5 +162,45 @@ extern "C" int level_assign_launch(const void* d, const void* r,
       static_cast<const float*>(d), static_cast<const float*>(r),
       static_cast<const float*>(theta), static_cast<const float*>(step),
       static_cast<int*>(lv), static_cast<float*>(carry), n, max_level, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `leaves` (1 to 64) leaves in one launch.  d[l], r[l]: leaf l's n[l]
+// float32 inputs (device pointers); its levels and carry go to lv + off[l]
+// and carry + off[l] (off[l] a multiple of 4); step[l] its step; thetas
+// (device) holds one float32 per leaf; chunk_start (leaves + 1 entries,
+// from 0, non-decreasing) gives the first 1,024-element CTA of each leaf,
+// the last entry their total.  Launches on `stream`; returns
+// cudaGetLastError() (0 = launched).
+extern "C" int level_assign_leaves_launch(
+    int leaves, const uint64_t* d, const uint64_t* r, const int64_t* n,
+    const int64_t* off, const float* step, const int* chunk_start,
+    const void* thetas, void* lv, void* carry, float max_level,
+    void* stream) {
+  if (leaves < 1 || leaves > kMaxLeaves || chunk_start[0] != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LeafTable t{};
+  t.leaves = leaves;
+  const bool out16 = aligned16(lv) && aligned16(carry);
+  for (int l = 0; l < leaves; ++l) {
+    const int64_t chunks = (n[l] + kTile - 1) / kTile;
+    if (n[l] < 0 || off[l] % kVec != 0
+        || chunk_start[l + 1] - static_cast<int64_t>(chunk_start[l]) != chunks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.d[l] = reinterpret_cast<const float*>(d[l]);
+    t.r[l] = reinterpret_cast<const float*>(r[l]);
+    t.n[l] = n[l];
+    t.off[l] = off[l];
+    t.step[l] = step[l];
+    t.chunk_start[l] = chunk_start[l];
+    if (out16 && aligned16(t.d[l]) && aligned16(t.r[l])) t.vec |= 1ull << l;
+  }
+  t.chunk_start[leaves] = chunk_start[leaves];
+  if (chunk_start[leaves] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  level_assign_leaves_kernel<<<static_cast<unsigned>(chunk_start[leaves]),
+                               kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<const float*>(thetas), static_cast<int*>(lv),
+      static_cast<float*>(carry), max_level);
   return static_cast<int>(cudaGetLastError());
 }

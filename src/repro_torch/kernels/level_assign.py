@@ -13,11 +13,17 @@ version beside it on CPU tensors; any other device raises.  ``theta`` and
 reads them from device memory, so a threshold computed there (a top-k
 value) is passed without a host sync.
 
-On the client's main path it runs once per leaf (K = 1): each client and
-each leaf has its own top-k threshold.
+``level_assign_leaves`` applies it to a list of leaves of any shapes, each
+with its own threshold (one float32 a leaf in a device tensor) and its own
+step (by value, the float32 of ``quant.f32``), in one launch per
+``MAX_LEAVES`` leaves; its plain version is the loop of
+``level_assign_plain`` over the leaves.  The client round and the
+downlink call it once per client and per broadcast
+(``comms.stages.UpstreamStages.compress_carry``).
 
 ``LAUNCHES`` counts kernel launches (only where the CUDA kernel is
-launched); ``CALLS`` counts wrapper calls on any device.
+launched); ``CALLS`` counts the function as the plain version applies it,
+once per (K, n) call and once per leaf, on any device.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import torch
 from repro_torch.kernels import build
 
 MAX_LEVEL = 2**23
+MAX_LEAVES = 64        # leaves in one launch's by-value table
+CHUNK = 1024           # elements per CTA
 LAUNCHES = {"level_assign": 0}
 CALLS = {"level_assign": 0}
 
@@ -73,6 +81,44 @@ def level_assign_plain(deltas: torch.Tensor, residuals: torch.Tensor,
     return lv.to(torch.int32), carried - lv * st
 
 
+def level_assign_leaves_plain(deltas, residuals, thetas: torch.Tensor,
+                              steps, max_level: int = MAX_LEVEL):
+    """The grouped function in tensor ops: ``level_assign_plain`` on each
+    leaf, flattened to one row, with its own theta and step."""
+    levels, carries = [], []
+    for d, r, theta, step in zip(deltas, residuals, thetas, steps):
+        lv, c = level_assign_plain(d.reshape(1, -1), r.reshape(1, -1), theta,
+                                   step, max_level)
+        levels.append(lv.reshape(d.shape))
+        carries.append(c.reshape(d.shape))
+    return levels, carries
+
+
+def leaf_offsets(sizes) -> tuple[list[int], int]:
+    """Each leaf's offset in the flat outputs, rounded up to 4 elements so
+    that every leaf starts 16-byte aligned, and the buffers' length."""
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 4) * 4
+    return offsets, total
+
+
+def chunk_table(sizes, cap: int = MAX_LEAVES,
+                chunk: int = CHUNK) -> list[tuple[int, int, list[int]]]:
+    """The launches of the grouped kernel: ``(first leaf, end leaf, chunk
+    starts)`` for each run of at most ``cap`` leaves, the starts holding
+    the first CTA of each leaf and, last, the launch's CTA count."""
+    table = []
+    for lo in range(0, len(sizes), cap):
+        hi = min(lo + cap, len(sizes))
+        starts = [0]
+        for n in sizes[lo:hi]:
+            starts.append(starts[-1] + -(-n // chunk))
+        table.append((lo, hi, starts))
+    return table
+
+
 # ------------------------------------------------------------ CUDA kernel
 
 def _lib() -> ctypes.CDLL:
@@ -81,6 +127,11 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.level_assign_leaves_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -132,3 +183,94 @@ def level_assign(deltas: torch.Tensor, residuals: torch.Tensor, theta, step,
         raise ValueError(f"level_assign runs on CUDA or CPU tensors, got "
                          f"{deltas.device}")
     return _launch(deltas, residuals, theta, step, max_level)
+
+
+def _array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _launch_leaves(deltas, residuals, thetas, steps, max_level: int):
+    dev = deltas[0].device
+    sizes = [d.numel() for d in deltas]
+    offsets, total = leaf_offsets(sizes)
+    levels = torch.empty(total, dtype=torch.int32, device=dev)
+    carry = torch.empty(total, dtype=torch.float32, device=dev)
+    ds = [d.contiguous() for d in deltas]
+    rs = [r.contiguous() for r in residuals]
+    th = thetas.contiguous()
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo, hi, starts in chunk_table(sizes):
+            if starts[-1] == 0:      # only empty leaves
+                continue
+            err = lib.level_assign_leaves_launch(
+                hi - lo,
+                _array(ctypes.c_uint64, [d.data_ptr() for d in ds[lo:hi]]),
+                _array(ctypes.c_uint64, [r.data_ptr() for r in rs[lo:hi]]),
+                _array(ctypes.c_int64, sizes[lo:hi]),
+                _array(ctypes.c_int64, offsets[lo:hi]),
+                _array(ctypes.c_float, steps[lo:hi]),
+                _array(ctypes.c_int, starts), th.data_ptr() + 4 * lo,
+                levels.data_ptr(), carry.data_ptr(), float(max_level),
+                stream)
+            if err:
+                raise RuntimeError(f"level_assign kernel launch failed: "
+                                   f"CUDA error {err}")
+            LAUNCHES["level_assign"] += 1
+    return _views(levels, offsets, deltas), _views(carry, offsets, deltas)
+
+
+def _views(flat: torch.Tensor, offsets, like) -> list[torch.Tensor]:
+    """Contiguous views of ``flat`` at ``offsets`` shaped as ``like``
+    (``as_strided``: one op a leaf, where a slice and a view take two)."""
+    out = []
+    for o, t in zip(offsets, like):
+        strides, step = [], 1
+        for n in reversed(t.shape):
+            strides.append(step)
+            step *= n
+        out.append(flat.as_strided(t.shape, strides[::-1], o))
+    return out
+
+
+def level_assign_leaves(deltas, residuals, thetas: torch.Tensor, steps, *,
+                        max_level: int = MAX_LEVEL):
+    """``level_assign`` of each leaf: deltas and residuals are lists of
+    float32 tensors (pairwise of one shape, any shapes), ``thetas`` a
+    float32 (L,) tensor beside them, ``steps`` L floats.  Returns (levels
+    int32, carry float32), two lists of tensors shaped as the leaves; on
+    the card they are views of two flat buffers, from one launch per
+    ``MAX_LEAVES`` leaves."""
+    deltas, residuals, steps = list(deltas), list(residuals), [
+        float(s) for s in steps]
+    if not len(deltas) == len(residuals) == len(steps):
+        raise ValueError(f"level_assign_leaves takes as many residuals and "
+                         f"steps as deltas, got {len(deltas)}, "
+                         f"{len(residuals)} and {len(steps)}")
+    if thetas.shape != (len(deltas),):
+        raise ValueError(f"thetas must have shape ({len(deltas)},), got "
+                         f"{tuple(thetas.shape)}")
+    tensors = deltas + residuals + [thetas]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"level_assign_leaves takes float32 tensors, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if any(t.device != thetas.device for t in tensors):
+        raise ValueError(f"level_assign_leaves takes tensors on one device, "
+                         f"got {sorted({str(t.device) for t in tensors})}")
+    for d, r in zip(deltas, residuals):
+        if d.shape != r.shape:
+            raise ValueError(f"a delta of shape {tuple(d.shape)} with a "
+                             f"residual of shape {tuple(r.shape)}")
+    if not 0 < max_level <= 2**24:
+        raise ValueError(f"max_level must be in (0, 2**24], got {max_level}")
+    CALLS["level_assign"] += len(deltas)
+    if thetas.device.type == "cpu":
+        return level_assign_leaves_plain(deltas, residuals, thetas, steps,
+                                         max_level)
+    if thetas.device.type != "cuda":
+        raise ValueError(f"level_assign runs on CUDA or CPU tensors, got "
+                         f"{thetas.device}")
+    if not deltas:
+        return [], []
+    return _launch_leaves(deltas, residuals, thetas, steps, max_level)

@@ -4,11 +4,11 @@ backward:
 
     y = x @ (s * W)^T          x (M, K), W (N, K), s (N,) -> (M, N)
 
-``scaled_matmul`` is a ``torch.autograd.Function``.  Its forward and the
-three products of its backward each launch a hand-written CUDA kernel of
-``csrc/scaled_matmul.cu`` on CUDA tensors and take the plain PyTorch
-version beside it on CPU tensors; any other device raises.  The backward
-computes only the gradients asked for (``ctx.needs_input_grad``):
+``scaled_matmul`` is a ``torch.autograd.Function``.  Its forward launches
+one hand-written CUDA kernel of ``csrc/scaled_matmul.cu`` on CUDA tensors,
+and so does its backward, which computes in that one launch the gradients
+asked for (``ctx.needs_input_grad``); on CPU tensors both take the plain
+PyTorch versions beside them; any other device raises:
 
 * weight steps (S frozen): ``dx = (dy * s) @ W`` and ``dW = s * dy^T x``;
 * scale sub-epochs (W frozen): ``dx`` and ``ds[n] = sum_m dy[m, n]
@@ -24,8 +24,9 @@ bitwise.
 On the port's path every dense layer of the client round and of the
 server's evaluation calls it (``models.cnn.dense_apply``).
 
-``LAUNCHES`` counts kernel launches per direction (only where a CUDA
-kernel is launched); ``CALLS`` counts wrapper calls on any device.
+``LAUNCHES`` counts kernel launches, ``forward`` and ``backward`` (only
+where a CUDA kernel is launched); ``CALLS`` counts the products computed
+per direction (forward, dx, dw, ds) on any device.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ import torch
 from repro_torch.kernels import build
 
 DIRECTIONS = ("forward", "dx", "dw", "ds")
-LAUNCHES = {d: 0 for d in DIRECTIONS}
+KERNELS = ("forward", "backward")
+LAUNCHES = {k: 0 for k in KERNELS}
 CALLS = {d: 0 for d in DIRECTIONS}
 
 
@@ -78,38 +80,29 @@ def ds_plain(dy: torch.Tensor, x: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("scaled_matmul")
-    for d in DIRECTIONS:
-        fn = getattr(lib, f"scaled_matmul_{d}")
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    fn = lib.scaled_matmul_forward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.scaled_matmul_backward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(direction: str, a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor, out_shape: tuple, m: int, n: int,
-            k: int) -> torch.Tensor:
-    dev = a.device
-    if min(m, n, k) == 0:   # an empty sum: nothing to launch
-        return torch.zeros(out_shape, dtype=torch.float32, device=dev)
-    a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(_lib(), f"scaled_matmul_{direction}")(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), m, n,
-            k, torch.cuda.current_stream(dev).cuda_stream)
+def _check(kernel: str, err: int) -> None:
     if err:
-        raise RuntimeError(f"scaled_matmul {direction} kernel launch "
-                           f"failed: CUDA error {err}")
-    LAUNCHES[direction] += 1
-    return out
+        raise RuntimeError(f"scaled_matmul {kernel} kernel launch failed: "
+                           f"CUDA error {err}")
+    LAUNCHES[kernel] += 1
 
 
-def _route(direction: str, device: torch.device) -> bool:
-    """Counts the call; True for a CPU tensor (the plain version), False
-    for a CUDA tensor (the kernel); raises on any other device."""
-    CALLS[direction] += 1
+def _on_cpu(device: torch.device) -> bool:
+    """True for a CPU tensor (the plain versions), False for a CUDA tensor
+    (the kernels); raises on any other device."""
     if device.type == "cpu":
         return True
     if device.type != "cuda":
@@ -118,32 +111,71 @@ def _route(direction: str, device: torch.device) -> bool:
     return False
 
 
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def forward(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
-    if _route("forward", x.device):
+    CALLS["forward"] += 1
+    if _on_cpu(x.device):
         return scaled_matmul_plain(x, w, s)
-    m, k = x.shape
-    return _launch("forward", x, w, s, (m, w.shape[0]), m, w.shape[0], k)
+    (m, k), n = x.shape, w.shape[0]
+    if min(m, n, k) == 0:     # an empty sum: nothing to launch
+        return torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    x, w, s = x.contiguous(), w.contiguous(), s.contiguous()
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().scaled_matmul_forward(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), m, n, k,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check("forward", err)
+    return y
+
+
+def backward(dy: torch.Tensor, x, w, s, need_x: bool, need_w: bool,
+             need_s: bool):
+    """``(dx, dW, ds)`` of ``x @ (s * W)^T`` for the upstream gradient
+    ``dy`` (M, N), each None unless asked for; on the card one launch
+    computes all that are.  ``x`` (M, K) is read only for dW and ds, ``s``
+    only for dx and dW, so either may be None where it is not."""
+    asked = {"dx": need_x, "dw": need_w, "ds": need_s}
+    for d, need in asked.items():
+        CALLS[d] += int(need)
+    if _on_cpu(dy.device):
+        return (dx_plain(dy, w, s) if need_x else None,
+                dw_plain(dy, x, s) if need_w else None,
+                ds_plain(dy, x, w) if need_s else None)
+    (m, n), k = dy.shape, (w if w is not None else x).shape[1]
+    shapes = {"dx": (m, k), "dw": (n, k), "ds": (n,)}
+    out = {d: torch.empty(shapes[d], dtype=torch.float32, device=dy.device)
+           if need else None for d, need in asked.items()}
+    if not any(asked.values()) or min(m, n, k) == 0:   # nothing to launch
+        return tuple(o.zero_() if o is not None else None
+                     for o in out.values())
+    dy, x, w, s = (t.contiguous() if t is not None else None
+                   for t in (dy, x, w, s))
+    with torch.cuda.device(dy.device):
+        err = _lib().scaled_matmul_backward(
+            dy.data_ptr(), _ptr(x), _ptr(w), _ptr(s), _ptr(out["dx"]),
+            _ptr(out["dw"]), _ptr(out["ds"]), m, n, k,
+            torch.cuda.current_stream(dy.device).cuda_stream)
+    _check("backward", err)
+    return tuple(out.values())
 
 
 def dx(dy: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
-    if _route("dx", dy.device):
-        return dx_plain(dy, w, s)
-    m, n = dy.shape
-    return _launch("dx", dy, w, s, (m, w.shape[1]), m, n, w.shape[1])
+    """``backward`` for dx alone."""
+    return backward(dy, None, w, s, True, False, False)[0]
 
 
 def dw(dy: torch.Tensor, x: torch.Tensor, s: torch.Tensor):
-    if _route("dw", dy.device):
-        return dw_plain(dy, x, s)
-    m, n = dy.shape
-    return _launch("dw", dy, x, s, (n, x.shape[1]), m, n, x.shape[1])
+    """``backward`` for dW alone."""
+    return backward(dy, x, None, s, False, True, False)[1]
 
 
 def ds(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor):
-    if _route("ds", dy.device):
-        return ds_plain(dy, x, w)
-    m, n = dy.shape
-    return _launch("ds", dy, x, w, (n,), m, n, x.shape[1])
+    """``backward`` for ds alone."""
+    return backward(dy, x, w, None, False, False, True)[2]
 
 
 # ------------------------------------------------------------ autograd
@@ -160,10 +192,7 @@ class ScaledMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, s = ctx.saved_tensors
-        need_x, need_w, need_s = ctx.needs_input_grad
-        return (dx(dy, w, s) if need_x else None,
-                dw(dy, x, s) if need_w else None,
-                ds(dy, x, w) if need_s else None)
+        return backward(dy, x, w, s, *ctx.needs_input_grad[:3])
 
 
 def scaled_matmul(x: torch.Tensor, w: torch.Tensor,

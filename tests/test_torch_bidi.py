@@ -5,9 +5,11 @@ Teacher-forced: the reference's ``Downlink`` and the port's receive the
 same server updates (made with numpy from a seed, on the tiny VGG's
 leaves) for 3 rounds, each carrying its own error-feedback residual, for
 the nnc-cabac, golomb and int8-blockscale codecs and with no wire at all.
-Under ``fsfl`` (fixed-rate top-k, one ``level_assign`` launch per leaf)
-and under ``fsfl_dyn`` (the adaptive Eqs. 2+3 thresholds of the
-reference's Fig. 4 setting, whose Eq. 3 scores come from ``row_stats``),
+Under ``fsfl``, ``stc``, ``eqs23`` and ``stc_scaled`` (fixed-rate top-k,
+one grouped ``level_assign`` call per broadcast; the downlink sparsifies
+and quantizes whatever the uplink's method) and under ``fsfl_dyn`` (the
+adaptive Eqs. 2+3 thresholds of the reference's Fig. 4 setting, whose
+Eq. 3 scores come from ``row_stats``),
 the broadcast's reconstruction, the residual (bit patterns), the payload
 bytes, ``last_payload_bytes`` and ``down_bytes`` are EQUAL, and so are
 the params the server gets from applying the broadcast.
@@ -193,7 +195,8 @@ def _port_recon(bc):
 
 @pytest.mark.parametrize("codec", ["nnc-cabac", "golomb", "int8-blockscale",
                                    "no wire"])
-@pytest.mark.parametrize("name", ["fsfl", "fsfl_dyn"])
+@pytest.mark.parametrize("name", ["fsfl", "fsfl_dyn", "stc", "eqs23",
+                                  "stc_scaled"])
 def test_downlink_matches_reference(name, codec):
     ref_cfg, port_cfg = _cfgs(name)
     shapes = _shapes()
@@ -207,7 +210,8 @@ def test_downlink_matches_reference(name, codec):
                               comms.get_codec(cname), True)
     ref_dl.codec = _recording(ref_dl.codec, ref_log)
     port_dl.codec = _recording(port_dl.codec, port_log)
-    assert port_dl.active and port_dl.stages.fused == (name == "fsfl")
+    fused = port_dl.stages.fused
+    assert port_dl.active and fused == (not port_cfg.structured)
     n_leaves = sum(len(d) for d in shapes.values())
     n_weights = sum(len(sh) >= 2 for d in shapes.values() for sh in d.values())
     w = _update(7, shapes)
@@ -219,8 +223,8 @@ def test_downlink_matches_reference(name, codec):
         for mod in (la, rs, da):
             mod.reset_counters()
         bc, down = port_dl.compress(_t(upd), RECEIVERS, transmit)
-        assert la.CALLS["level_assign"] == (n_leaves if name == "fsfl" else 0)
-        assert rs.CALLS["row_stats"] == (n_weights if name == "fsfl_dyn"
+        assert la.CALLS["level_assign"] == (n_leaves if fused else 0)
+        assert rs.CALLS["row_stats"] == (n_weights if port_cfg.structured
                                          else 0)
         int8 = transmit and cname == "int8-blockscale"
         assert da.CALLS["delta_apply"] == (n_leaves if int8 else 0)

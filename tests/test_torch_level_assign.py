@@ -13,13 +13,20 @@ Inputs cover values on exact half-steps (a power-of-two step makes
 data), theta = 0, levels clipped at ``max_level``, and K > 1 rows of
 ragged n.
 
-``UpstreamStages.compress_carry`` (one launch per leaf) is held bitwise to
+The grouped entry ``level_assign_leaves`` (a list of leaves, each with
+its own theta and step, one launch per 64 leaves on the card) is held
+bitwise to ``level_assign_plain`` per leaf and to the reference oracle at
+every ``vgg11_thinned`` leaf shape and at ragged sizes, with the same
+half-steps and ties; its chunk-offset table is checked above the
+per-launch cap.
+
+``UpstreamStages.compress_carry`` (one grouped call) is held bitwise to
 the reference's ``carry_residual -> compress -> new_residual`` on random
 trees with fine and coarse leaves: levels, reconstruction, new residual
 and ``update_sparsity``.
 
-The ``gpu`` tests hold the CUDA kernel bitwise to the plain version on the
-card; they skip where no CUDA device is visible.
+The ``gpu`` tests hold the CUDA kernels bitwise to the plain versions on
+the card; they skip where no CUDA device is visible.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +41,7 @@ from repro_torch.comms import stages
 from repro_torch.core import sparsify
 from repro_torch.kernels import level_assign as la
 from repro_torch.kernels import ops, ref
+from repro_torch.models import vgg11_thinned
 
 STEP_POW2 = 2.0 ** -11          # 4.8828125e-4: half-steps are exact
 STEP_UNI = 4.88e-4
@@ -145,6 +153,128 @@ def test_ref_module_is_the_plain_version():
     b = la.level_assign_plain(torch.from_numpy(d), torch.from_numpy(r),
                               theta, STEP_UNI)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------- grouped
+
+def _vgg_shapes():
+    params, _ = vgg11_thinned().init(torch.Generator().manual_seed(0))
+    return [tuple(v.shape) for d in params.values() for v in d.values()]
+
+
+def _leaves(shapes, seed=0):
+    """(deltas, residuals, thetas, steps) in numpy: each leaf from
+    ``_inputs`` (half-steps and theta ties) with its own theta, steps
+    alternating between a power of two and the uniform step."""
+    ds, rs, ths, steps = [], [], [], []
+    for i, sh in enumerate(shapes):
+        step = (STEP_POW2, STEP_UNI)[i % 2]
+        n = int(np.prod(sh))
+        if n == 0:
+            d = r = np.zeros(0, np.float32)
+            theta = np.float32(0.0)
+        else:
+            d, r, theta = _inputs(1, n, seed=seed + i, step=step)
+        ds.append(d.reshape(sh))
+        rs.append(r.reshape(sh))
+        ths.append(theta if i % 5 else np.float32(0.0))
+        steps.append(step)
+    return ds, rs, np.array(ths, np.float32), steps
+
+
+def _grouped_vs_references(shapes, seed=0):
+    ds, rs, ths, steps = _leaves(shapes, seed)
+    la.reset_counters()
+    lvs, cs = la.level_assign_leaves([torch.from_numpy(d) for d in ds],
+                                     [torch.from_numpy(r) for r in rs],
+                                     torch.from_numpy(ths), steps)
+    assert la.CALLS["level_assign"] == len(shapes)
+    assert la.LAUNCHES["level_assign"] == 0
+    for d, r, th, step, lv, c in zip(ds, rs, ths, steps, lvs, cs):
+        assert lv.shape == c.shape == d.shape
+        pl, pc = la.level_assign_plain(torch.from_numpy(d.reshape(1, -1)),
+                                       torch.from_numpy(r.reshape(1, -1)),
+                                       th, step)
+        assert torch.equal(lv.reshape(1, -1), pl)
+        assert torch.equal(c.reshape(1, -1).view(torch.int32),
+                           pc.view(torch.int32))
+        rl, rc = ref_oracle.level_assign(jnp.asarray(d.reshape(1, -1)),
+                                         jnp.asarray(r.reshape(1, -1)), th,
+                                         step)
+        np.testing.assert_array_equal(np.asarray(rl), pl.numpy())
+        np.testing.assert_array_equal(_bits(rc), _bits(pc.numpy()))
+    return ds, rs
+
+
+def test_grouped_plain_bitwise_at_every_vgg11_thinned_leaf():
+    shapes = _vgg_shapes()
+    assert len(shapes) == 28
+    ds, rs = _grouped_vs_references(shapes)
+    carried = np.concatenate([(d + r).ravel() for d, r in zip(ds, rs)])
+    steps = np.concatenate([np.full(d.size, (STEP_POW2, STEP_UNI)[i % 2],
+                                    np.float32) for i, d in enumerate(ds)])
+    x = carried / steps
+    assert int(np.sum(x - np.floor(x) == 0.5)) > 1000   # half-steps kept
+
+
+@pytest.mark.parametrize("shapes", [[(1,), (5,), (1027,)],
+                                    [(1027,), (1,), (3, 5), (0,), (5,)],
+                                    [(2, 2, 2)] * 3], ids=str)
+def test_grouped_plain_bitwise_at_ragged_sizes(shapes):
+    _grouped_vs_references(shapes, seed=7)
+
+
+def test_grouped_wrapper_rejects_bad_inputs():
+    x, th = torch.zeros((2, 3)), torch.zeros(2)
+    call = la.level_assign_leaves
+    with pytest.raises(ValueError):          # lists of other lengths
+        call([x, x], [x], th, [1.0, 1.0])
+    with pytest.raises(ValueError):
+        call([x, x], [x, x], th, [1.0])
+    with pytest.raises(ValueError):          # one theta too few
+        call([x, x], [x, x], torch.zeros(1), [1.0, 1.0])
+    with pytest.raises(ValueError):          # a residual of another shape
+        call([x, x], [x, torch.zeros(6)], th, [1.0, 1.0])
+    with pytest.raises(TypeError):
+        call([x, x.double()], [x, x.double()], th, [1.0, 1.0])
+    with pytest.raises(TypeError):
+        call([x, x], [x, x], th.double(), [1.0, 1.0])
+    with pytest.raises(ValueError):          # leaves on two devices
+        call([x, x.to("meta")], [x, x.to("meta")], th, [1.0, 1.0])
+    with pytest.raises(ValueError):          # no kernel for this device
+        call([x.to("meta")], [x.to("meta")], th[:1].to("meta"), [1.0])
+    with pytest.raises(ValueError):
+        call([x], [x], th[:1], [1.0], max_level=0)
+    assert call([], [], torch.zeros(0), []) == ([], [])
+
+
+@pytest.mark.parametrize("sizes", [
+    [1000] * 28, [1] * 64, [5] * 65, [1024, 1025, 0, 3] * 40,
+    list(range(0, 3000, 17))], ids=lambda s: f"{len(s)}_leaves")
+def test_chunk_table_and_offsets(sizes):
+    table = la.chunk_table(sizes)
+    assert [lo for lo, _, _ in table] == list(range(0, len(sizes),
+                                                    la.MAX_LEAVES))
+    assert table[-1][1] == len(sizes)
+    for lo, hi, starts in table:
+        assert 0 < hi - lo <= la.MAX_LEAVES and len(starts) == hi - lo + 1
+        assert starts[0] == 0
+        for i, n in enumerate(sizes[lo:hi]):
+            assert starts[i + 1] - starts[i] == -(-n // la.CHUNK)
+    # every element of every leaf falls in exactly one chunk of its launch
+    for lo, hi, starts in table:
+        seen = []
+        for b in range(starts[-1]):
+            leaf = max(i for i in range(hi - lo) if starts[i] <= b)
+            base = (b - starts[leaf]) * la.CHUNK
+            assert base < sizes[lo + leaf]
+            seen.append((leaf, base))
+        assert len(set(seen)) == len(seen)
+    offsets, total = la.leaf_offsets(sizes)
+    assert all(o % 4 == 0 for o in offsets)
+    ends = [o + n for o, n in zip(offsets, sizes)]
+    assert all(e <= o2 for e, o2 in zip(ends, offsets[1:] + [total]))
+    assert total - ends[-1] < 4
 
 
 # ---------------------------------------------------------------- stages
@@ -308,3 +438,46 @@ def test_cuda_kernel_cohort_shape_and_unaligned_rows(cuda):
         torch.cuda.synchronize()
         assert torch.equal(lv, pl)
         assert torch.equal(c.view(torch.int32), pc.view(torch.int32))
+
+
+def _grouped_on_card(cuda, shapes, seed=0):
+    ds, rs, ths, steps = _leaves(shapes, seed)
+    d = [torch.from_numpy(v).to(cuda) for v in ds]
+    r = [torch.from_numpy(v).to(cuda) for v in rs]
+    th = torch.from_numpy(ths).to(cuda)
+    return d, r, th, steps
+
+
+def _grouped_bitwise(d, r, th, steps, launches):
+    la.reset_counters()
+    lvs, cs = la.level_assign_leaves(d, r, th, steps)
+    assert la.LAUNCHES["level_assign"] == launches
+    assert la.CALLS["level_assign"] == len(d)
+    pls, pcs = la.level_assign_leaves_plain(d, r, th, steps)
+    torch.cuda.synchronize()
+    for lv, c, pl, pc in zip(lvs, cs, pls, pcs):
+        assert torch.equal(lv, pl)
+        assert torch.equal(c.view(torch.int32), pc.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_kernel_bitwise_at_28_leaves(cuda):
+    _grouped_bitwise(*_grouped_on_card(cuda, _vgg_shapes()), launches=1)
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_kernel_unaligned_leaves(cuda):
+    d, r, th, steps = _grouped_on_card(cuda, [(1,), (5,), (1027,), (3, 7),
+                                              (0,), (4097,)], seed=3)
+    # views that start 4, 8 and 12 bytes past an alignment boundary
+    d = [v.reshape(-1)[1:] if v.numel() > 1 else v for v in d]
+    r = [v.reshape(-1)[1:] if v.numel() > 1 else v for v in r]
+    _grouped_bitwise(d, r, th, steps, launches=1)
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_kernel_above_the_cap(cuda):
+    shapes = [(n,) for n in range(1, 3000, 19)]      # 158 leaves
+    assert len(shapes) > 2 * la.MAX_LEAVES
+    _grouped_bitwise(*_grouped_on_card(cuda, shapes, seed=5),
+                     launches=-(-len(shapes) // la.MAX_LEAVES))

@@ -14,7 +14,9 @@ after the sum).
 The backward (``dx``, ``dW``, ``ds``) is held to ``torch.autograd``
 through ``apply_scale`` (the port's route before Eq. 4 moved into the
 product), with only the gradients asked for computed: the weight steps
-ask for ``dx`` and ``dW``, the scale sub-epochs for ``dx`` and ``ds``.
+ask for ``dx`` and ``dW``, the scale sub-epochs for ``dx`` and ``ds``; on
+the card one launch computes them all, and every subset of the three is
+held to its plain versions.
 ``ds`` sums over M products of ``dy`` and a sum over K, so its bound is
 ``2 (M + K + 2) u sum_m |dy| sum_k |x w|``: a ``ds`` set to zero fails it
 at every main-path shape, and one taken in bfloat16 at M = 32 and 120.
@@ -23,8 +25,13 @@ held to the reference's ``client_round`` within the slice bounds of
 tests/test_torch_protocol.py, and its calls per direction are counted.
 
 The ``gpu`` tests hold each CUDA kernel to its plain version on the card
-within the same bound; they skip where no CUDA device is visible.
+within the same bound, the fused backward for every subset of the
+gradients at the main path's shapes and ragged ones, and check that a
+second run gives the same bits; they skip where no CUDA device is
+visible.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,13 +132,47 @@ def test_backward_vs_autograd_through_apply_scale(shape, need):
                               torch.from_numpy(dy))
     assert sm.CALLS == {"forward": 1, "dx": int(flags[0]),
                         "dw": int(flags[1]), "ds": int(flags[2])}
-    assert sm.LAUNCHES == dict.fromkeys(sm.DIRECTIONS, 0)
+    assert sm.LAUNCHES == dict.fromkeys(sm.KERNELS, 0)
     bounds = _bounds(x, w, s, dy)
     asked = [d for d, f in zip(("dx", "dw", "ds"), flags) if f]
     for d, g, t in zip(asked, got, want):
         _within(g.numpy(), t.numpy(), bounds[d])
     _within(got_y.detach().numpy(), want_y.detach().numpy(),
             bounds["forward"])
+
+
+# every subset of (dx, dW, ds), the empty one only by a direct call
+SUBSETS = list(itertools.product((False, True), repeat=3))
+
+
+def _subset_id(flags):
+    return "+".join(d for d, f in zip(("dx", "dw", "ds"), flags) if f) or (
+        "none")
+
+
+@pytest.mark.parametrize("flags", SUBSETS, ids=_subset_id)
+def test_backward_computes_exactly_the_gradients_asked_for(flags):
+    x, w, s, dy = (torch.from_numpy(v) for v in _inputs(17, 16, 32, seed=5))
+    sm.reset_counters()
+    got = sm.backward(dy, x, w, s, *flags)
+    assert sm.CALLS == {"forward": 0, **{d: int(f) for d, f in zip(
+        ("dx", "dw", "ds"), flags)}}
+    assert sm.LAUNCHES == dict.fromkeys(sm.KERNELS, 0)
+    want = (sm.dx_plain(dy, w, s), sm.dw_plain(dy, x, s),
+            sm.ds_plain(dy, x, w))
+    for f, g, t in zip(flags, got, want):
+        assert (g is None) == (not f)
+        if f:
+            assert torch.equal(g, t)
+    if any(flags):        # the same through autograd
+        ins = [t.clone().requires_grad_(f) for t, f in zip((x, w, s), flags)]
+        sm.reset_counters()
+        grads = torch.autograd.grad(sm.scaled_matmul(*ins),
+                                    [t for t in ins if t.requires_grad], dy)
+        assert sm.CALLS == {"forward": 1, **{d: int(f) for d, f in zip(
+            ("dx", "dw", "ds"), flags)}}
+        for g, t in zip(grads, [t for f, t in zip(flags, want) if f]):
+            assert torch.equal(g, t)
 
 
 def _ds_exact_and_bound(shape):
@@ -248,7 +289,7 @@ def test_client_round_with_dense_scales_at_matmul_vs_reference():
     # 2 dense layers: 3 weight steps, 6 scale steps, 3 validation passes
     assert sm.CALLS == {"forward": 2 * (3 + 6 + 3), "dx": 2 * (3 + 6),
                         "dw": 2 * 3, "ds": 2 * 6}
-    assert sm.LAUNCHES == dict.fromkeys(sm.DIRECTIONS, 0)
+    assert sm.LAUNCHES == dict.fromkeys(sm.KERNELS, 0)
     assert float(out.metrics["scale_epoch"]) in (0.0, 1.0, 2.0)
     for m in ("val_acc_unscaled", "val_acc"):
         assert float(out.metrics[m]) == float(ref_out.metrics[m]), m
@@ -281,7 +322,7 @@ def test_bidirectional_round_counts_every_dense_product():
                            splits=splits, device="cpu")
     assert sm.CALLS == {"forward": 8 * 2 * 12 + 2, "dx": 8 * 2 * 9,
                         "dw": 8 * 2 * 3, "ds": 8 * 2 * 6}
-    assert sm.LAUNCHES == dict.fromkeys(sm.DIRECTIONS, 0)
+    assert sm.LAUNCHES == dict.fromkeys(sm.KERNELS, 0)
 
 
 # ---------------------------------------------------------------- on the card
@@ -301,7 +342,7 @@ def test_cuda_kernels_vs_plain(cuda, shape):
     sm.reset_counters()
     got = {"forward": sm.forward(x, w, s), "dx": sm.dx(dy, w, s),
            "dw": sm.dw(dy, x, s), "ds": sm.ds(dy, x, w)}
-    assert sm.LAUNCHES == dict.fromkeys(sm.DIRECTIONS, 1)
+    assert sm.LAUNCHES == {"forward": 1, "backward": 3}
     want = {"forward": sm.scaled_matmul_plain(x, w, s),
             "dx": sm.dx_plain(dy, w, s), "dw": sm.dw_plain(dy, x, s),
             "ds": sm.ds_plain(dy, x, w)}
@@ -328,3 +369,33 @@ def test_cuda_autograd_vs_cpu(cuda, need):
     asked = [d for d, f in zip(("dx", "dw", "ds"), flags) if f]
     for d, a, b in zip(asked, grads["cpu"], grads["cuda"]):
         _within(b.numpy(), a.numpy(), bounds[d])
+
+
+FUSED_SHAPES = [(32, 128, 128), (32, 10, 128), (120, 128, 128),
+                (960, 128, 128)] + RAGGED
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [f for f in SUBSETS if any(f)],
+                         ids=_subset_id)
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=str)
+def test_cuda_fused_backward_every_subset_and_deterministic(cuda, shape,
+                                                            flags):
+    x, w, s, dy = (torch.from_numpy(v).to(cuda) for v in _inputs(*shape))
+    sm.reset_counters()
+    first = sm.backward(dy, x, w, s, *flags)
+    again = sm.backward(dy, x, w, s, *flags)
+    y, y2 = sm.forward(x, w, s), sm.forward(x, w, s)
+    assert sm.LAUNCHES == {"forward": 2, "backward": 2}
+    want = (sm.dx_plain(dy, w, s), sm.dw_plain(dy, x, s),
+            sm.ds_plain(dy, x, w))
+    torch.cuda.synchronize()
+    bounds = _bounds(*(v.cpu().numpy() for v in (x, w, s, dy)))
+    for d, f, g, g2, t in zip(("dx", "dw", "ds"), flags, first, again, want):
+        assert (g is None) == (not f)
+        if f:
+            _within(g.cpu().numpy(), t.cpu().numpy(), bounds[d])
+            assert torch.equal(g.view(torch.int32), g2.view(torch.int32))
+    _within(y.cpu().numpy(), sm.scaled_matmul_plain(x, w, s).cpu().numpy(),
+            bounds["forward"])
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
