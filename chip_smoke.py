@@ -19,8 +19,13 @@ Phases (any failure exits non-zero):
    client, on unaligned leaf views and on more leaves than one launch
    takes;
    ``delta_apply`` bitwise at every leaf size and 849,834 with coef +1,
-   -1 and 0.5 and on unaligned views; ``row_stats`` at rtol 1e-6 at the
-   six (M, N) views of the weight leaves and ragged shapes;
+   -1 and 0.5 and on unaligned views, and its grouped entry
+   ``delta_apply_leaves`` on the 28 leaves of a broadcast with the levels
+   at every byte offset mod 16, the values views into one flat buffer,
+   and on more leaves than one launch takes; ``row_stats`` at rtol 1e-6
+   at the six (M, N) views of the weight leaves and ragged shapes, and its
+   grouped entry ``row_stats_leaves`` on the 10 weight views of a client
+   and on unaligned views, bitwise equal to one-view launches;
    ``scaled_matmul``'s forward, dx, dw and ds within the float32 error
    bound at the dense layers' shapes (M = 32, 120, 960) and ragged ones,
    and its one-launch backward for every subset of (dx, dw, ds) there,
@@ -46,21 +51,26 @@ Phases (any failure exits non-zero):
      ``run_federated(bidirectional=True)`` and 1 of ``bidi_sync_full``
      (nnc-cabac both legs, ``level_assign`` on both: 9 a round).  Path
      B: 2 rounds of the adaptive Eqs. 2+3 setting ``fsfl_dyn``,
-     bidirectional (``row_stats`` once per weight leaf per client and on
-     the downlink: 90 a round).  Path C: 2 rounds with int8-blockscale on
-     both legs, cohorts of 4 (``delta_apply`` 56 a round: the downlink's
-     residual and the server's apply, per leaf), the server's params
-     after each apply held bitwise against the host decode of the
-     broadcast plus the old params;
+     bidirectional (``row_stats`` once per client and once on the
+     downlink, each launch over the 10 weight views: 9 a round).  Path C:
+     2 rounds with int8-blockscale on both legs, cohorts of 4
+     (``delta_apply`` 2 a round: the downlink's residual and the server's
+     apply, each one launch over the 28 leaves), the server's params after
+     each apply held bitwise against the host decode of the broadcast plus
+     the old params;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``level_assign``: the first client's
    28 leaves, in one grouped launch and in the 28 one-leaf launches it
    replaces;
-   ``delta_apply``: the first downlink's 28 residual calls;
-   ``row_stats``: the first client's 10 weight leaves, with the Eq. 3
-   keep masks and 50% ``topk_rows`` indices compared and any flip away
-   from a near-tie failing; ``scaled_matmul``: the forward at each shape
+   ``delta_apply``: the first downlink's residual (coef -1) and the
+   server's apply (+1), each over the 28 leaves in one grouped launch and
+   in the 28 one-leaf launches it replaces; ``row_stats``: the first
+   client's 10 weight views, in one grouped launch and in 10 one-view
+   launches (bitwise equal), with the Eq. 3 keep masks and 50%
+   ``topk_rows`` indices compared and any flip away from a near-tie
+   failing, and ``torch.linalg.vector_norm`` (the row sum of ``|w|``) as
+   its library yardstick; ``scaled_matmul``: the forward at each shape
    and the backward at each shape and subset of gradients the main path
    gave it, each run twice to the same bits) and timed there with CUDA
    events (median of 50 launches after warm-up, L2 flushed before each, a
@@ -1318,6 +1328,87 @@ def slice3_kernel_phase(torch, da, rs, models) -> int:
     return checks
 
 
+def bits_equal(torch, a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def slice6_kernel_phase(torch, da, rs, models) -> int:
+    """The grouped entries on random inputs: ``row_stats_leaves`` on the
+    10 weight views and on views that start anywhere in one buffer (more
+    than one launch takes), bitwise equal to one-view launches and within
+    rtol 1e-6 of the plain version; ``delta_apply_leaves`` on the 28 leaves
+    with the levels at every byte offset mod 16 and the values views into
+    one flat buffer, and on 70 leaves, bitwise equal to its plain version
+    for coef +1 and -1.  Returns the number of checks."""
+    gen = torch.Generator().manual_seed(6)
+    params, _ = models.vgg11_thinned().init(torch.Generator().manual_seed(0))
+    leaves = [v for d in params.values() for v in d.values()]
+    checks = 0
+    shapes = [(v.shape[0], v.numel() // v.shape[0]) for v in leaves
+              if v.ndim >= 2]
+    odd = [(3, 27), (5, 1152), (2, 1281), (7, 5), (1, 4000)] * 14
+    for group in (shapes, odd):
+        flat = (1e-3 * torch.randn(sum(m * n + 1 for m, n in group) + 1,
+                                   generator=gen)).cuda()
+        views, o = [], 1 if group is odd else 0
+        for m, n in group:
+            views.append(flat[o:o + m * n].view(m, n))
+            o += m * n + (1 if group is odd else 0)
+        rs.reset_counters()
+        got = rs.row_stats_leaves(views)
+        if rs.LAUNCHES["row_stats"] != -(-len(views) // 64):
+            fail(f"row_stats_leaves made {rs.LAUNCHES['row_stats']} "
+                 f"launches for {len(views)} views")
+        for v, g in zip(views, got):
+            if not bits_equal(torch, g, rs.row_stats(v)):
+                fail(f"row_stats_leaves differs from a one-view launch at "
+                     f"{tuple(v.shape)}")
+            rs_compare(torch, rs, v)
+            checks += 1
+    sizes = [v.numel() for v in leaves]
+    wbuf = (0.1 * torch.randn(sum(sizes) + 3 * len(sizes),
+                              generator=gen)).cuda()
+    qbuf = torch.randint(-127, 128, (16 + sum(sizes) + 128,), generator=gen,
+                         dtype=torch.int8).cuda()
+    scales = [(1e-3 * torch.rand(-(-n // 128), generator=gen)
+               + 1e-6).cuda() for n in sizes]
+    for q_off in range(16):
+        ws, qs, o, qo = [], [], 0, q_off
+        for i, (v, n) in enumerate(zip(leaves, sizes)):
+            o += i % 4                 # w at element offsets 0 to 3 mod 4
+            ws.append(wbuf[o:o + n].view(v.shape))
+            qs.append(qbuf[qo:qo + n])
+            o, qo = o + n, qo + n
+        for coef in (1.0, -1.0):
+            da.reset_counters()
+            got = da.delta_apply_leaves(ws, qs, scales, coef)
+            if da.LAUNCHES["delta_apply"] != 1:
+                fail(f"delta_apply_leaves made {da.LAUNCHES['delta_apply']} "
+                     f"launches for {len(ws)} leaves")
+            want = da.delta_apply_leaves_plain(ws, qs, scales, coef, 128)
+            torch.cuda.synchronize()
+            for g, p in zip(got, want):
+                if not bits_equal(torch, g, p):
+                    fail(f"delta_apply_leaves disagrees with its plain "
+                         f"version (q at offset {q_off} mod 16, coef {coef})")
+            checks += 1
+    reps = (ws + ws + ws)[:70], (qs + qs + qs)[:70], (scales * 3)[:70]
+    da.reset_counters()
+    got = da.delta_apply_leaves(*reps, -1.0)
+    if da.LAUNCHES["delta_apply"] != 2:
+        fail(f"delta_apply_leaves made {da.LAUNCHES['delta_apply']} launches "
+             f"for 70 leaves")
+    for g, p in zip(got, da.delta_apply_leaves_plain(*reps, -1.0, 128)):
+        if not bits_equal(torch, g, p):
+            fail("delta_apply_leaves disagrees with its plain version on "
+                 "70 leaves")
+    checks += 1
+    print(f"kernel phase: {checks} grouped row_stats_leaves (bitwise to "
+          f"one-view launches) and delta_apply_leaves (bitwise to plain, "
+          f"levels at every offset mod 16) comparisons")
+    return checks
+
+
 def capture_calls(module, name: str, keep: int, clone) -> list:
     """Wrap ``module.name`` so that ``clone(args, kwargs)`` of the first
     ``keep`` calls is kept; returns the list.  The caller puts the
@@ -1399,11 +1490,11 @@ def path_b(torch, rs, sm, sparsify_mod, protocol_mod, fsfl, models, splits,
            rounds_out):
     """Path B, the adaptive Eqs. 2+3 setting, bidirectional: 2 rounds of
     run_federated(bidirectional=True) with fsfl_dyn; row_stats once per
-    weight leaf per client and on the downlink.  Returns (launches, the
-    first client's captured row_stats inputs)."""
+    client and on the downlink, each launch over the 10 weight views.
+    Returns (launches, the first client's captured row_stats views)."""
     rounds = 2
-    captured = capture_calls(sparsify_mod, "row_stats", VGG_WEIGHTS,
-                             lambda a, k: a[0].clone())
+    captured = capture_calls(sparsify_mod, "row_stats_leaves", 1,
+                             lambda a, k: [w.clone() for w in a[0]])
     rs.reset_counters()
     sm.reset_counters()
     res = fsfl.run_federated(models.vgg11_thinned(),
@@ -1412,13 +1503,13 @@ def path_b(torch, rs, sm, sparsify_mod, protocol_mod, fsfl, models, splits,
     torch.cuda.synchronize()
     count = rs.LAUNCHES["row_stats"]
     check_sm(sm, "fsfl_dyn bidirectional", splits.num_clients, rounds)
-    sparsify_mod.row_stats = rs.row_stats
+    sparsify_mod.row_stats_leaves = rs.row_stats_leaves
     bidi_records(torch, "fsfl_dyn bidirectional", res, splits, rounds_out,
                  splits.num_clients)
-    want = VGG_WEIGHTS * (splits.num_clients + 1) * rounds
+    want = (splits.num_clients + 1) * rounds
     print(f"  fsfl_dyn bidirectional launches: row_stats {count} "
-          f"({count / rounds:.0f} a round: {VGG_WEIGHTS} per client and "
-          f"{VGG_WEIGHTS} on the downlink)")
+          f"({count / rounds:.0f} a round: one per client and one on the "
+          f"downlink, each over {VGG_WEIGHTS} weight views)")
     if count != want:
         fail(f"fsfl_dyn: row_stats launched {count} times, expected {want}")
     return count, captured
@@ -1429,12 +1520,13 @@ def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
     """Path C, the int8 broadcast: cohorts of 4, int8-blockscale on both
     legs; the server's params after each apply are held bitwise against
     the host decode of the broadcast payload plus the old params.
-    Returns (delta_apply launches, captured first calls, checked leaves)."""
+    Returns (delta_apply launches, the first downlink's captured residual
+    and apply calls, checked leaves)."""
     from repro_torch.tree import items, sorted_items
     rounds = 2
-    captured = capture_calls(rounds_mod, "delta_apply", VGG_LEAVES,
-                             lambda a, k: (a[0].clone(), a[1].clone(),
-                                           a[2].clone(), a[3]))
+    captured = capture_calls(rounds_mod, "delta_apply_leaves", 2,
+                             lambda a, k: tuple([x.clone() for x in col]
+                                                for col in a[:3]) + (a[3],))
     payloads = []
     orig_sections = codecs_mod.Int8BlockScaleCodec.device_sections
 
@@ -1468,7 +1560,7 @@ def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
     check_sm(sm, "int8 bidirectional k4", 4, rounds)
     codecs_mod.Int8BlockScaleCodec.device_sections = orig_sections
     rounds_mod.Broadcast.apply = orig_apply
-    rounds_mod.delta_apply = da.delta_apply
+    rounds_mod.delta_apply_leaves = da.delta_apply_leaves
     bidi_records(torch, "int8 bidirectional k4", res, splits, rounds_out, 4)
     for rec in res.records:
         if rec.up_bytes != 4 * PAYLOAD_BYTES:
@@ -1477,7 +1569,7 @@ def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
             fail(f"int8 bidirectional: down_bytes {rec.down_bytes} != "
                  f"{4 * DOWN_PAYLOAD_BYTES}")
     print(f"  int8 bidirectional k4 launches: {counts}")
-    want = {"delta_apply": 2 * VGG_LEAVES * rounds, "delta_compress":
+    want = {"delta_apply": 2 * rounds, "delta_compress":
             5 * rounds, "delta_compress_batch": 0,
             "level_assign": 5 * rounds}
     if counts != want:
@@ -1503,56 +1595,71 @@ def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
 
 
 def da_main_path(torch, da, captured) -> dict:
-    """delta_apply against its plain version on the buffers path C gave
-    it (the first downlink's 28 residual launches, coef -1), bitwise, then
-    timed: the first buffer, the largest, and the chain of 28."""
-    if len(captured) != VGG_LEAVES:
-        fail(f"path C gave delta_apply {len(captured)} buffers, expected "
-             f"{VGG_LEAVES}")
-    for w, q, s, coef in captured:
-        da_compare(torch, da, w, q, s, coef)
-    first = captured[0]
-    largest = max(captured, key=lambda c: c[0].numel())
+    """delta_apply against its plain version on the calls path C gave it
+    (the first downlink's residual over the 28 leaves, coef -1, and the
+    server's apply, +1), bitwise, then timed on the residual call: the one
+    grouped launch of this design, the 28 one-leaf launches it replaces,
+    and the plain version."""
+    if len(captured) != 2 or any(len(c[0]) != VGG_LEAVES for c in captured):
+        fail(f"path C gave delta_apply_leaves {len(captured)} calls, "
+             f"expected 2 of {VGG_LEAVES} leaves")
+    for ws, qs, ss, coef in captured:
+        got = da.delta_apply_leaves(ws, qs, ss, coef)
+        want = da.delta_apply_leaves_plain(ws, qs, ss, coef, 128)
+        torch.cuda.synchronize()
+        if not all(bits_equal(torch, g, p) for g, p in zip(got, want)):
+            fail(f"delta_apply_leaves disagrees with its plain version on "
+                 f"path C's buffers (coef {coef})")
+    ws, qs, ss, coef = captured[0]
+    n = sum(w.numel() for w in ws)
+    # the design before: one launch a leaf on the flat leaf and its levels
+    per_leaf = [(w.reshape(-1), q[:w.numel()], s, coef)
+                for w, q, s in zip(ws, qs, ss)]
 
-    def chain(fn):
-        return lambda: [fn(*c) for c in captured]
+    def chain():
+        return [da.delta_apply(*c) for c in per_leaf]
 
-    out = {}
-    for label, kernel, plain, n, spin in (
-            ("first", lambda: da.delta_apply(*first),
-             lambda: da.delta_apply_plain(*first, 128),
-             first[0].numel(), 2_000_000),
-            ("largest", lambda: da.delta_apply(*largest),
-             lambda: da.delta_apply_plain(*largest, 128),
-             largest[0].numel(), 2_000_000),
-            ("leaves", chain(da.delta_apply),
-             chain(lambda w, q, s, c: da.delta_apply_plain(w, q, s, c, 128)),
-             sum(c[0].numel() for c in captured), 40_000_000)):
-        out[label] = dict(**kernel_times(torch, kernel, plain, spin),
-                          bound=da_bound_ms(n), elements=n)
-        o = out[label]
-        print(f"  delta_apply {label} ({n} elements, coef {first[3]}) on "
-              f"path C's buffer: bitwise; kernel {o['ms']:.4f} ms (whole "
-              f"wrapper call {o['call_ms']:.4f} ms), plain "
-              f"{o['plain_ms']:.4f} ms, bound {o['bound'][0]:.5f} ms "
-              f"({o['bound'][1]})")
-    out["first"]["shape"] = list(first[0].shape)
-    out["largest"]["shape"] = list(largest[0].shape)
+    out = dict(**kernel_times(
+        torch, lambda: da.delta_apply_leaves(ws, qs, ss, coef),
+        lambda: da.delta_apply_leaves_plain(ws, qs, ss, coef, 128)),
+        bound=da_bound_ms(n), elements=n,
+        per_leaf_ms=time_ms(torch, chain, spin=40_000_000),
+        per_leaf_call_ms=time_ms(torch, chain, host_ahead=False))
+    print(f"  delta_apply on path C's {VGG_LEAVES} leaves ({n} elements): "
+          f"bitwise for coef {captured[0][3]} and {captured[1][3]}; one "
+          f"grouped launch {out['ms']:.4f} ms (whole wrapper call "
+          f"{out['call_ms']:.4f} ms), {VGG_LEAVES} launches as before "
+          f"{out['per_leaf_ms']:.4f} ms (wrapper calls "
+          f"{out['per_leaf_call_ms']:.4f} ms), plain {out['plain_ms']:.4f} "
+          f"ms, bound {out['bound'][0]:.5f} ms ({out['bound'][1]})")
     return out
 
 
 def rs_main_path(torch, rs, captured) -> dict:
-    """row_stats against its plain version on the buffers path B gave it
-    (the first client's 10 weight leaves) at rtol 1e-6; the Eq. 3 keep
-    masks and topk_rows indices from both, flipped rows counted only where
-    the score is within rtol of the threshold; then timed."""
-    if len(captured) != VGG_WEIGHTS:
-        fail(f"path B gave row_stats {len(captured)} buffers, expected "
-             f"{VGG_WEIGHTS}")
+    """row_stats against its plain version on the views path B gave it
+    (the first client's 10 weight views) at rtol 1e-6, and bitwise against
+    one-view launches; the Eq. 3 keep masks and topk_rows indices from the
+    kernel and the plain version, flipped rows counted only where the score
+    is within rtol of the threshold; then timed: the one grouped launch,
+    the 10 one-view launches it replaces, the plain version, and
+    ``torch.linalg.vector_norm(w, 1, dim=1)`` (the row sum of |w|, one call
+    a view) as the library yardstick."""
+    if len(captured) != 1 or len(captured[0]) != VGG_WEIGHTS:
+        fail(f"path B gave row_stats_leaves {len(captured)} calls, "
+             f"expected one of {VGG_WEIGHTS} views")
+    views = captured[0]
+    grouped = rs.row_stats_leaves(views)
     worst, worst_abs, flips, topk_flips, kept = 0.0, 0.0, 0, 0, 0
-    for w in captured:
-        worst = max(worst, rs_compare(torch, rs, w))
-        sk, sp = rs.row_stats(w), rs.row_stats_plain(w)
+    for w, sk in zip(views, grouped):
+        sp = rs.row_stats_plain(w)
+        if not bits_equal(torch, sk, rs.row_stats(w)):
+            fail(f"row_stats_leaves differs from a one-view launch on path "
+                 f"B's view {tuple(w.shape)}")
+        rel = float(((sk - sp).abs() / sp.abs().clamp_min(1e-30)).max())
+        if not rel <= RS_RTOL:
+            fail(f"row_stats is {rel:.3g} (relative) off its plain version "
+                 f"at {tuple(w.shape)}")
+        worst = max(worst, rel)
         worst_abs = max(worst_abs, float((sk - sp).abs().max()))
         tk, tp = torch.mean(sk), torch.mean(sp)
         mk, mp = sk >= tk, sp >= tp
@@ -1576,39 +1683,40 @@ def rs_main_path(torch, rs, captured) -> dict:
                 fail(f"row_stats: topk_rows indices differ away from a tie "
                      f"({tuple(w.shape)})")
             topk_flips += 1
-    print(f"  row_stats on path B's {len(captured)} buffers: max relative "
-          f"difference {worst:.3g}; Eq. 3 keep masks equal but for {flips} "
+    print(f"  row_stats on path B's {len(views)} views: one grouped launch "
+          f"bitwise equal to one-view launches; max relative difference "
+          f"from plain {worst:.3g}; Eq. 3 keep masks equal but for {flips} "
           f"near-tie rows ({kept} rows kept); topk_rows (50%) indices equal "
           f"but for {topk_flips} near-tie leaves")
-    first = captured[0]
-    largest = max(captured, key=lambda w: w.numel())
 
     def chain(fn):
-        return lambda: [fn(w) for w in captured]
+        return lambda: [fn(w) for w in views]
 
-    out = {"flips": flips, "topk_flips": topk_flips, "max_rel": worst,
-           "max_abs_err": worst_abs}
-    for label, kernel, plain, shape, spin in (
-            ("first", lambda: rs.row_stats(first),
-             lambda: rs.row_stats_plain(first), [tuple(first.shape)],
-             2_000_000),
-            ("largest", lambda: rs.row_stats(largest),
-             lambda: rs.row_stats_plain(largest), [tuple(largest.shape)],
-             2_000_000),
-            ("leaves", chain(rs.row_stats), chain(rs.row_stats_plain),
-             [tuple(w.shape) for w in captured], 20_000_000)):
-        bound = sum(rs_bound_ms(m, n)[0] for m, n in shape)
-        out[label] = dict(
-            **kernel_times(torch, kernel, plain, spin),
-            bound=(bound, rs_bound_ms(*shape[0])[1]),
-            shape=[list(x) for x in shape])
-        o = out[label]
-        where = (f"{shape[0]}" if len(shape) == 1
-                 else f"({len(shape)} launches)")
-        print(f"  row_stats {label} {where} on path B's buffers: kernel "
-              f"{o['ms']:.4f} ms (whole wrapper "
-              f"call {o['call_ms']:.4f} ms), plain {o['plain_ms']:.4f} ms, "
-              f"bound {o['bound'][0]:.6f} ms ({o['bound'][1]})")
+    def norm1(w):
+        return torch.linalg.vector_norm(w, 1, dim=1)
+
+    bound = sum(rs_bound_ms(*w.shape)[0] for w in views)
+    out = dict(**kernel_times(torch, lambda: rs.row_stats_leaves(views),
+                              lambda: rs.row_stats_leaves_plain(views)),
+               bound=(bound, rs_bound_ms(*views[0].shape)[1]),
+               shapes=[list(w.shape) for w in views],
+               per_leaf_ms=time_ms(torch, chain(rs.row_stats),
+                                   spin=20_000_000),
+               per_leaf_call_ms=time_ms(torch, chain(rs.row_stats),
+                                        host_ahead=False),
+               library_ms=time_ms(torch, chain(norm1), spin=20_000_000),
+               library_per_view_ms=[time_ms(torch, lambda w=w: norm1(w))
+                                    for w in views],
+               flips=flips, topk_flips=topk_flips, max_rel=worst,
+               max_abs_err=worst_abs)
+    print(f"  row_stats on path B's {len(views)} views: one grouped launch "
+          f"{out['ms']:.4f} ms (whole wrapper call {out['call_ms']:.4f} "
+          f"ms), {len(views)} launches as before {out['per_leaf_ms']:.4f} "
+          f"ms (wrapper calls {out['per_leaf_call_ms']:.4f} ms), plain "
+          f"{out['plain_ms']:.4f} ms, vector_norm {out['library_ms']:.4f} "
+          f"ms in {len(views)} calls (per view "
+          f"{', '.join(f'{t:.4f}' for t in out['library_per_view_ms'])}), "
+          f"bound {out['bound'][0]:.6f} ms ({out['bound'][1]})")
     return out
 
 
@@ -1660,6 +1768,7 @@ def main() -> int:
     t1 = phase("build", t0)
     checks = (kernel_phase(torch, dc) + la_kernel_phase(torch, la, models)
               + slice3_kernel_phase(torch, da, rs, models)
+              + slice6_kernel_phase(torch, da, rs, models)
               + sm_kernel_phase(torch, sm))
     t1 = phase("kernel phase", t1)
     splits = full_width_splits(torch, data)
@@ -1752,9 +1861,6 @@ def main() -> int:
         if launches[name] < 1:
             fail(f"{name} was not launched on the main path")
 
-    def timed(t):
-        return {k: t[k] for k in ("ms", "plain_ms", "call_ms", "bound")}
-
     kernels.append({
         "name": "level_assign", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/level_assign.cu",
@@ -1770,34 +1876,30 @@ def main() -> int:
             a_launches["run_federated bidirectional"]})
     if la_launches["sync_full_fedavg_fsfl"] < 1:
         fail("level_assign was not launched on the main path")
-    first = da_timing["first"]
     kernels.append({
         "name": "delta_apply", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_apply.cu",
         "replaces": "src/repro/kernels/delta_compress.py:150",
         "launches": da_launches, "max_abs_err": 0.0,
-        "ms": first["ms"], "plain_ms": first["plain_ms"],
-        "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
-        "library_ms": None, "call_ms": first["call_ms"],
-        "shape": first["shape"],
-        "largest": {"shape": da_timing["largest"]["shape"],
-                    **timed(da_timing["largest"])},
-        "downlink_28_leaves": {"elements": da_timing["leaves"]["elements"],
-                               **timed(da_timing["leaves"])}})
-    first = rs_timing["first"]
+        "ms": da_timing["ms"], "plain_ms": da_timing["plain_ms"],
+        "bound_ms": da_timing["bound"][0], "bound_by": da_timing["bound"][1],
+        "library_ms": None, "call_ms": da_timing["call_ms"],
+        "leaves": VGG_LEAVES, "elements": da_timing["elements"],
+        "per_leaf_launches_ms": da_timing["per_leaf_ms"],
+        "per_leaf_launches_call_ms": da_timing["per_leaf_call_ms"]})
     kernels.append({
         "name": "row_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/row_stats.cu",
         "replaces": "src/repro/kernels/row_stats.py:28",
         "launches": rs_launches, "max_abs_err": rs_timing["max_abs_err"],
         "max_rel_err": rs_timing["max_rel"],
-        "ms": first["ms"], "plain_ms": first["plain_ms"],
-        "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
-        "library_ms": None, "call_ms": first["call_ms"],
-        "shape": first["shape"][0],
-        "largest": {"shape": rs_timing["largest"]["shape"][0],
-                    **timed(rs_timing["largest"])},
-        "client_10_leaves": timed(rs_timing["leaves"]),
+        "ms": rs_timing["ms"], "plain_ms": rs_timing["plain_ms"],
+        "bound_ms": rs_timing["bound"][0], "bound_by": rs_timing["bound"][1],
+        "library_ms": rs_timing["library_ms"],
+        "library_per_view_ms": rs_timing["library_per_view_ms"],
+        "call_ms": rs_timing["call_ms"], "shapes": rs_timing["shapes"],
+        "per_leaf_launches_ms": rs_timing["per_leaf_ms"],
+        "per_leaf_launches_call_ms": rs_timing["per_leaf_call_ms"],
         "keep_mask_near_tie_flips": rs_timing["flips"]})
     main_sm = SM_RUNS["sync_full_fedavg_fsfl"]
     runs = {label: dict(r) for label, r in SM_RUNS.items()}

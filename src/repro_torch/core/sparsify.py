@@ -10,6 +10,11 @@ Port of ``repro.core.sparsify``:
 * fixed rate: top-k by magnitude (unstructured, thresholded by value so
   ties cannot matter) or by row score (structured, ties broken by
   ``(-score, index)`` as ``lax.top_k`` does).
+
+Row scores come from the ``row_stats`` kernel: ``sparsify_tree`` scores
+every leaf of two or more dimensions in one ``row_stats_leaves`` call
+(one launch per tree on the card), then sparsifies each leaf by its own
+scores exactly as ``sparsify`` does alone.
 """
 from __future__ import annotations
 
@@ -17,8 +22,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.row_stats import row_stats
-from repro_torch.tree import leaves, tree_map
+from repro_torch.kernels.row_stats import row_stats, row_stats_leaves
+from repro_torch.tree import items, leaves, rebuild, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,16 +71,20 @@ def structured_threshold(dw: torch.Tensor, gamma: float) -> torch.Tensor:
     return gamma * torch.mean(row_scores(dw))
 
 
-def structured_keep_mask(dw: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
-    """Boolean (M,) mask of kept rows under Eq. 3."""
-    scores = row_scores(dw)
+def structured_keep_mask(dw: torch.Tensor, gamma: float = 1.0,
+                         scores: torch.Tensor | None = None) -> torch.Tensor:
+    """Boolean (M,) mask of kept rows under Eq. 3 (``scores``:
+    ``row_scores(dw)`` where the caller has them)."""
+    if scores is None:
+        scores = row_scores(dw)
     return scores >= gamma * torch.mean(scores)
 
 
-def sparsify_structured(dw: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
+def sparsify_structured(dw: torch.Tensor, gamma: float = 1.0,
+                        scores: torch.Tensor | None = None) -> torch.Tensor:
     if dw.ndim == 0:
         return dw
-    keep = structured_keep_mask(dw, gamma)
+    keep = structured_keep_mask(dw, gamma, scores)
     keep = keep.reshape((-1,) + (1,) * (dw.ndim - 1))
     return torch.where(keep, dw, 0.0)
 
@@ -106,14 +115,17 @@ def sparsify_topk_unstructured(dw: torch.Tensor,
     return torch.where(topk_mask_unstructured(dw, sparsity), dw, 0.0)
 
 
-def topk_rows(dw: torch.Tensor, sparsity: float):
+def topk_rows(dw: torch.Tensor, sparsity: float,
+              scores: torch.Tensor | None = None):
     """Top-k rows by mean-``|.|`` score -> (values, sorted int32 indices).
 
     A stable descending sort orders tied scores by index, which is the
-    order ``lax.top_k`` picks them in."""
+    order ``lax.top_k`` picks them in.  ``scores``: ``row_scores(dw)``
+    where the caller has them."""
     if dw.ndim < 1:
         raise ValueError("topk_rows needs a tensor with a row axis")
-    scores = row_scores(dw)
+    if scores is None:
+        scores = row_scores(dw)
     k = keep_count(dw.shape[0], sparsity)
     order = torch.sort(scores, descending=True, stable=True).indices
     idx = torch.sort(order[:k]).values
@@ -131,18 +143,20 @@ def scatter_rows(values: torch.Tensor, indices: torch.Tensor,
 
 # ------------------------------------------------------------ pipeline
 
-def sparsify(dw: torch.Tensor, cfg: SparsifyConfig) -> torch.Tensor:
-    """Apply the configured sparsification (dense out, mask semantics)."""
+def sparsify(dw: torch.Tensor, cfg: SparsifyConfig,
+             scores: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply the configured sparsification (dense out, mask semantics).
+    ``scores``: ``row_scores(dw)`` where the caller has them."""
     out = dw
     if cfg.fixed_sparsity is not None:
         if cfg.structured and out.ndim >= 2:
-            vals, idx = topk_rows(out, cfg.fixed_sparsity)
+            vals, idx = topk_rows(out, cfg.fixed_sparsity, scores)
             out = scatter_rows(vals, idx, out.shape[0])
         elif cfg.unstructured:
             out = sparsify_topk_unstructured(out, cfg.fixed_sparsity)
         return out
     if cfg.structured and out.ndim >= 2:
-        out = sparsify_structured(out, cfg.gamma)
+        out = sparsify_structured(out, cfg.gamma, scores)
     if cfg.unstructured:
         out = sparsify_unstructured(out, cfg.delta, cfg.step_size)
     return out
@@ -166,7 +180,17 @@ def leaf_threshold(dw: torch.Tensor, cfg: SparsifyConfig) -> torch.Tensor:
 
 
 def sparsify_tree(tree, cfg: SparsifyConfig):
-    return tree_map(lambda x: sparsify(x, cfg), tree)
+    """:func:`sparsify` at every leaf; with the structured stage, the row
+    scores of all leaves of two or more dimensions come from one
+    ``row_stats_leaves`` call."""
+    if not cfg.structured:
+        return tree_map(lambda x: sparsify(x, cfg), tree)
+    pairs = items(tree)
+    rows = [(path, x) for path, x in pairs if x.ndim >= 2]
+    scores = dict(zip((path for path, _ in rows), row_stats_leaves(
+        [x.reshape(x.shape[0], -1) for _, x in rows])))
+    return rebuild(tree, {path: sparsify(x, cfg, scores.get(path))
+                          for path, x in pairs})
 
 
 def sparsity_of(x: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,8 @@ device program and one device-to-host copy per cohort).
 ``Downlink`` compresses the server's update for the broadcast (§5.2) with
 its own error feedback and puts it through the same codec; ``ServerStep``
 applies the decoded broadcast.  With ``int8-blockscale`` the apply and the
-downlink's residual are ``delta_apply`` launches on the payload's int8
-levels and block scales, one per leaf each.
+downlink's residual are ``delta_apply_leaves`` calls on the payload's int8
+levels and block scales, one kernel launch per broadcast each.
 """
 from __future__ import annotations
 
@@ -38,10 +38,10 @@ from repro_torch.fl.executors import ClientExecutor
 from repro_torch.fl.sampling import (EmptyCohortError, SamplingConfig,
                                      sample_cohort)
 from repro_torch.fl.server_opt import server_update
-from repro_torch.kernels.delta_apply import delta_apply
+from repro_torch.kernels.delta_apply import delta_apply_leaves
 from repro_torch.optim import apply_updates
 from repro_torch.runtime import span
-from repro_torch.tree import items, rebuild, row, tree_map
+from repro_torch.tree import items, rebuild, row, sorted_items, tree_map
 
 # ---------------------------------------------------------------- tree utils
 
@@ -278,22 +278,31 @@ class Broadcast:
     block: int = Int8BlockScaleCodec.block
 
     def apply(self, params: Any) -> Any:
-        """``params + recon``: ``apply_updates``, or one ``delta_apply``
-        launch (coef +1) per leaf."""
+        """``params + recon``: ``apply_updates``, or one
+        ``delta_apply_leaves`` call (coef +1) over the leaves."""
         if self.int8 is None:
             return apply_updates(params, self.recon)
-        by_path = {path: apply_int8(w, *self.int8[path], 1.0, self.block)
-                   for path, w in items(params)}
-        return rebuild(params, by_path)
+        return apply_int8_tree(params, self.int8, 1.0, self.block)
+
+
+def apply_int8_tree(tree: Any, sections: dict, coef: float,
+                    block: int) -> Any:
+    """``w + coef * q * scale`` at every leaf of ``tree``, with ``q`` and
+    ``scale`` from the leaf's payload section: one ``delta_apply_leaves``
+    call over the leaves in wire order."""
+    pairs = sorted_items(tree)
+    out = delta_apply_leaves([w for _, w in pairs],
+                             [sections[path][0] for path, _ in pairs],
+                             [sections[path][1] for path, _ in pairs],
+                             coef, block=block)
+    return rebuild(tree, {path: o for (path, _), o in zip(pairs, out)})
 
 
 def apply_int8(w: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                coef: float, block: int) -> torch.Tensor:
     """``w + coef * q * scale`` for one leaf of any shape; ``q`` may carry
     the wire's padding past ``w.numel()``."""
-    flat = delta_apply(w.reshape(-1), q[:w.numel()], scales, coef,
-                       block=block)
-    return flat.reshape(w.shape)
+    return delta_apply_leaves([w], [q], [scales], coef, block=block)[0]
 
 
 class Downlink:
@@ -311,9 +320,10 @@ class Downlink:
     threshold per leaf the carry, threshold, levels and the level codecs'
     new residual come from one ``level_assign`` launch over the leaves; the
     structured stage takes the unfused chain, whose Eq. 3 scores come from
-    ``row_stats``.  With ``int8-blockscale`` the payload re-quantizes
-    ``levels * step`` per block (``delta_compress``, theta 0) and the new
-    residual is ``carried - q * scale`` (``delta_apply``, coef -1).
+    one ``row_stats`` launch over the weight leaves.  With
+    ``int8-blockscale`` the payload re-quantizes ``levels * step`` per
+    block (``delta_compress``, theta 0) and the new residual is ``carried -
+    q * scale`` (one ``delta_apply_leaves`` launch, coef -1).
     """
 
     def __init__(self, cfg: ProtocolConfig, step_size: float, params0: Any,
@@ -358,10 +368,8 @@ class Downlink:
             if isinstance(self.codec, Int8BlockScaleCodec):
                 sections = self.codec.device_sections(payload, self.spec,
                                                       dev)
-                self.residual = rebuild(carried, {
-                    path: apply_int8(c, *sections[path], -1.0,
-                                     self.codec.block)
-                    for path, c in items(carried)})
+                self.residual = apply_int8_tree(carried, sections, -1.0,
+                                                self.codec.block)
                 return Broadcast(int8=sections,
                                  block=self.codec.block), down
             decoded = tree_map(lambda x: torch.tensor(x, device=dev),

@@ -31,10 +31,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, grouped
+from repro_torch.kernels.grouped import (MAX_LEAVES, array, leaf_offsets,
+                                         views)
 
 MAX_LEVEL = 2**23
-MAX_LEAVES = 64        # leaves in one launch's by-value table
 CHUNK = 1024           # elements per CTA
 LAUNCHES = {"level_assign": 0}
 CALLS = {"level_assign": 0}
@@ -94,29 +95,11 @@ def level_assign_leaves_plain(deltas, residuals, thetas: torch.Tensor,
     return levels, carries
 
 
-def leaf_offsets(sizes) -> tuple[list[int], int]:
-    """Each leaf's offset in the flat outputs, rounded up to 4 elements so
-    that every leaf starts 16-byte aligned, and the buffers' length."""
-    offsets, total = [], 0
-    for n in sizes:
-        offsets.append(total)
-        total += -(-n // 4) * 4
-    return offsets, total
-
-
 def chunk_table(sizes, cap: int = MAX_LEAVES,
                 chunk: int = CHUNK) -> list[tuple[int, int, list[int]]]:
-    """The launches of the grouped kernel: ``(first leaf, end leaf, chunk
-    starts)`` for each run of at most ``cap`` leaves, the starts holding
-    the first CTA of each leaf and, last, the launch's CTA count."""
-    table = []
-    for lo in range(0, len(sizes), cap):
-        hi = min(lo + cap, len(sizes))
-        starts = [0]
-        for n in sizes[lo:hi]:
-            starts.append(starts[-1] + -(-n // chunk))
-        table.append((lo, hi, starts))
-    return table
+    """The launches of the grouped kernel (``grouped.chunk_table`` with
+    this kernel's 1,024-element CTA)."""
+    return grouped.chunk_table(sizes, chunk, cap)
 
 
 # ------------------------------------------------------------ CUDA kernel
@@ -185,10 +168,6 @@ def level_assign(deltas: torch.Tensor, residuals: torch.Tensor, theta, step,
     return _launch(deltas, residuals, theta, step, max_level)
 
 
-def _array(ctype, values):
-    return (ctype * len(values))(*values)
-
-
 def _launch_leaves(deltas, residuals, thetas, steps, max_level: int):
     dev = deltas[0].device
     sizes = [d.numel() for d in deltas]
@@ -206,32 +185,19 @@ def _launch_leaves(deltas, residuals, thetas, steps, max_level: int):
                 continue
             err = lib.level_assign_leaves_launch(
                 hi - lo,
-                _array(ctypes.c_uint64, [d.data_ptr() for d in ds[lo:hi]]),
-                _array(ctypes.c_uint64, [r.data_ptr() for r in rs[lo:hi]]),
-                _array(ctypes.c_int64, sizes[lo:hi]),
-                _array(ctypes.c_int64, offsets[lo:hi]),
-                _array(ctypes.c_float, steps[lo:hi]),
-                _array(ctypes.c_int, starts), th.data_ptr() + 4 * lo,
+                array(ctypes.c_uint64, [d.data_ptr() for d in ds[lo:hi]]),
+                array(ctypes.c_uint64, [r.data_ptr() for r in rs[lo:hi]]),
+                array(ctypes.c_int64, sizes[lo:hi]),
+                array(ctypes.c_int64, offsets[lo:hi]),
+                array(ctypes.c_float, steps[lo:hi]),
+                array(ctypes.c_int, starts), th.data_ptr() + 4 * lo,
                 levels.data_ptr(), carry.data_ptr(), float(max_level),
                 stream)
             if err:
                 raise RuntimeError(f"level_assign kernel launch failed: "
                                    f"CUDA error {err}")
             LAUNCHES["level_assign"] += 1
-    return _views(levels, offsets, deltas), _views(carry, offsets, deltas)
-
-
-def _views(flat: torch.Tensor, offsets, like) -> list[torch.Tensor]:
-    """Contiguous views of ``flat`` at ``offsets`` shaped as ``like``
-    (``as_strided``: one op a leaf, where a slice and a view take two)."""
-    out = []
-    for o, t in zip(offsets, like):
-        strides, step = [], 1
-        for n in reversed(t.shape):
-            strides.append(step)
-            step *= n
-        out.append(flat.as_strided(t.shape, strides[::-1], o))
-    return out
+    return views(levels, offsets, deltas), views(carry, offsets, deltas)
 
 
 def level_assign_leaves(deltas, residuals, thetas: torch.Tensor, steps, *,
