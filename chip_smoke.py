@@ -12,7 +12,10 @@ Phases (any failure exits non-zero):
    all started together), timed, with ``-Xptxas -v`` output;
 3. kernel phase: each kernel against its plain PyTorch version on the
    card on random inputs: ``delta_compress`` bitwise on q and scales at
-   the main path's shapes and ragged ones; ``level_assign`` bitwise on
+   the main path's shapes and ragged ones, and its grouped entry
+   ``int8_encode_leaves`` (the int8 wire body in one launch) on a
+   client's and a cohort of 4's ``vgg11_thinned`` leaves and on leaf
+   views at every 4-byte offset mod 16; ``level_assign`` bitwise on
    levels and carry (bit patterns) at every ``vgg11_thinned`` leaf shape
    (K = 1) and at (8, 849,834), with exact half-step and threshold ties,
    and its grouped entry ``level_assign_leaves`` on the 28 leaves of a
@@ -60,9 +63,16 @@ Phases (any failure exits non-zero):
      the old params;
 
    Each kernel is then held against its plain version on copies of the
-   first buffers its path gave it (``level_assign``: the first client's
-   28 leaves, in one grouped launch and in the 28 one-leaf launches it
-   replaces;
+   first buffers its path gave it (``int8_encode_leaves``: the first
+   message's and the first cohort's leaves, each copy at its leaf's
+   offset mod 16, the bodies also held against the pad/cat/assemble
+   route on the one-entry launch: pad, concatenate, one single-buffer
+   launch of the same kernel, assemble; timed at every ``per_warp``,
+   with that route on the device, its one-entry launch alone, the whole
+   ``int8_rows`` call of both routes on the host's clock, and the device operations of one encode of each, from a
+   ``torch.profiler`` trace, one kernel and one copy required of the
+   grouped route; ``level_assign``: the first client's 28 leaves, in one
+   grouped launch and in the 28 one-leaf launches it replaces;
    ``delta_apply``: the first downlink's residual (coef -1) and the
    server's apply (+1), each over the 28 leaves in one grouped launch and
    in the 28 one-leaf launches it replaces; ``row_stats``: the first
@@ -250,6 +260,50 @@ def kernel_phase(torch, dc) -> int:
     return checks
 
 
+def encode_compare(torch, dc, p, s, batched: bool, what: str) -> int:
+    """The grouped int8 encode against its plain version, bitwise."""
+    body = dc.int8_encode_leaves(p, s, 0.0, 128, batched=batched)
+    plain = dc.int8_encode_leaves_plain(p, s, 0.0, 128)
+    torch.cuda.synchronize()
+    if body.shape != plain.shape or not torch.equal(body, plain):
+        fail(f"int8_encode_leaves disagrees with its plain version on "
+             f"{what}")
+    return 1
+
+
+def encode_kernel_phase(torch, dc, models) -> int:
+    """``int8_encode_leaves`` against its plain version on a client's and
+    a cohort of 4's ``vgg11_thinned`` leaves (90%-sparse deltas, and the
+    scales leaves raw), and on one message's leaves as views of one buffer
+    at every 4-byte offset mod 16; returns the number of checks."""
+    gen = torch.Generator().manual_seed(3)
+    params, _ = models.vgg11_thinned().init(gen)
+    shapes = [tuple(v.shape) for d in params.values() for v in d.values()]
+    checks = 0
+    for k, batched in ((1, False), (4, True)):
+        p = [(1e-3 * torch.randn((k,) + sh, generator=gen)
+              * (torch.rand((k,) + sh, generator=gen) < 0.1)).cuda()
+             for sh in shapes]
+        s = [(1e-5 * torch.randn((k,) + sh[:1] if len(sh) >= 2 else (k,),
+                                 generator=gen)).cuda() for sh in shapes]
+        checks += encode_compare(torch, dc, p, s, batched,
+                                 f"{k} x {VGG_LEAVES} vgg11_thinned leaves")
+    sizes = [math.prod(sh) for sh in shapes]
+    for shift in range(4):
+        flat = (1e-3 * torch.randn(sum(sizes) + 4 * len(sizes),
+                                   generator=gen)).cuda()
+        p, off = [], 0
+        for i, (n, sh) in enumerate(zip(sizes, shapes)):
+            off += (shift + i - off) % 4
+            p.append(flat[off:off + n].view((1,) + sh))
+            off += n
+        checks += encode_compare(torch, dc, p, [], False,
+                                 f"leaf views at shift {shift}")
+    print(f"kernel phase: {checks} grouped int8_encode_leaves bodies "
+          f"bitwise to plain")
+    return checks
+
+
 def la_inputs(torch, gen, k: int, n: int, step: float):
     """(d, r, theta) on the card: random values, exact half-steps of a
     power-of-two step (r = 0 there), and values equal to +-theta, theta
@@ -356,55 +410,211 @@ def la_group_compare(torch, la, d, r, th, steps) -> None:
                  f"leaf {i} of {len(d)} (shape {tuple(d[i].shape)})")
 
 
-def capture_buffers(device_mod) -> tuple[dict, dict]:
-    """Wrap the uplink's two kernel entry points so that a copy of the first
-    buffer each is given is kept; returns (captured, originals)."""
-    captured, originals = {}, {}
-    for name in ("delta_compress_batch", "delta_compress"):
-        fn = originals[name] = getattr(device_mod, name)
-
-        def keep(d, theta, *, block, _fn=fn, _name=name):
-            if _name not in captured:
-                captured[_name] = (d.clone(), theta, block)
-            return _fn(d, theta, block=block)
-        setattr(device_mod, name, keep)
-    return captured, originals
+def clone_at_offset(torch, t):
+    """A copy of float32 ``t`` whose data pointer has ``t``'s offset mod
+    16, so that the copy takes the kernel's load path that ``t`` took."""
+    shift = (t.data_ptr() % 16) // 4
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[shift:shift + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
-def main_path_kernels(torch, dc, captured) -> dict:
-    """Each kernel against its plain version on the buffer the main path
-    gave it, bitwise, then timed on it beside its plain version."""
-    timings = {}
-    for name, batched in (("delta_compress_batch", True),
-                          ("delta_compress", False)):
+def capture_encodes(torch, device_mod):
+    """Wrap the uplink's grouped int8 encode so that copies of the first
+    message's leaves (``delta_compress``) and of the first cohort's
+    (``delta_compress_batch``) are kept; returns (captured, original)."""
+    captured = {}
+    fn = device_mod.int8_encode_leaves
+
+    def keep(p, s, theta, block, *, batched=True):
+        name = "delta_compress_batch" if batched else "delta_compress"
         if name not in captured:
-            fail(f"the main path gave {name} no buffer")
-        d, theta, block = captured[name]
-        err = compare(torch, dc, d, theta, block, batched=batched)
-        rows = d if batched else d[None]
-        kept = torch.where(rows.abs() >= theta, rows, 0.0)
-        _, scale = dc.delta_compress_batch_plain(rows, theta, block)
-        x = (kept.reshape(rows.shape[0], -1, block)
-             / scale[..., None]).reshape(rows.shape)
+            captured[name] = ([clone_at_offset(torch, t) for t in p],
+                              [clone_at_offset(torch, t) for t in s],
+                              theta, block, batched)
+        return fn(p, s, theta, block, batched=batched)
+
+    device_mod.int8_encode_leaves = keep
+    return captured, fn
+
+
+def pad_cat_body(torch, dc, p_leaves, s_leaves, theta: float, block: int,
+                 batched: bool):
+    """The int8 body by the pad/cat/assemble route on the one-entry
+    launch: pad the ragged params leaves, concatenate them into one
+    buffer, one launch of the single-buffer entry (the grouped kernel with
+    one entry), then the level and scale sections and the scales leaves
+    concatenated.  Returns (body, the padded buffer)."""
+    import torch.nn.functional as F
+    k = p_leaves[0].shape[0]
+    flats, meta = [], []
+    for leaf in p_leaves:
+        flat = leaf.reshape(k, -1)
+        pad = (-flat.shape[1]) % block
+        meta.append((flat.shape[1] + pad, (flat.shape[1] + pad) // block))
+        flats.append(F.pad(flat, (0, pad)) if pad else flat)
+    buf = torch.cat(flats, dim=1)
+    if batched:
+        q, s = dc.delta_compress_batch(buf, theta, block=block)
+    else:
+        q, s = dc.delta_compress(buf[0], theta, block=block)
+        q, s = q[None], s[None]
+    chunks, qo, so = [], 0, 0
+    for padded, nblk in meta:
+        chunks.append(q[:, qo:qo + padded].view(torch.uint8))
+        chunks.append(s[:, so:so + nblk].contiguous().view(torch.uint8))
+        qo += padded
+        so += nblk
+    for leaf in s_leaves:
+        chunks.append(leaf.reshape(k, -1).contiguous().view(torch.uint8))
+    return torch.cat(chunks, dim=1), buf
+
+
+def encode_bound_ms(p_sizes, s_sizes, k: int,
+                    block: int) -> tuple[float, str]:
+    """Least time for one grouped encode of ``k`` rows: the unpadded
+    leaves read once and the bodies written once, against the params'
+    element-wise float32 operations."""
+    padded = sum(-(-n // block) * block for n in p_sizes)
+    body = padded + 4 * (padded // block) + 4 * sum(s_sizes)
+    nbytes = k * (4 * sum(p_sizes) + 4 * sum(s_sizes) + body)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = k * sum(p_sizes) * OPS_PER_ELEMENT / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def host_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+    """Median host wall time of one ``fn`` call that ends on the host (a
+    device-to-host copy), in ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_ops(torch, fn) -> dict:
+    """The device operations of one ``fn`` call, from a torch.profiler
+    trace of the card's activity: kernels, and copies and fills."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)}
+    copies = sum(c for n, c in names.items()
+                 if n.startswith(("Memcpy", "Memset")))
+    return {"kernels": sum(names.values()) - copies, "copies": copies,
+            "names": names}
+
+
+def per_warp_ms(torch, dc, fn, per_warp: int) -> float:
+    """``time_ms`` of ``fn`` with the grouped encode's slots a warp held
+    at ``per_warp`` in place of the wrapper's pick."""
+    pick = dc.pick_per_warp
+    dc.pick_per_warp = lambda *args: per_warp
+    try:
+        return time_ms(torch, fn)
+    finally:
+        dc.pick_per_warp = pick
+
+
+def main_path_kernels(torch, dc, device_mod, captured) -> dict:
+    """The grouped int8 encode on the leaves the main path gave it (the
+    first message's and the first cohort's): its bodies against its plain
+    version and against the pad/cat/assemble route on the one-entry
+    launch, bitwise; then timed on them beside its plain version, at every
+    ``per_warp``, with that route (its device time, its one-entry launch
+    alone, and the whole ``int8_rows`` call of both routes on the host's
+    clock) and the device operations of one encode of each route.  The
+    pad/cat route runs this kernel too: what ties its bytes to the kernel
+    before the grouped design is the ``gpu`` tests' sha256 digests."""
+    timings = {}
+    for name in ("delta_compress_batch", "delta_compress"):
+        if name not in captured:
+            fail(f"the main path gave {name} no leaves")
+        p, s, theta, block, batched = captured[name]
+        k = p[0].shape[0]
+        new = dc.int8_encode_leaves(p, s, theta, block, batched=batched)
+        plain = dc.int8_encode_leaves_plain(p, s, theta, block)
+        old, buf = pad_cat_body(torch, dc, p, s, theta, block, batched)
+        torch.cuda.synchronize()
+        for other, what in ((plain, "its plain version"),
+                            (old, "the pad/cat/assemble route")):
+            if other.shape != new.shape or not torch.equal(new, other):
+                fail(f"{name}: the grouped body differs from {what} on "
+                     f"the main path's leaves")
+        kept = torch.where(buf.abs() >= theta, buf, 0.0)
+        _, scale = dc.delta_compress_batch_plain(buf, theta, block)
+        x = (kept.reshape(k, -1, block) / scale[..., None]).reshape(k, -1)
         ties = int((x - x.floor() == 0.5).sum())
         nkept = int((kept != 0).sum())
+        p_sizes = [t[0].numel() for t in p]
+        s_sizes = [t[0].numel() for t in s]
+        unaligned = sum(t.data_ptr() % 16 != 0 for t in p)
+
+        grouped = lambda: dc.int8_encode_leaves(p, s, theta, block,
+                                                batched=batched)
+
         if batched:
-            kernel = lambda: dc.delta_compress_batch(d, theta, block=block)
-            plain = lambda: dc.delta_compress_batch_plain(d, theta, block)
+            one = lambda: dc.delta_compress_batch(buf, theta, block=block)
         else:
-            kernel = lambda: dc.delta_compress(d, theta, block=block)
-            plain = lambda: dc.delta_compress_plain(d, theta, block)
-        k, n = rows.shape
+            one = lambda: dc.delta_compress(buf[0], theta, block=block)
+        new_rows = lambda: device_mod.int8_rows(p, s, block, batched=batched)
+        old_rows = lambda: pad_cat_body(torch, dc, p, s, theta, block,
+                                        batched)[0].cpu().numpy()
+        plain_fn = lambda: dc.int8_encode_leaves_plain(p, s, theta, block)
         t = timings[name] = dict(
-            **kernel_times(torch, kernel, plain),
-            bound=bound_ms(k, n, block), max_abs_err=err,
-            shape=list(d.shape), kept=nkept, ties=ties)
-        print(f"  {name} {t['shape']} block {block} on the main path's "
-              f"buffer: bitwise, {nkept} kept elements, "
-              f"{ties} exact half-way ties; kernel {t['ms']:.4f} ms (whole "
-              f"wrapper call {t['call_ms']:.4f} ms), plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
-              f"({t['bound'][1]})")
+            **kernel_times(torch, grouped, plain_fn, spin=10_000_000),
+            per_warp_ms={w: per_warp_ms(torch, dc, grouped, w)
+                          for w in dc.PER_WARP},
+            per_warp=dc.pick_per_warp(
+                p_sizes + s_sizes, k, block,
+                torch.cuda.get_device_properties(0).multi_processor_count),
+            one_buffer_ms=time_ms(torch, one),
+            old_route_ms=time_ms(torch, lambda: pad_cat_body(
+                torch, dc, p, s, theta, block, batched), spin=10_000_000),
+            one_buffer_bound=bound_ms(k, buf.shape[1], block),
+            rows_host_ms=host_ms(torch, new_rows),
+            old_rows_host_ms=host_ms(torch, old_rows),
+            ops=device_ops(torch, new_rows), old_ops=device_ops(torch,
+                                                              old_rows),
+            bound=encode_bound_ms(p_sizes, s_sizes, k, block),
+            max_abs_err=0.0, shape=[k, sum(p_sizes)], body=new.shape[1],
+            entries=len(p) + len(s), unaligned=unaligned, kept=nkept,
+            ties=ties)
+        if t["ops"]["kernels"] != 1 or t["ops"]["copies"] != 1:
+            fail(f"{name}: one int8_rows call made {t['ops']['names']}, "
+                 f"expected one kernel and one copy")
+        print(f"  {name} on the main path's {t['entries']} leaves "
+              f"({k} x {sum(p_sizes)} params, {unaligned} params leaves "
+              f"not 16-byte aligned), body {t['body']} bytes a row: "
+              f"bitwise to plain and to the pad/cat/assemble route, "
+              f"{nkept} kept "
+              f"elements, {ties} exact half-way ties; grouped kernel "
+              f"{t['ms']:.4f} ms at per_warp {t['per_warp']} ("
+              + ", ".join(f"{w}: {v:.4f}" for w, v in t["per_warp_ms"].items())
+              + f"; whole wrapper call {t['call_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+              f"({t['bound'][1]}); the pad/cat/assemble route "
+              f"{t['old_route_ms']:.4f} ms on the device, its one-entry "
+              f"launch alone on the padded buffer {t['one_buffer_ms']:.4f} "
+              f"ms (bound {t['one_buffer_bound'][0]:.5f} ms)")
+        print(f"  {name}: int8_rows host time {t['rows_host_ms']:.4f} ms "
+              f"with {t['ops']['kernels']} kernel and "
+              f"{t['ops']['copies']} copy, the pad/cat/assemble route "
+              f"{t['old_rows_host_ms']:.4f} ms with "
+              f"{t['old_ops']['kernels']} kernels and "
+              f"{t['old_ops']['copies']} copies or fills "
+              f"{t['old_ops']['names']}")
     return timings
 
 
@@ -919,12 +1129,12 @@ def small_input_check(torch, fl, rounds_mod, name: str,
     return report
 
 
-def profile_round(torch, run, label: str, mine: str,
+def profile_round(torch, run, label: str, mine: tuple,
                   host: bool = True) -> dict:
     """One more full-width round under torch.profiler: device-busy share,
-    the top kernels by device time, the kernels whose name holds ``mine``
-    and those of ``scaled_matmul``, and, with ``host``, the host time in
-    the coding stack's spans.  Without ``host`` only device activity is
+    the top kernels by device time, the kernels whose name holds one of
+    ``mine`` and those of ``scaled_matmul``, and, with ``host``, the host
+    time in the coding stack's spans.  Without ``host`` only device activity is
     traced, which the profiler processes in a fraction of the time."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
@@ -966,7 +1176,7 @@ def profile_round(torch, run, label: str, mine: str,
     out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
            "busy_share": busy_ms / wall_ms, "processing_s": processing_s,
            "host_spans_ms": spans}
-    for name in (mine, "scaled_matmul"):
+    for name in (*mine, "scaled_matmul"):
         ours = [e for e in events if name in e.key]
         out[f"{name}_ms"] = sum(dev_us(e) for e in ours) / 1e3
         out[f"{name}_launches"] = sum(e.count for e in ours)
@@ -1766,7 +1976,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     t1 = phase("build", t0)
-    checks = (kernel_phase(torch, dc) + la_kernel_phase(torch, la, models)
+    checks = (kernel_phase(torch, dc) + encode_kernel_phase(torch, dc, models)
+              + la_kernel_phase(torch, la, models)
               + slice3_kernel_phase(torch, da, rs, models)
               + slice6_kernel_phase(torch, da, rs, models)
               + sm_kernel_phase(torch, sm))
@@ -1793,11 +2004,10 @@ def main() -> int:
     t1 = phase("nnc slice phase", t1)
 
     # the int8 uplink
-    captured, originals = capture_buffers(device_mod)
+    captured, original = capture_encodes(torch, device_mod)
     launches = int8_slice_phase(torch, dc, la, sm, fl, models, splits,
                                 rounds_out)
-    for name, fn in originals.items():
-        setattr(device_mod, name, fn)
+    device_mod.int8_encode_leaves = original
     t1 = phase("int8 slice phase", t1)
 
     # slice 3: bidirectional compression (paths A, B and C)
@@ -1812,7 +2022,7 @@ def main() -> int:
         rounds_out)
     t1 = phase("path C (bidirectional, int8)", t1)
 
-    timings = main_path_kernels(torch, dc, captured)
+    timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
     rs_timing = rs_main_path(torch, rs, rs_captured)
@@ -1829,19 +2039,20 @@ def main() -> int:
             torch, lambda: fl.run_scenario(
                 bidi_int8, rounds=1, model=models.vgg11_thinned(),
                 splits=splits, device="cuda"),
-            "bidi_int8_k4 (path C)", "delta_apply"),
+            "bidi_int8_k4 (path C)", ("delta_apply", "int8_encode")),
         "bidi_sync_full": profile_round(
             torch, lambda: fl.run_scenario(
                 "bidi_sync_full", rounds=1, model=models.vgg11_thinned(),
                 splits=splits, device="cuda"),
-            "bidi_sync_full (path A, device activity only)", "level_assign",
+            "bidi_sync_full (path A, device activity only)",
+            ("level_assign",),
             host=False),
         "fsfl_dyn_bidirectional": profile_round(
             torch, lambda: fsfl.run_federated(
                 models.vgg11_thinned(), fsfl_dyn_config(protocol_mod, 1),
                 splits, 1, bidirectional=True, device="cuda"),
             "fsfl_dyn bidirectional (path B, device activity only)",
-            "row_stats", host=False)}
+            ("row_stats",), host=False)}
     phase("profiled rounds", t1)
 
     replaces = {"delta_compress": "src/repro/kernels/delta_compress.py:47",
@@ -1857,7 +2068,15 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": None,
-            "call_ms": t["call_ms"], "shape": t["shape"]})
+            "call_ms": t["call_ms"], "shape": t["shape"],
+            "leaves": t["entries"], "body_bytes": t["body"],
+            "per_warp": t["per_warp"], "per_warp_ms": t["per_warp_ms"],
+            "pad_cat_route_ms": t["old_route_ms"],
+            "one_buffer_ms": t["one_buffer_ms"],
+            "one_buffer_bound_ms": t["one_buffer_bound"][0],
+            "int8_rows_host_ms": t["rows_host_ms"],
+            "pad_cat_int8_rows_host_ms": t["old_rows_host_ms"],
+            "device_ops": t["ops"], "pad_cat_device_ops": t["old_ops"]})
         if launches[name] < 1:
             fail(f"{name} was not launched on the main path")
 

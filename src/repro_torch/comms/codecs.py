@@ -99,11 +99,11 @@ class RawFloatCodec(Codec):
 class Int8BlockScaleCodec(Codec):
     """Per-block symmetric int8 with one float32 scale per 128 elements.
 
-    Each params leaf is zero-padded to a block multiple, so every block
-    sits inside one tensor; the padded leaves are concatenated and
-    quantized by ONE kernel launch per message, on the device the
-    reconstruction lives on.  Worst-case reconstruction error per block is
-    ``amax/254``.
+    Each params leaf's levels are zero-padded to a block multiple, so
+    every block sits inside one tensor; ONE kernel launch per message
+    (``kernels.delta_compress.int8_encode_leaves``), on the device the
+    reconstruction lives on, reads the leaves in place and writes the
+    body.  Worst-case reconstruction error per block is ``amax/254``.
     """
 
     name = "int8-blockscale"

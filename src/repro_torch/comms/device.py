@@ -3,15 +3,13 @@
 Port of ``repro.comms.device``.  The stacked RoundOutput stays on the
 device until ONE device-to-host copy per cohort:
 
-  ``int8-blockscale``  every params leaf is zero-padded to a block
-                       multiple (so each 128-block sits inside one leaf
-                       and the q/scale chunks equal the per-client
-                       layout), the leaves are concatenated into one
-                       (K, P) buffer, ONE ``delta_compress_batch`` launch
-                       quantizes the cohort and the payload bytes are
-                       assembled on the device.  The per-client
-                       ``Codec.encode`` runs the same assembly with K = 1
-                       through the single-row kernel.
+  ``int8-blockscale``  ONE ``int8_encode_leaves`` launch reads the
+                       cohort's stacked leaves in place and writes the
+                       (K, L) payload bodies (each params leaf's levels
+                       zero-padded to a block multiple, so each 128-block
+                       sits inside one leaf, then its block scales; then
+                       the raw scales section).  The per-client
+                       ``Codec.encode`` makes the same launch with K = 1.
   ``golomb``           int32 zigzag of the stacked levels on the device
                        (exact while every |level| < 2**30; the range
                        guard returns ``None`` otherwise and the uplink
@@ -35,15 +33,13 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.coding import golomb as golomb_lib
 from repro_torch.coding import nnc
 from repro_torch.coding.bitstream import BitWriter
 from repro_torch.comms.codec import (WireSpec, check_batch_clients,
                                      cohort_size, sorted_items)
-from repro_torch.kernels.delta_compress import (delta_compress,
-                                                delta_compress_batch)
+from repro_torch.kernels.delta_compress import int8_encode_leaves
 
 _dispatches = 0
 _ZIGZAG_SAFE = 2 ** 30   # |level| bound for an exact int32 zigzag
@@ -68,37 +64,13 @@ def int8_rows(p_leaves: list[torch.Tensor], s_leaves: list[torch.Tensor],
     ``p_leaves``/``s_leaves`` are client-stacked (K, ...) params and scales
     leaves in wire order.  Per params leaf the body holds its padded int8
     levels then its float32 block scales; the raw float32 scales section
-    follows.  ``batched`` picks the cohort kernel over the single-row one.
+    follows.  One kernel launch and one device-to-host copy; ``batched``
+    counts the call as a cohort's, else as one message's (K = 1).
     """
     if sys.byteorder != "little":
         raise RuntimeError("the wire format is little-endian")
-    k = (p_leaves or s_leaves)[0].shape[0]
-    chunks: list[torch.Tensor] = []
-    if p_leaves:
-        flats, meta = [], []
-        for leaf in p_leaves:
-            flat = leaf.reshape(k, -1).to(torch.float32)
-            pad = (-flat.shape[1]) % block
-            meta.append((flat.shape[1] + pad, (flat.shape[1] + pad) // block))
-            flats.append(F.pad(flat, (0, pad)) if pad else flat)
-        buf = torch.cat(flats, dim=1)
-        if batched:
-            q, s = delta_compress_batch(buf, 0.0, block=block)
-        else:
-            if k != 1:
-                raise ValueError("the single-row kernel encodes one client")
-            q, s = delta_compress(buf[0], 0.0, block=block)
-            q, s = q[None], s[None]
-        qo = so = 0
-        for padded, nblk in meta:
-            chunks.append(q[:, qo:qo + padded].view(torch.uint8))
-            chunks.append(s[:, so:so + nblk].contiguous().view(torch.uint8))
-            qo += padded
-            so += nblk
-    for leaf in s_leaves:
-        chunks.append(leaf.reshape(k, -1).to(torch.float32).contiguous()
-                      .view(torch.uint8))
-    return torch.cat(chunks, dim=1).cpu().numpy()
+    return int8_encode_leaves(p_leaves, s_leaves, 0.0, block,
+                              batched=batched).cpu().numpy()
 
 
 def int8_encode_cohort(codec, out: Any, spec: WireSpec, *,

@@ -31,6 +31,7 @@ from repro_torch.comms import device
 from repro_torch.core.protocol import RoundOutput
 from repro_torch.kernels import delta_compress as dc
 from repro_torch.models import cnn
+from repro_torch.tree import sorted_items
 
 CODECS = ["raw-fp32", "fp16", "int8-blockscale"]
 
@@ -213,3 +214,102 @@ def test_unported_codecs_raise(name):
     template = comms.shape_template(convert.to_tensors(_template()))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         comms.WireSpec(params=template, bn=template, version=2)
+
+
+# ------------------------------------------- the grouped encode's plain body
+
+# params leaf shapes: n mod 4 in {0, 1, 2, 3}, n < 128, n a multiple of 128
+RAGGED = {"a": (8,), "b": (3, 43), "c": (130,), "d": (131,), "e": (5,),
+          "f": (2, 128), "g": (3, 128), "h": (1,)}
+
+
+def _tree_update(shapes, seed, k=None, scales=True):
+    """(params, scales or None) numpy trees of one module ``m``: sparse
+    deltas, a few exact zeros, and per weight its scale vector."""
+    rng = np.random.default_rng(seed)
+    lead = () if k is None else (k,)
+    params = {"m": {n: (1e-3 * rng.standard_normal(lead + s)
+                        * (rng.random(lead + s) < 0.3)).astype(np.float32)
+                    for n, s in shapes.items()}}
+    if not scales:
+        return params, None
+    return params, {"m": {n: (1e-5 * rng.standard_normal(
+        lead + (s[:1] if len(s) >= 2 else ()))).astype(np.float32)
+        for n, s in shapes.items()}}
+
+
+def _vgg11_shapes():
+    params, _ = cnn.vgg11_thinned().init(torch.Generator().manual_seed(0))
+    return {f"{m}.{n}": tuple(v.shape) for m, d in params.items()
+            for n, v in d.items()}
+
+
+def _stacked_leaves(tree, lead):
+    """The port's leaves of a numpy tree in wire order, each (K, ...)."""
+    if tree is None:
+        return []
+    return [torch.from_numpy(np.ascontiguousarray(leaf)).reshape(
+        (1,) + leaf.shape) if lead else torch.from_numpy(leaf)
+        for _, leaf in sorted_items(tree)]
+
+
+@pytest.mark.parametrize("case", ["vgg11_thinned", "ragged",
+                                  "ragged_no_scales"])
+def test_plain_int8_body_equals_reference_codec(case, eager_ref_int8):
+    shapes = _vgg11_shapes() if case == "vgg11_thinned" else RAGGED
+    params, scales = _tree_update(shapes, 11,
+                                  scales=case != "ragged_no_scales")
+    spec = ref_comms.WireSpec(
+        params=ref_comms.shape_template(params),
+        scales=None if scales is None else ref_comms.shape_template(scales))
+    ref_body = RefInt8()._encode_body(
+        ref_comms.ClientUpdate(None, None, params, scales), spec)
+    p = _stacked_leaves(params, lead=True)
+    s = _stacked_leaves(scales, lead=True)
+    body = dc.int8_encode_leaves_plain(p, s, 0.0, 128)
+    assert body.dtype == torch.uint8 and body.shape == (1, len(ref_body))
+    assert body[0].numpy().tobytes() == ref_body
+    dc.reset_counters()
+    assert torch.equal(dc.int8_encode_leaves(p, s, 0.0, 128, batched=False),
+                       body)
+    assert dc.CALLS == {"delta_compress": 1, "delta_compress_batch": 0}
+    if case == "vgg11_thinned":
+        assert len(ref_body) == 880_956
+        # the wrapper's layout is the body's
+        q_offs, s_offs, length = dc.body_layout(
+            [x[0].numel() for x in p], [x[0].numel() for x in s], 128)
+        assert length == len(ref_body) and q_offs[0] == 0
+        assert q_offs[len(p)] == 876_876
+
+
+@pytest.mark.parametrize("scales", [True, False])
+def test_plain_int8_cohort_rows_equal_bodies_and_reference(scales,
+                                                           eager_ref_int8):
+    k = 3
+    params, scale_tree = _tree_update(RAGGED, 12, k=k, scales=scales)
+    p = _stacked_leaves(params, lead=False)
+    s = _stacked_leaves(scale_tree, lead=False)
+    rows = dc.int8_encode_leaves_plain(p, s, 0.0, 128)
+    for i in range(k):
+        single = dc.int8_encode_leaves_plain([x[i][None] for x in p],
+                                             [x[i][None] for x in s], 0.0, 128)
+        assert torch.equal(single[0], rows[i])
+    # the live reference's cohort encode (Pallas interpret mode)
+    ref_p = jax.tree.map(lambda x: x[0], params)
+    ref_s = (None if scale_tree is None
+             else jax.tree.map(lambda x: x[0], scale_tree))
+    ref_spec = ref_comms.WireSpec(
+        params=ref_comms.shape_template(ref_p),
+        scales=None if ref_s is None else ref_comms.shape_template(ref_s))
+    port_spec = comms.WireSpec(
+        params=comms.shape_template(convert.to_tensors(ref_p)),
+        scales=(None if ref_s is None
+                else comms.shape_template(convert.to_tensors(ref_s))))
+    zeros = jax.tree.map(lambda x: np.zeros(x.shape, np.int32), params)
+    ref_out = RefRoundOutput(
+        zeros, None, jax.tree.map(jnp.asarray, params),
+        None if scale_tree is None else jax.tree.map(jnp.asarray, scale_tree),
+        None, None, {})
+    ref_rows = ref_device.int8_encode_cohort(RefInt8(), ref_out, ref_spec)
+    for i in range(k):
+        _assert_int8_close(rows[i].numpy().tobytes(), ref_rows[i], port_spec)
