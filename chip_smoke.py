@@ -61,6 +61,22 @@ Phases (any failure exits non-zero):
      apply, each one launch over the 28 leaves), the server's params after
      each apply held bitwise against the host decode of the broadcast plus
      the old params;
+   * partial updates, wire schema v2 and the channel.  Path D: 2 rounds
+     of ``partial_fc_k4`` (nnc-cabac, cohorts of 4, only ``fc*`` trains
+     and goes on the wire; 4 ``level_assign`` a round), the frozen server
+     leaves bitwise unchanged after each round, the decoded payloads zero
+     there, each payload shorter than its levels sent unmasked.  Path E:
+     an ad-hoc ``partial_int8_v2_lossy_k4`` (D's partial updates with
+     int8-blockscale, the device cohort encode, schema v2 and
+     ``chan_lossy_k4``'s channel), 2 rounds and a third only if no drop
+     fell on a cohort: 29,473-byte payloads with header 2 and the
+     client's BN rows as tail, one ``int8_encode_leaves`` launch a cohort
+     over 32 entries (bitwise to plain on a copy of the first cohort's
+     leaves, and timed there), a dropped client's residual bitwise its
+     carry plus its decoded delta, the survivors as participants,
+     ``sim_time_s`` the channel's ``round_time`` summed.  One round of
+     ``bnwire_v2_full``: each payload its v1 encode + 6,913 bytes, the
+     server's BN state bitwise the mean of the survivors' device rows;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -92,7 +108,9 @@ Phases (any failure exits non-zero):
    steps per client, with cuDNN's deterministic algorithms, gives the
    same bytes and nearly the same model on the card as the plain path on
    the CPU, with the clients' discrete decisions counted apart
-   (``compare_small_runs``);
+   (``compare_small_runs``); and two card runs of ``bidi_sync_full`` with
+   the port's own cuDNN selection give the same payloads and server
+   state, bit for bit (``repeat_small_runs``);
 5. a JSON summary of the run (build, rounds, profiles), a JSON line with
    every ported kernel's launches and times, the device line, and the
    final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
@@ -1930,6 +1948,409 @@ def rs_main_path(torch, rs, captured) -> dict:
     return out
 
 
+# ------------------------------------------------------------ slice 8
+
+FC_INT8_V1_BYTES = 22_560    # v1 int8 body of the 4 fc leaves + 1,020 scales
+BN_TAIL_BYTES = 6_912        # vgg11_thinned's 1,728 BN scalars, raw float32
+FC_INT8_V2_BYTES = 1 + FC_INT8_V1_BYTES + BN_TAIL_BYTES      # 29,473
+PATH_E_ENTRIES = 32          # 4 fc params leaves + 28 scales leaves
+RAW_MODEL_BYTES = 4 * VGG_PARAMS     # the broadcast a client downloads
+
+
+def is_fc(path: str) -> bool:
+    return path.startswith("fc")
+
+
+def frozen_unchanged(torch, label: str, params0: dict, server) -> int:
+    """Fails unless every server params leaf outside ``fc*`` is bitwise its
+    initial value and some ``fc*`` leaf moved; returns the frozen count."""
+    from repro_torch.tree import sorted_items
+    frozen, moved = 0, 0
+    for path, v in sorted_items(server.params):
+        same = torch.equal(v.view(torch.int32), params0[path].view(
+            torch.int32))
+        if is_fc(path):
+            moved += not same
+        elif not same:
+            fail(f"{label}: the frozen server leaf {path} moved")
+        else:
+            frozen += 1
+    if not moved:
+        fail(f"{label}: no classifier leaf moved")
+    return frozen
+
+
+def round_line(label: str, rnd: int, rec, rounds_out) -> None:
+    print(f"  {label} round {rnd}: test_acc={rec.test_acc:.4f} "
+          f"train_loss={rec.train_loss:.4f} up_bytes={rec.up_bytes} "
+          f"participants={list(rec.participants)} "
+          f"sim_time_s={rec.sim_time_s!r} wall_s={rec.wall_s:.3f}")
+    rounds_out.append([label, rnd, rec.test_acc, rec.train_loss,
+                       rec.up_bytes, rec.wall_s])
+    if not (math.isfinite(rec.train_loss) and 0.0 <= rec.test_acc <= 1.0
+            and rec.up_bytes > 0):
+        fail(f"{label}: bad round record {rec}")
+
+
+def path_d(torch, la, sm, fl, codecs_mod, models, splits,
+           rounds_out) -> dict:
+    """Path D, partial updates: 2 rounds of ``partial_fc_k4`` (nnc-cabac,
+    cohorts of 4; only ``fc*`` trains and goes on the wire).  After each
+    round the server's params outside ``fc*`` are bitwise their initial
+    values; every decoded payload is zero there; each payload is shorter
+    than the same levels encoded under the spec without a send mask."""
+    import dataclasses
+    from repro_torch.tree import sorted_items
+    rounds, label = 2, "partial_fc_k4"
+    s = fl.get_scenario(label)
+    eng = fl.FederatedEngine(models.vgg11_thinned(),
+                             fl.build_protocol(s, rounds), splits,
+                             engine_cfg=fl.build_engine(s), device="cuda")
+    params0 = {p: v.clone() for p, v in sorted_items(eng.server.params)}
+    sizes, zeros = [], [0]
+    cls = codecs_mod.NncCabacCodec
+    enc0, dec0 = cls.encode_batch, cls.decode_batch
+
+    def encode_batch(self, upds, spec, *, clients=None):
+        out = enc0(self, upds, spec, clients=clients)
+        full = enc0(self, upds, dataclasses.replace(spec, send_mask=None))
+        sizes.append([(len(a), len(b)) for a, b in zip(out, full)])
+        return out
+
+    def decode_batch(self, payloads, spec, *, clients=None):
+        decs = dec0(self, payloads, spec, clients=clients)
+        for dec in decs:
+            for path, v in sorted_items(dec.params):
+                if not is_fc(path):
+                    if v.any():
+                        fail(f"{label}: a decoded payload is not zero at "
+                             f"the frozen leaf {path}")
+                    zeros[0] += 1
+        return decs
+
+    cls.encode_batch, cls.decode_batch = encode_batch, decode_batch
+    la.reset_counters()
+    sm.reset_counters()
+    recs, frozen = [], 0
+    try:
+        for rnd in range(1, rounds + 1):
+            rec = eng.run(1).records[0]
+            torch.cuda.synchronize()
+            frozen = frozen_unchanged(torch, f"{label} round {rnd}", params0,
+                                      eng.server)
+            round_line(label, rnd, rec, rounds_out)
+            recs.append(rec)
+            if len(rec.participants) != 4:
+                fail(f"{label}: {len(rec.participants)} participants")
+    finally:
+        cls.encode_batch, cls.decode_batch = enc0, dec0
+    count = la.LAUNCHES["level_assign"]
+    check_sm(sm, label, 4, rounds)
+    if count != 4 * rounds:
+        fail(f"{label}: level_assign launched {count} times, expected "
+             f"{4 * rounds}")
+    pairs = [p for cohort in sizes for p in cohort]
+    if len(pairs) != 4 * rounds or not all(a < b for a, b in pairs):
+        fail(f"{label}: payloads vs the unmasked re-encode {pairs}")
+    print(f"  {label}: level_assign {count} launches ({count // rounds} a "
+          f"round); the server's {frozen} frozen params leaves bitwise "
+          f"their initial values after each round; {zeros[0]} frozen "
+          f"leaves of decoded payloads all zero; payload vs the unmasked "
+          f"re-encode of the same levels (bytes): {pairs}")
+    return {"level_assign": count, "walls_s": [r.wall_s for r in recs],
+            "up_bytes": [r.up_bytes for r in recs], "payload_vs_unmasked":
+                pairs, "frozen_leaves": frozen}
+
+
+def path_e(torch, dc, la, sm, fl, codecs_mod, device_mod, models, splits,
+           rounds_out) -> dict:
+    """Path E: partial updates, int8-blockscale, the device cohort encode,
+    wire schema v2 and ``chan_lossy_k4``'s channel (drops), cohorts of 4.
+    2 rounds, a third only if no drop fell on a cohort in them.  Every
+    payload is 29,473 bytes, header 2, BN tail the client's device BN rows
+    bitwise; one ``int8_encode_leaves`` launch a cohort over 32 entries;
+    the first cohort's bodies bitwise the plain version's on a copy of its
+    leaves; a dropped client's residual is bitwise its carry plus its
+    decoded delta; the participants are the survivors; ``sim_time_s`` is
+    the channel's ``round_time`` of the round's payload sizes, summed."""
+    from repro_torch.comms.channel import ChannelModel
+    from repro_torch.tree import sorted_items
+    label = "partial_int8_v2_lossy_k4"
+    chan_cfg = fl.get_scenario("chan_lossy_k4").channel
+    s = fl.Scenario(label, cohort_size=4, partial_updates=True,
+                    codec="int8-blockscale", device_encode=True,
+                    wire_schema=2, channel=chan_cfg)
+    eng = fl.FederatedEngine(models.vgg11_thinned(), fl.build_protocol(s, 3),
+                             splits, engine_cfg=fl.build_engine(s),
+                             device="cuda")
+    params0 = {p: v.clone() for p, v in sorted_items(eng.server.params)}
+    chan = ChannelModel(chan_cfg)
+    seen, entries, first = {}, [], {}
+    train, intake = eng.local_train.train_cohort, eng.uplink.intake
+    enc0 = device_mod.int8_encode_leaves
+    cohort0 = codecs_mod.Int8BlockScaleCodec.encode_cohort
+
+    def spy_train(idx, *args):
+        out = train(idx, *args)
+        seen["carry"] = {int(c): [(p, v[i].clone()) for p, v in
+                                  sorted_items(out.persistent.residual)]
+                         for i, c in enumerate(idx)}
+        return out
+
+    def spy_intake(out, clients):
+        seen["contribs"] = intake(out, clients)
+        return seen["contribs"]
+
+    def spy_encode(p, s_leaves, theta, block, *, batched=True):
+        entries.append(len(p) + len(s_leaves))
+        if "leaves" not in first:
+            first["leaves"] = ([clone_at_offset(torch, t) for t in p],
+                               [clone_at_offset(torch, t) for t in s_leaves],
+                               theta, block)
+        return enc0(p, s_leaves, theta, block, batched=batched)
+
+    def spy_cohort(self, out, spec, *, clients=None):
+        rows = cohort0(self, out, spec, clients=clients)
+        bn = device_mod.bn_stack(out.bn_state, spec, len(rows)).cpu()
+        seen["rows"], seen["bn"] = rows, bn.numpy()
+        first.setdefault("rows", rows)
+        return rows
+
+    eng.local_train.train_cohort = spy_train
+    eng.uplink.intake = spy_intake
+    device_mod.int8_encode_leaves = spy_encode
+    codecs_mod.Int8BlockScaleCodec.encode_cohort = spy_cohort
+    for mod in (dc, la, sm):
+        mod.reset_counters()
+    clock, lost_all, kept_all, recs, checked = 0.0, [], [], [], 0
+    try:
+        for rnd in range(1, 4):
+            if rnd == 3 and lost_all:
+                break
+            rec = eng.run(1).records[0]
+            torch.cuda.synchronize()
+            recs.append(rec)
+            round_line(label, rnd, rec, rounds_out)
+            clients = [c.client for c in seen["contribs"]]
+            rows, bn = seen["rows"], seen["bn"]
+            for i, row in enumerate(rows):
+                if (len(row) != FC_INT8_V2_BYTES or row[0] != 2
+                        or row[-BN_TAIL_BYTES:] != bn[i].astype(
+                            "<f4").tobytes()):
+                    fail(f"{label}: client {clients[i]}'s payload is "
+                         f"{len(row)} bytes, header {row[0]}, or its tail "
+                         f"is not its BN rows")
+            lost = [c for c in clients if chan.dropped(rnd, c)]
+            kept = [c for c in clients if c not in lost]
+            lost_all += lost
+            kept_all += kept
+            if list(rec.participants) != kept:
+                fail(f"{label}: participants {rec.participants}, survivors "
+                     f"{kept}")
+            sizes = [c.payload_bytes for c in seen["contribs"]]
+            clock += chan.round_time(clients, sizes, RAW_MODEL_BYTES, rnd)
+            if (eng.broadcast_ref_bytes() != RAW_MODEL_BYTES
+                    or rec.sim_time_s != clock):
+                fail(f"{label}: sim_time_s {rec.sim_time_s!r}, recomputed "
+                     f"{clock!r}")
+            residual = dict(sorted_items(eng.local_train.state.residual))
+            for c in seen["contribs"]:
+                if c.client not in lost:
+                    continue
+                decoded = dict(sorted_items(c.delta_params))
+                for path, carry in seen["carry"][c.client]:
+                    want = carry + torch.tensor(decoded[path],
+                                                device=carry.device)
+                    got = residual[path][c.client]
+                    if not torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32)):
+                        fail(f"{label}: client {c.client}'s residual at "
+                             f"{path} is not carry + decoded")
+                    checked += 1
+            frozen = frozen_unchanged(torch, f"{label} round {rnd}", params0,
+                                      eng.server)
+    finally:
+        device_mod.int8_encode_leaves = enc0
+        codecs_mod.Int8BlockScaleCodec.encode_cohort = cohort0
+    rounds = len(recs)
+    counts = {**dc.LAUNCHES, "level_assign": la.LAUNCHES["level_assign"]}
+    check_sm(sm, label, 4, rounds)
+    want = {"delta_compress": 0, "delta_compress_batch": rounds,
+            "level_assign": 4 * rounds}
+    if counts != want or entries != [PATH_E_ENTRIES] * rounds:
+        fail(f"{label}: launches {counts}, tables {entries}; expected "
+             f"{want}, {[PATH_E_ENTRIES] * rounds}")
+    if not lost_all or not kept_all:
+        fail(f"{label}: {len(lost_all)} drops and {len(kept_all)} survivors "
+             f"in {rounds} rounds")
+    # the first cohort's bodies against the plain version on a copy
+    p, s_leaves, theta, block = first["leaves"]
+    k = p[0].shape[0]
+    body = dc.int8_encode_leaves(p, s_leaves, theta, block, batched=True)
+    plain = dc.int8_encode_leaves_plain(p, s_leaves, theta, block)
+    torch.cuda.synchronize()
+    wire = [row[1:1 + FC_INT8_V1_BYTES] for row in first["rows"]]
+    if (not torch.equal(body, plain)
+            or [bytes(r) for r in body.cpu().numpy()] != wire):
+        fail(f"{label}: the first cohort's bodies differ from the plain "
+             f"version or from the wire")
+    p_sizes = [t[0].numel() for t in p]
+    s_sizes = [t[0].numel() for t in s_leaves]
+    t = kernel_times(
+        torch, lambda: dc.int8_encode_leaves(p, s_leaves, theta, block,
+                                             batched=True),
+        lambda: dc.int8_encode_leaves_plain(p, s_leaves, theta, block),
+        spin=10_000_000)
+    t["bound"] = encode_bound_ms(p_sizes, s_sizes, k, block)
+    print(f"  {label}: {rounds} rounds, drops {lost_all}, survivors "
+          f"{kept_all}; launches {counts}, {entries} entries a table; every "
+          f"payload {FC_INT8_V2_BYTES} bytes, header 2, BN tail bitwise the "
+          f"device rows; {checked} residual leaves of dropped clients "
+          f"bitwise carry + decoded; {frozen} frozen leaves unchanged; "
+          f"sim_time_s {[r.sim_time_s for r in recs]}")
+    print(f"  {label}: the grouped int8 encode on the first cohort's "
+          f"{len(p) + len(s_leaves)} entries ({k} x {sum(p_sizes)} params), "
+          f"bitwise to plain and to the wire bodies: {t['ms']:.4f} ms "
+          f"(whole wrapper call {t['call_ms']:.4f} ms), plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
+          f"({t['bound'][1]})")
+    return {"launches": counts, "entries": entries, "drops": lost_all,
+            "survivors": kept_all, "walls_s": [r.wall_s for r in recs],
+            "up_bytes": [r.up_bytes for r in recs],
+            "sim_time_s": [r.sim_time_s for r in recs],
+            "residual_leaves_checked": checked, "kernel": t,
+            "shape": [k, sum(p_sizes)]}
+
+
+def bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
+                 rounds_out) -> dict:
+    """One round of ``bnwire_v2_full`` (8 clients, nnc-cabac, schema v2):
+    each payload is its v1 encode under a v1 spec with the header before
+    and the 6,912-byte BN tail after; the server's BN state is bitwise the
+    mean of the survivors' device BN rows."""
+    import dataclasses
+    from repro_torch.tree import sorted_items
+    label = "bnwire_v2_full"
+    s = fl.get_scenario(label)
+    eng = fl.FederatedEngine(models.vgg11_thinned(), fl.build_protocol(s, 1),
+                             splits, engine_cfg=fl.build_engine(s),
+                             device="cuda")
+    cls = codecs_mod.NncCabacCodec
+    enc0 = cls.encode_batch
+    train = eng.local_train.train_cohort
+    seen = {}
+
+    def encode_batch(self, upds, spec, *, clients=None):
+        out = enc0(self, upds, spec, clients=clients)
+        v1 = enc0(self, upds, dataclasses.replace(spec, bn=None, version=1))
+        seen["pairs"] = list(zip(out, v1))
+        return out
+
+    def spy_train(idx, *args):
+        out = train(idx, *args)
+        seen["idx"] = [int(c) for c in idx]
+        seen["bn"] = {p: v.clone() for p, v in sorted_items(out.bn_state)}
+        return out
+
+    cls.encode_batch = encode_batch
+    eng.local_train.train_cohort = spy_train
+    la.reset_counters()
+    sm.reset_counters()
+    try:
+        rec = eng.run(1).records[0]
+        torch.cuda.synchronize()
+    finally:
+        cls.encode_batch = enc0
+    round_line(label, 1, rec, rounds_out)
+    check_sm(sm, label, splits.num_clients, 1)
+    if la.LAUNCHES["level_assign"] != splits.num_clients:
+        fail(f"{label}: level_assign launched "
+             f"{la.LAUNCHES['level_assign']} times")
+    for v2, v1 in seen["pairs"]:
+        if (len(v2) != len(v1) + 1 + BN_TAIL_BYTES or v2[0] != 2
+                or v2[1:1 + len(v1)] != v1):
+            fail(f"{label}: a payload of {len(v2)} bytes is not its v1 "
+                 f"encode ({len(v1)}) + {1 + BN_TAIL_BYTES}")
+    idx = torch.tensor([seen["idx"].index(c) for c in rec.participants],
+                       device="cuda")
+    for path, v in sorted_items(eng.server.bn_state):
+        want = torch.mean(seen["bn"][path][idx], dim=0)
+        if not torch.equal(v.view(torch.int32), want.view(torch.int32)):
+            fail(f"{label}: the server's {path} is not the mean of the "
+                 f"survivors' device BN rows")
+    print(f"  {label}: {len(seen['pairs'])} payloads each its v1 encode + "
+          f"{1 + BN_TAIL_BYTES} bytes ({[len(a) for a, _ in seen['pairs']]}"
+          f"); the server's BN state bitwise the mean of the survivors' "
+          f"device BN rows")
+    return {"wall_s": rec.wall_s, "up_bytes": rec.up_bytes,
+            "payload_bytes": [len(a) for a, _ in seen["pairs"]],
+            "v1_bytes": [len(b) for _, b in seen["pairs"]]}
+
+
+def repeat_small_runs(torch, fl, rounds_mod, name: str):
+    """Two runs of scenario ``name`` on the tiny VGG on the card, with the
+    algorithms the port selects (no context of this script's around them):
+    every payload put on the wire, up and down, and the server's params,
+    scales and BN state must be equal bit for bit.  Returns (report,
+    failures)."""
+    from repro_torch.comms import codec as codec_mod
+    from repro_torch.comms import codecs as codecs_mod
+    from repro_torch.tree import sorted_items
+
+    runs = []
+    for _ in range(2):
+        payloads = []
+        dec0 = codec_mod.Codec.decode
+        nnc0 = codecs_mod.NncCabacCodec.decode_batch
+        sec0 = codecs_mod.Int8BlockScaleCodec.device_sections
+
+        def decode(self, payload, spec):
+            payloads.append(bytes(payload))
+            return dec0(self, payload, spec)
+
+        def decode_batch(self, batch, spec, *, clients=None):
+            payloads.extend(bytes(p) for p in batch)
+            return nnc0(self, batch, spec, clients=clients)
+
+        def device_sections(self, payload, spec, device):
+            payloads.append(bytes(payload))
+            return sec0(self, payload, spec, device)
+
+        codec_mod.Codec.decode = decode
+        codecs_mod.NncCabacCodec.decode_batch = decode_batch
+        codecs_mod.Int8BlockScaleCodec.device_sections = device_sections
+        try:
+            res = record_small_run(torch, fl, rounds_mod, name, "cuda")[0]
+        finally:
+            codec_mod.Codec.decode = dec0
+            codecs_mod.NncCabacCodec.decode_batch = nnc0
+            codecs_mod.Int8BlockScaleCodec.device_sections = sec0
+        state = {f"{part}/{p}": v.cpu() for part in ("params", "scales",
+                                                     "bn_state")
+                 for p, v in sorted_items(getattr(res.server, part))}
+        runs.append((payloads, [(r.up_bytes, r.down_bytes)
+                                for r in res.records], state))
+    (pay_a, bytes_a, state_a), (pay_b, bytes_b, state_b) = runs
+    failures = []
+    if not pay_a or pay_a != pay_b:
+        diff = sum(a != b for a, b in zip(pay_a, pay_b))
+        failures.append(f"{name}: payloads differ between two runs "
+                        f"({len(pay_a)} and {len(pay_b)}, {diff} unequal)")
+    if bytes_a != bytes_b:
+        failures.append(f"{name}: bytes {bytes_a} then {bytes_b}")
+    off = [p for p, v in state_a.items()
+           if not torch.equal(v.view(torch.int32),
+                              state_b[p].view(torch.int32))]
+    if off:
+        failures.append(f"{name}: server leaves differ between two runs: "
+                        f"{off}")
+    report = {"payloads": len(pay_a), "payload_bytes": sum(map(len, pay_a)),
+              "bytes": bytes_a, "server_leaves": len(state_a),
+              "cudnn_deterministic": torch.backends.cudnn.deterministic,
+              "cudnn_benchmark": torch.backends.cudnn.benchmark}
+    return report, failures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2022,6 +2443,17 @@ def main() -> int:
         rounds_out)
     t1 = phase("path C (bidirectional, int8)", t1)
 
+    # slice 8: partial updates, wire schema v2 and the channel
+    d_out = path_d(torch, la, sm, fl, codecs_mod, models, splits,
+                   rounds_out)
+    t1 = phase("path D (partial updates, nnc-cabac)", t1)
+    e_out = path_e(torch, dc, la, sm, fl, codecs_mod, device_mod, models,
+                   splits, rounds_out)
+    t1 = phase("path E (partial, int8, v2, lossy channel)", t1)
+    bn_out = bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
+                          rounds_out)
+    t1 = phase("bnwire_v2_full round", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
@@ -2032,6 +2464,12 @@ def main() -> int:
     small = {name: small_input_check(torch, fl, rounds_mod, name, cpu_runs)
              for name in SMALL_SCENARIOS}
     t1 = phase("small-input checks", t1)
+    repeat, failures = repeat_small_runs(torch, fl, rounds_mod,
+                                         "bidi_sync_full")
+    print(f"repeatability bidi_sync_full: two card runs, {repeat}")
+    if failures:
+        fail("; ".join(failures))
+    t1 = phase("repeatability", t1)
     bidi_int8 = fl.Scenario("bidi_int8_k4", cohort_size=4,
                             codec="int8-blockscale", bidirectional=True)
     prof = {
@@ -2079,6 +2517,15 @@ def main() -> int:
             "device_ops": t["ops"], "pad_cat_device_ops": t["old_ops"]})
         if launches[name] < 1:
             fail(f"{name} was not launched on the main path")
+    e_kernel = e_out["kernel"]
+    kernels[0].update({
+        "launches_path_e": e_out["launches"]["delta_compress_batch"],
+        "path_e_entries": e_out["entries"][0],
+        "path_e_shape": e_out["shape"], "path_e_ms": e_kernel["ms"],
+        "path_e_plain_ms": e_kernel["plain_ms"],
+        "path_e_call_ms": e_kernel["call_ms"],
+        "path_e_bound_ms": e_kernel["bound"][0],
+        "path_e_bound_by": e_kernel["bound"][1]})
 
     kernels.append({
         "name": "level_assign", "route": "cuda",
@@ -2092,7 +2539,9 @@ def main() -> int:
         "per_leaf_launches_ms": la_timing["per_leaf_ms"],
         "per_leaf_launches_call_ms": la_timing["per_leaf_call_ms"],
         "launches_bidirectional_path_a":
-            a_launches["run_federated bidirectional"]})
+            a_launches["run_federated bidirectional"],
+        "launches_path_d": d_out["level_assign"],
+        "launches_path_e": e_out["launches"]["level_assign"]})
     if la_launches["sync_full_fedavg_fsfl"] < 1:
         fail("level_assign was not launched on the main path")
     kernels.append({
@@ -2179,6 +2628,10 @@ def main() -> int:
                           "topk_near_tie_leaves": rs_timing["topk_flips"]}},
         "device_encoded_nnc_payloads": cohorts,
         "path_c_leaves_checked_against_host_decode": c_checked,
+        "path_d_partial_fc_k4": {k: v for k, v in d_out.items()},
+        "path_e_partial_int8_v2_lossy_k4": {
+            k: v for k, v in e_out.items() if k != "kernel"},
+        "bnwire_v2_full": bn_out, "repeatability_bidi_sync_full": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {dev}")

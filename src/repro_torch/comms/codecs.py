@@ -16,7 +16,8 @@ Port of ``repro.comms.codecs``:
 
 Level codecs put the int32 levels on the wire and dequantize on decode;
 ternary messages append one float32 magnitude per params tensor after the
-level stream.  Payloads are byte-identical to the reference's.
+level stream.  Every codec carries the schema-v2 frame of
+``Codec._frame``.  Payloads are byte-identical to the reference's.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from repro_torch.coding.bitstream import BitReader
 from repro_torch.comms import device as comms_device
 from repro_torch.comms.codec import (ClientUpdate, Codec, Decoded, LeafSpec,
                                      WireSpec, check_batch_clients,
-                                     rebuild_tree, register_codec,
+                                     decode_bn, rebuild_tree, register_codec,
                                      sorted_items)
 from repro_torch.runtime import span
 
@@ -312,7 +313,7 @@ class NncCabacCodec(LevelCodec):
             pieces = [self._level_items(u, spec) for u in upds]
             bodies = nnc.encode_tree_batch(
                 [self._msg(p, s) for p, s in pieces])
-            return [body + self._ternary_tail(u, spec)
+            return [self._frame(body + self._ternary_tail(u, spec), u, spec)
                     for body, u in zip(bodies, upds)]
 
     def encode_cohort(self, out, spec: WireSpec, *, clients=None):
@@ -325,15 +326,45 @@ class NncCabacCodec(LevelCodec):
             return []
         with span("codec.decode_batch", codec=self.name, n=len(payloads)):
             p_shapes, s_shapes = self._shapes(spec)
-            split = [self._split_ternary(p, spec, len(p_shapes))
-                     for p in payloads]
+            frames = [self._deframe(p, spec) for p in payloads]
+            split = [self._split_ternary(body, spec, len(p_shapes))
+                     for body, _ in frames]
             trees = nnc.decode_tree_batch(
                 [body for body, _ in split],
                 self._msg_shapes(p_shapes, s_shapes),
                 engine=self.decode_engine)
-            return [self._dequantize(tree["p"], tree.get("s", {}), mags,
-                                     spec, p_shapes, s_shapes)
-                    for tree, (_, mags) in zip(trees, split)]
+            out = []
+            for tree, (_, mags), (_, tail) in zip(trees, split, frames):
+                dec = self._dequantize(tree["p"], tree.get("s", {}), mags,
+                                       spec, p_shapes, s_shapes)
+                if spec.version != 1:
+                    dec = dec._replace(bn=decode_bn(tail, spec))
+                out.append(dec)
+            return out
+
+    def payload_sections(self, payload, spec):
+        """One nnc payload's anatomy: the 16-byte length header, the CABAC
+        and bypass streams, the ternary magnitude tail and the v2 frame
+        sections where present.  Sums to ``len(payload)``."""
+        sections: dict[str, int] = {}
+        body = payload
+        bn_tail = 0
+        if spec.version != 1:
+            sections["frame.header"] = 1
+            bn_tail = spec.bn_nbytes
+            body = payload[1:len(payload) - bn_tail]
+        n_params = len(spec.param_items())
+        mag_tail = 4 * n_params if (spec.ternary and n_params) else 0
+        if mag_tail:
+            body = body[:len(body) - mag_tail]
+        sections["nnc.header"] = 16
+        sections["nnc.cabac"] = int.from_bytes(body[:8], "big")
+        sections["nnc.bypass"] = int.from_bytes(body[8:16], "big")
+        if mag_tail:
+            sections["ternary.mags"] = mag_tail
+        if spec.version != 1:
+            sections["frame.bn"] = bn_tail
+        return sections
 
 
 class GolombCodec(LevelCodec):

@@ -20,8 +20,11 @@ device until ONE device-to-host copy per cohort:
                        ``nnc.encode_leaves_batch``: exact booleans, so the
                        bins and bytes are the host path's.
 
-Ternary messages get their per-tensor maxima on the device as well.  Every
-payload is byte-identical to the host ``Codec.encode``.
+Ternary messages get their per-tensor maxima on the device as well.  Under
+wire schema v2 each row is framed with the client's BN statistics: the
+cohort's BN rows come to the host in one copy (for the level codecs in
+the same copy as the levels).  Every payload is byte-identical to the
+host ``Codec.encode``.
 
 ``dispatch_count()`` counts the fused cohort programs launched here; the
 uplink differences it around each cohort.
@@ -38,7 +41,7 @@ from repro_torch.coding import golomb as golomb_lib
 from repro_torch.coding import nnc
 from repro_torch.coding.bitstream import BitWriter
 from repro_torch.comms.codec import (WireSpec, check_batch_clients,
-                                     cohort_size, sorted_items)
+                                     cohort_size, frame, sorted_items)
 from repro_torch.kernels.delta_compress import int8_encode_leaves
 
 _dispatches = 0
@@ -73,10 +76,35 @@ def int8_rows(p_leaves: list[torch.Tensor], s_leaves: list[torch.Tensor],
                               batched=batched).cpu().numpy()
 
 
+def bn_stack(bn_state: Any, spec: WireSpec, k: int) -> torch.Tensor | None:
+    """(K, B) float32: each client's BN leaves, flat, in the v2 tail's
+    sorted-path order; ``None`` when the spec carries no BN section."""
+    if spec.version == 1 or spec.bn is None:
+        return None
+    by_path = dict(sorted_items(bn_state))
+    return torch.cat([by_path[p].reshape(k, -1).to(torch.float32)
+                      for p, _ in spec.bn_items()], dim=1)
+
+
+def bn_rows(bn_state: Any, spec: WireSpec, k: int) -> np.ndarray | None:
+    """:func:`bn_stack` on the host, in one device-to-host copy."""
+    stack = bn_stack(bn_state, spec, k)
+    return None if stack is None else stack.cpu().numpy()
+
+
+def _frame_row(body: bytes, bn_host: np.ndarray | None, i: int,
+               spec: WireSpec) -> bytes:
+    if spec.version == 1:
+        return body
+    tail = (b"" if bn_host is None
+            else np.ascontiguousarray(bn_host[i]).astype("<f4").tobytes())
+    return frame(body, tail, spec)
+
+
 def int8_encode_cohort(codec, out: Any, spec: WireSpec, *,
                        clients: Sequence[int] | None = None) -> list[bytes]:
-    """Cohort encode for ``Int8BlockScaleCodec``: one kernel launch, one
-    device-to-host copy."""
+    """Cohort encode for ``Int8BlockScaleCodec``: one kernel launch and one
+    device-to-host copy (under v2 one more copy, of the BN rows)."""
     global _dispatches
     k = cohort_size(out)
     check_batch_clients(clients, k, "cohort rows")
@@ -84,12 +112,14 @@ def int8_encode_cohort(codec, out: Any, spec: WireSpec, *,
                 if p in spec.sent_paths]
     s_leaves = ([leaf for _, leaf in sorted_items(out.recon_delta_scales)]
                 if spec.scales is not None else [])
+    bn_host = bn_rows(out.bn_state, spec, k)
     if not p_leaves and not s_leaves:
-        return [b""] * k
+        return [_frame_row(b"", bn_host, i, spec) for i in range(k)]
     rows = int8_rows(p_leaves, s_leaves, codec.block, batched=True)
     if p_leaves:
         _dispatches += 1
-    return [rows[i].tobytes() for i in range(k)]
+    return [_frame_row(rows[i].tobytes(), bn_host, i, spec)
+            for i in range(k)]
 
 
 # ---------------------------------------------------------------- level codecs
@@ -118,7 +148,8 @@ def _ternary_maxima(out: Any, spec: WireSpec, k: int):
 
 
 def _fetch(parts: list[torch.Tensor]) -> list[np.ndarray]:
-    """(K, w_i) int32 device blocks -> host numpy blocks, in ONE copy."""
+    """(K, w_i) int32 device blocks -> host numpy blocks, in ONE copy
+    (float32 blocks travel as their int32 bit patterns)."""
     if not parts:
         return []
     host = torch.cat(parts, dim=1).cpu().numpy()
@@ -165,15 +196,19 @@ def golomb_encode_cohort(codec, out: Any, spec: WireSpec, *,
         in_range = torch.ones((), dtype=torch.bool, device=buf.device)
     zig = (buf << 1) ^ (buf >> 31)
     tern = _ternary_maxima(out, spec, k)
+    bn = bn_stack(out.bn_state, spec, k)
     parts = [zig, in_range.to(torch.int32).expand(k, 1)]
-    if tern is not None:
-        parts.append(tern.view(torch.int32))
+    for extra in (tern, bn):
+        if extra is not None:
+            parts.append(extra.view(torch.int32))
     _dispatches += 1
     host = _fetch(parts)
     if not bool(host[1][0, 0]):
         return None          # the int32 zigzag would wrap
     zig_h = host[0].astype(np.int64)   # exact: guarded above
-    tern_h = host[2] if tern is not None else None
+    extras = iter(host[2:])
+    tern_h = next(extras) if tern is not None else None
+    bn_h = next(extras).view(np.float32) if bn is not None else None
     sizes = [int(np.prod(leaf.shape[1:])) for leaf in leaves]
     payloads = []
     for i in range(k):
@@ -181,8 +216,9 @@ def golomb_encode_cohort(codec, out: Any, spec: WireSpec, *,
         for n in sizes:
             sections.append(zig_h[i, off:off + n])
             off += n
-        payloads.append(golomb_stream(sections)
-                        + _ternary_tail_row(tern_h, i))
+        payloads.append(_frame_row(golomb_stream(sections)
+                                   + _ternary_tail_row(tern_h, i),
+                                   bn_h, i, spec))
     return payloads
 
 
@@ -204,13 +240,17 @@ def nnc_encode_cohort(codec, out: Any, spec: WireSpec, *,
             flags.append((leaf.reshape(k, m, row_len) != 0).any(dim=2)
                          .to(torch.int32))
     tern = _ternary_maxima(out, spec, k)
+    bn = bn_stack(out.bn_state, spec, k)
     parts = ([leaf.reshape(k, -1).to(torch.int32) for leaf in leaves]
-             + flags + ([tern.view(torch.int32)] if tern is not None else []))
+             + flags + [x.view(torch.int32) for x in (tern, bn)
+                        if x is not None])
     _dispatches += 1
     host = _fetch(parts)
     n_lv, n_fl = len(leaves), len(flags)
     lv_h, fl_h = host[:n_lv], host[n_lv:n_lv + n_fl]
-    tern_h = host[n_lv + n_fl] if tern is not None else None
+    extras = iter(host[n_lv + n_fl:])
+    tern_h = next(extras) if tern is not None else None
+    bn_h = next(extras).view(np.float32) if bn is not None else None
     leaf_lists, flag_lists = [], []
     for i in range(k):
         leaf_lists.append([lv[i].reshape(s) for lv, s in zip(lv_h, shapes)])
@@ -220,5 +260,5 @@ def nnc_encode_cohort(codec, out: Any, spec: WireSpec, *,
             j += int(st)
         flag_lists.append(row_flags)
     bodies = nnc.encode_leaves_batch(leaf_lists, row_flags=flag_lists)
-    return [body + _ternary_tail_row(tern_h, i)
+    return [_frame_row(body + _ternary_tail_row(tern_h, i), bn_h, i, spec)
             for i, body in enumerate(bodies)]

@@ -3,7 +3,9 @@
 Port of ``repro.core.protocol``.  One communication epoch for one client:
 
   1. start from the server state,
-  2. train W locally with Adam on the round's batches (scales S frozen),
+  2. train W locally with Adam on the round's batches (scales S frozen;
+     under partial updates, ``trainable_predicate``, the gradients of the
+     frozen leaves are zero, so Adam moves them by exactly 0),
   3. differential update + error feedback (Eq. 5) + sparsification +
      uniform quantization (``comms.stages``; with one threshold per leaf,
      one fused ``level_assign`` kernel launch over all the leaves),
@@ -31,8 +33,7 @@ from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.models.cnn import CNNModel
 from repro_torch.optim import adam, apply_updates, sgd
 from repro_torch.optim import schedule as schedule_lib
-from repro_torch.runtime import not_ported
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, map_with_path, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,11 +101,21 @@ def _requiring_grad(tree: Any) -> Any:
     return tree_map(lambda x: x.detach().requires_grad_(True), tree)
 
 
+def trainable_mask(params: Any, predicate: Callable | None) -> Any:
+    """Bool tree over params: the leaves local training may move (paths
+    as the scale and fine masks name them, ``conv0/w``, ``fc1/b``)."""
+    if predicate is None:
+        return tree_map(lambda _: True, params)
+    return map_with_path(lambda path, leaf: bool(predicate(path, leaf)),
+                         params)
+
+
+def _mask_tree(tree: Any, mask: Any) -> Any:
+    return tree_map(lambda x, m: x if m else torch.zeros_like(x), tree, mask)
+
+
 def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
     """Builds ``(init, client_round, evaluate)`` for one client."""
-    if cfg.trainable_predicate is not None:
-        raise not_ported("partial (trainable_predicate) updates",
-                         "wire schema v2, channel, partial updates")
     w_opt = (adam(cfg.local_lr) if cfg.local_optimizer == "adam"
              else sgd(cfg.local_lr, momentum=0.9))
 
@@ -172,6 +183,8 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
                      train_x, train_y, val_x, val_y,
                      batch_idx) -> RoundOutput:
         params0, scales0, bn0 = server
+        t_mask = (None if cfg.trainable_predicate is None
+                  else trainable_mask(params0, cfg.trainable_predicate))
         s_mask = scaling_lib.scale_mask(params0, scale_pred)
         fine_mask = stages_lib.path_fine_mask(params0)
 
@@ -184,6 +197,8 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
                 loss, new_bn = loss_fn(p_req, scales0, bn, train_x[idx],
                                        train_y[idx], True)
                 grads = _grad_tree(loss, p_req)
+            if t_mask is not None:
+                grads = _mask_tree(grads, t_mask)
             upd, opt_state = w_opt.update(grads, opt_state, params)
             params = apply_updates(params, upd)
             bn = tree_map(torch.Tensor.detach, new_bn)
@@ -225,8 +240,7 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
                         loss, _ = loss_fn(params_hat, s_req, bn1,
                                           train_x[idx], train_y[idx], False)
                         g = _grad_tree(loss, s_req)
-                    g = tree_map(lambda gi, m: gi if m else torch.zeros_like(gi),
-                                 g, s_mask)
+                    g = _mask_tree(g, s_mask)
                     upd, sopt = s_opt.update(g, sopt, scales)
                     scales = apply_updates(scales, upd)
                 perf = accuracy(params_hat, scales, bn1, val_x, val_y)

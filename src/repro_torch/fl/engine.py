@@ -6,6 +6,10 @@ scheduler for one ``RoundIntake`` per aggregation, which it folds through
 ``Aggregate -> ServerStep (-> Downlink) -> Evaluate``.  With
 ``EngineConfig.bidirectional`` the server's update is compressed and put
 on the wire before it is applied (§5.2), and ``down_bytes`` counts it.
+``EngineConfig.channel`` turns payload lengths into simulated seconds
+(``RoundRecord.sim_time_s``) and drops uploads; ``up_predicate`` keeps
+the leaves it rejects off the wire (partial updates); ``wire_schema=2``
+puts the clients' BN statistics inside every payload.
 
 Randomness: standalone runs draw the initial state, cohorts and batch
 orders from one ``torch.Generator`` seeded with ``seed``.  Runs held
@@ -23,13 +27,15 @@ import numpy as np
 import torch
 
 from repro_torch.coding import nnc
+from repro_torch.comms.channel import ChannelConfig, ChannelModel
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.protocol import ProtocolConfig, make_protocol
 from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl.executors import EXECUTORS, make_executor
 from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
                                    Downlink, Evaluate, LocalTrain,
-                                   RoundIntake, ServerStep, Uplink)
+                                   RoundIntake, ServerStep, Uplink,
+                                   raw_bytes_per_client)
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
 from repro_torch.runtime import not_ported, resolve_device
@@ -48,6 +54,7 @@ class RoundRecord:
     train_loss: float
     wall_s: float
     participants: tuple[int, ...] = ()
+    sim_time_s: float = 0.0   # simulated clock (with a channel; else 0)
 
 
 @dataclasses.dataclass
@@ -100,8 +107,6 @@ class RunResult:
 # fields of the reference's EngineConfig that the port does not run yet,
 # with their defaults and the port-queue item that will bring them
 _NOT_PORTED_FIELDS = {
-    "channel": (None, "wire schema v2, channel, partial updates"),
-    "up_predicate": (None, "wire schema v2, channel, partial updates"),
     "uplink_workers": (0, "streaming ingest, population, telemetry"),
     "uplink_batch": (False, "streaming ingest, population, telemetry"),
     "ingest": ("gather", "streaming ingest, population, telemetry"),
@@ -125,9 +130,9 @@ class EngineConfig:
     wire_schema: int = 1
     device_encode: bool = False          # cohort encode on the device
     executor: str = "serial"
+    channel: ChannelConfig | None = None
+    up_predicate: Callable | None = None  # wire leaf predicate (partial)
     # accepted only at the reference's defaults (not ported yet)
-    channel: Any = None
-    up_predicate: Callable | None = None
     uplink_workers: int = 0
     uplink_batch: bool = False
     ingest: str = "gather"
@@ -146,9 +151,12 @@ class EngineConfig:
             raise ValueError(f"unknown engine mode: {self.mode!r}")
         if self.executor not in EXECUTORS:
             raise ValueError(f"unknown executor: {self.executor!r}")
-        if self.wire_schema != 1:
-            raise not_ported("wire schema v2",
-                             "wire schema v2, channel, partial updates")
+        if self.channel is not None and not self.measure_bytes:
+            raise ValueError("a channel model needs real payloads: "
+                             "set measure_bytes=True")
+        if self.wire_schema not in (1, 2):
+            raise ValueError(
+                f"unknown wire schema {self.wire_schema!r} (known: 1, 2)")
         if self.device_encode and not self.measure_bytes:
             raise ValueError("device_encode builds real payloads on device: "
                              "set measure_bytes=True")
@@ -193,6 +201,7 @@ class FederatedEngine:
         engine_cfg.validate()
         self.device = resolve_device(device)
         self.config_name = cfg.name
+        self.protocol_cfg = cfg
         splits = splits.to(self.device)
         self.num_clients = splits.num_clients
 
@@ -218,8 +227,19 @@ class FederatedEngine:
                                  server.params, self.uplink.codec,
                                  engine_cfg.bidirectional)
         self.evaluate = Evaluate(evaluate, splits.test_x, splits.test_y)
+        self.channel = (ChannelModel(engine_cfg.channel, self.num_clients)
+                        if engine_cfg.channel is not None else None)
+        self._raw_model_bytes = raw_bytes_per_client(server.params)
         self.scheduler = SCHEDULERS[engine_cfg.mode]()
         self.scheduler.bind(self, gen, plan)
+
+    def broadcast_ref_bytes(self) -> int:
+        """Bytes a client downloads before its round: the last compressed
+        broadcast under bidirectional compression, else the raw float32
+        model."""
+        if self.downlink.active and self.downlink.last_payload_bytes:
+            return self.downlink.last_payload_bytes
+        return self._raw_model_bytes
 
     @staticmethod
     def _mean_metric(intake: RoundIntake, name: str) -> float:
@@ -253,7 +273,8 @@ class FederatedEngine:
                                                       "update_sparsity"),
                     train_loss=self._mean_metric(intake, "train_loss"),
                     wall_s=time.time() - t0,
-                    participants=tuple(c.client for c in survivors))
+                    participants=tuple(c.client for c in survivors),
+                    sim_time_s=intake.sim_time)
                 records.append(rec)
                 if verbose:
                     print(f"[{self.config_name}] "

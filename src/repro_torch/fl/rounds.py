@@ -5,6 +5,10 @@ Port of ``repro.fl.rounds`` (sync scheduling, gather ingest):
     CohortPlan -> LocalTrain -> Uplink -> Aggregate -> ServerStep
     (-> Downlink) -> Evaluate
 
+With a channel model the sync scheduler advances a simulated clock by each
+round's slowest transfer and drops uploads; under error feedback a dropped
+client's decoded delta goes back into its residual (Eq. 5).
+
 ``Uplink`` puts every cohort member's update on the wire and aggregates
 only what decodes: per client through ``Codec.encode_batch`` (for
 ``int8-blockscale`` one kernel launch per client; the level codecs take
@@ -27,7 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch import comms
+from repro_torch.comms import device as comms_device
 from repro_torch.comms import stages as stages_lib
+from repro_torch.comms.codec import bn_tree
 from repro_torch.comms.codecs import Int8BlockScaleCodec
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import quant as quant_lib
@@ -61,6 +67,11 @@ def stack_trees(trees: list[Any], device: torch.device) -> Any:
     return tree_map(lambda *ls: torch.stack([leaf(x) for x in ls]), *trees)
 
 
+def raw_bytes_per_client(params: Any) -> int:
+    """float32 bytes of one uncompressed copy of ``params``."""
+    return 4 * sum(leaf.numel() for _, leaf in items(params))
+
+
 # ---------------------------------------------------------------- contracts
 
 @dataclasses.dataclass
@@ -84,11 +95,13 @@ class AggregatedRound:
 @dataclasses.dataclass
 class RoundIntake:
     """A scheduler's hand-off for ONE aggregation: every charged upload,
-    the indices of those that aggregate, and how many clients receive the
-    following broadcast."""
+    the indices of those that aggregate (channel drops leave out clients
+    without refunding their bytes), how many clients receive the following
+    broadcast, and the simulated clock after the round."""
     contributions: list[Contribution]
     survivors: list[int]
     receivers: int = 0
+    sim_time: float = 0.0
 
 
 # ---------------------------------------------------------------- cohort plan
@@ -151,6 +164,18 @@ class LocalTrain:
         self.state = tree_map(scatter, self.state, out.persistent)
         return out
 
+    def reinject_residual(self, client: int, delta: Any) -> None:
+        """A dropped upload must not break Eq. 5: put the lost (decoded)
+        delta back into that client's residual, ``residual + delta``, so
+        its mass goes out again (the scale-delta section has no residual
+        and stays lost)."""
+        def add(r, d):
+            r[client] = r[client] + torch.tensor(np.asarray(d, np.float32),
+                                                 device=r.device)
+            return r
+
+        tree_map(add, self.state.residual, delta)
+
 
 # ---------------------------------------------------------------- uplink
 
@@ -162,13 +187,21 @@ class Uplink:
     def __init__(self, cfg: ProtocolConfig, engine_cfg, server: ServerState):
         self.transmit = engine_cfg.measure_bytes
         self.codec = comms.resolve_codec(engine_cfg.codec, cfg.quantize)
+        send_mask = None
+        if engine_cfg.up_predicate is not None:
+            send_mask = comms.make_send_mask(server.params,
+                                             engine_cfg.up_predicate)
         self.spec = comms.WireSpec(
             params=comms.shape_template(server.params),
             scales=comms.shape_template(server.scales),
             fine_mask=comms.path_fine_mask(server.params),
             step_size=cfg.step_size,
             fine_step_size=cfg.fine_step_size,
-            ternary=(cfg.method == "ternary"))
+            ternary=(cfg.method == "ternary"),
+            send_mask=send_mask,
+            bn=(comms.shape_template(server.bn_state)
+                if engine_cfg.wire_schema == 2 else None),
+            version=engine_cfg.wire_schema)
         self.device_encode = engine_cfg.device_encode
 
     def _metric_rows(self, out, k: int) -> list[dict[str, float]]:
@@ -195,15 +228,19 @@ class Uplink:
             lv_p, lv_s = out.levels_params, out.levels_scales
             if "levels" in self.codec.needs:   # host coders read numpy
                 lv_p, lv_s = tree_map(torch.Tensor.cpu, (lv_p, lv_s))
+            bn = comms_device.bn_rows(out.bn_state, self.spec, k)
             payloads = self.codec.encode_batch([comms.ClientUpdate(
                 row(lv_p, i), row(lv_s, i), row(out.recon_delta_params, i),
-                row(out.recon_delta_scales, i)) for i in range(k)],
-                self.spec, clients=clients)
+                row(out.recon_delta_scales, i),
+                bn=None if bn is None else bn_tree(bn[i], self.spec))
+                for i in range(k)], self.spec, clients=clients)
         decs = self.codec.decode_batch(payloads, self.spec, clients=clients)
+        # under v2 the BN statistics are what the payload carried
         return [Contribution(
             client=c, delta_params=dec.params, delta_scales=dec.scales,
-            bn_state=row(out.bn_state, i), payload_bytes=len(p),
-            metrics=metrics[i])
+            bn_state=(dec.bn if self.spec.version == 2
+                      else row(out.bn_state, i)),
+            payload_bytes=len(p), metrics=metrics[i])
             for i, (c, p, dec) in enumerate(zip(clients, payloads, decs))]
 
 
@@ -404,13 +441,22 @@ class SyncScheduler:
     Cohorts and batch orders come from the scheduler's ``torch.Generator``,
     or, for runs held against the reference, from ``plan``: one
     ``(cohort indices, (K, steps, batch) batch indices)`` pair per round,
-    as numpy arrays."""
+    as numpy arrays.
+
+    With a channel model the simulated clock advances by the round's
+    slowest ``down + up`` transfer (the download is the last broadcast's
+    size, read before this round's server step); each upload is then
+    dropped or not by its (round, client) draw.  Dropped bytes stay
+    charged, only the survivors aggregate, the whole cohort receives the
+    broadcast, and under error feedback each lost client's decoded delta
+    goes back into its residual."""
 
     def bind(self, engine, gen: torch.Generator, plan=None) -> None:
         self.eng = engine
         self.gen = gen
         self.plan = None if plan is None else list(plan)
         self.round_idx = 0
+        self.sim_clock = 0.0
 
     def next_round(self) -> RoundIntake:
         eng = self.eng
@@ -431,18 +477,37 @@ class SyncScheduler:
             out = eng.local_train.train_cohort(idx, bidx, eng.server)
         except EmptyCohortError:
             # a zero-size cohort: an all-drop round, with no contributions
-            # and no server step (the engine skips it without survivors)
-            return RoundIntake([], [], receivers=0)
+            # and no server step (the engine skips it without survivors);
+            # the clock moves 1 s, one step of the reference's 96-step day
+            self.sim_clock += 1.0
+            return RoundIntake([], [], receivers=0, sim_time=self.sim_clock)
         contribs = eng.uplink.intake(out, clients)
-        return RoundIntake(contribs, list(range(len(clients))),
-                           receivers=len(clients))
+        cohort = len(clients)
+        lost: list[int] = []
+        chan = eng.channel
+        if eng.uplink.transmit and chan is not None:
+            sizes = [c.payload_bytes for c in contribs]
+            self.sim_clock += chan.round_time(
+                clients, sizes, eng.broadcast_ref_bytes(), self.round_idx)
+            lost = [i for i in range(cohort)
+                    if chan.dropped(self.round_idx, clients[i])]
+        if lost and eng.protocol_cfg.error_feedback:
+            for i in lost:
+                eng.local_train.reinject_residual(clients[i],
+                                                  contribs[i].delta_params)
+        return RoundIntake(contribs,
+                           [i for i in range(cohort) if i not in lost],
+                           receivers=cohort, sim_time=self.sim_clock)
 
     def log_line(self, rec, intake: RoundIntake) -> str:
-        return (f"round {rec.round:3d} acc={rec.test_acc:.3f} "
+        line = (f"round {rec.round:3d} acc={rec.test_acc:.3f} "
                 f"cohort={len(intake.survivors)}/{len(intake.contributions)} "
                 f"up={rec.up_bytes / 1e6:.3f}MB "
                 f"down={rec.down_bytes / 1e6:.3f}MB "
                 f"sparsity={rec.update_sparsity:.3f}")
+        if self.eng.channel is not None:
+            line += f" t_sim={rec.sim_time_s:.2f}s"
+        return line
 
 
 SCHEDULERS = {"sync": SyncScheduler}

@@ -13,7 +13,15 @@ the ``level_assign`` kernel once per client, over all its leaves):
   levels (one ``level_assign`` launch per broadcast) and nnc-cabac;
 * ``codec_int8_k4`` / ``device_encode_int8``: cohorts of 4 of 8 with
   int8-blockscale payloads, one ``delta_compress`` launch per client or
-  one ``delta_compress_batch`` launch per cohort.
+  one ``delta_compress_batch`` launch per cohort;
+* ``partial_fc_k4``: the paper's partial-update setting, cohorts of 4,
+  only the classifier (``fc*``) trains and goes on the wire;
+* ``bnwire_v2_full``: wire schema v2, the clients' BN statistics inside
+  every payload;
+* ``chan_slow_cabac`` / ``chan_slow_raw``: a 1 Mbit/s uplink, where the
+  compression ratio becomes simulated round time (``sim_time_s``);
+* ``chan_lossy_k4``: 10% upload drops and spread bandwidths, cohorts of
+  4, each lost update re-injected into its client's residual (Eq. 5).
 
     from repro_torch.fl import run_scenario
     result = run_scenario("sync_full_fedavg_fsfl", rounds=2)   # on CUDA
@@ -25,13 +33,13 @@ from typing import Any
 
 import torch
 
+from repro_torch.comms.channel import ChannelConfig
 from repro_torch.core.protocol import ProtocolConfig, baseline_configs
 from repro_torch.data import federated, synthetic
 from repro_torch.fl.engine import EngineConfig, RunResult, run_simulation
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig
 from repro_torch.models import cnn
-from repro_torch.runtime import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,18 +60,22 @@ class Scenario:
     codec: str = "auto"
     wire_schema: int = 1
     device_encode: bool = False
+    channel: ChannelConfig | None = None
     dirichlet_alpha: float | None = None
 
 
+def _fc_only(path: str, leaf) -> bool:
+    return path.startswith("fc")
+
+
 def build_protocol(s: Scenario, rounds: int) -> ProtocolConfig:
-    if s.partial_updates:
-        raise not_ported("partial updates",
-                         "wire schema v2, channel, partial updates")
     cfgs = baseline_configs(
         fixed_sparsity=0.9, batch_size=32, local_lr=2e-3,
         scale_lr=2e-2, scale_subepochs=2, scale_schedule="linear",
         total_rounds=rounds)
     over = dict(s.protocol_overrides)
+    if s.partial_updates:
+        over.setdefault("trainable_predicate", _fc_only)
     over.setdefault("name", s.name)
     return dataclasses.replace(cfgs[s.protocol], **over)
 
@@ -76,8 +88,12 @@ def build_engine(s: Scenario) -> EngineConfig:
         bidirectional=s.bidirectional,
         executor=s.executor,
         codec=s.codec,
+        channel=s.channel,
         wire_schema=s.wire_schema,
-        device_encode=s.device_encode)
+        device_encode=s.device_encode,
+        # partial updates have no deltas outside the classifier, so the
+        # wire leaves those leaves out entirely
+        up_predicate=_fc_only if s.partial_updates else None)
 
 
 def default_setting(num_clients: int, *, n_samples: int = 640, seed: int = 0,
@@ -99,13 +115,23 @@ def default_setting(num_clients: int, *, n_samples: int = 640, seed: int = 0,
 SCENARIOS: dict[str, Scenario] = {}
 
 
+def validate_scenario(s: Scenario) -> None:
+    """Reject conflicting axes when a Scenario is defined, with the
+    engine's own error messages prefixed by the scenario's name."""
+    if s.protocol not in baseline_configs():
+        known = ", ".join(sorted(baseline_configs()))
+        raise ValueError(f"scenario {s.name!r}: unknown protocol "
+                         f"{s.protocol!r} (known: {known})")
+    try:
+        build_engine(s).validate()
+    except ValueError as e:
+        raise ValueError(f"scenario {s.name!r}: {e}") from None
+
+
 def register(s: Scenario) -> Scenario:
     if s.name in SCENARIOS:
         raise ValueError(f"scenario {s.name!r} already registered")
-    if s.protocol not in baseline_configs():
-        raise ValueError(f"scenario {s.name!r}: unknown protocol "
-                         f"{s.protocol!r}")
-    build_engine(s).validate()
+    validate_scenario(s)
     SCENARIOS[s.name] = s
     return s
 
@@ -139,6 +165,31 @@ register(Scenario("device_encode_int8",
                   "payloads come out of ONE fused (K, n) launch "
                   "(byte-identical to the per-client path)",
                   cohort_size=4, codec="int8-blockscale", device_encode=True))
+register(Scenario("partial_fc_k4",
+                  "classifier-only partial updates with cohort sampling "
+                  "(layer-selective wire payloads)",
+                  cohort_size=4, partial_updates=True))
+register(Scenario("chan_slow_cabac",
+                  "1 Mbps uplink, 50 ms latency: DeepCABAC payloads",
+                  channel=ChannelConfig(up_mbps=1.0, down_mbps=8.0,
+                                        latency_s=0.05)))
+register(Scenario("chan_slow_raw",
+                  "same constrained channel, uncompressed fp32 payloads — "
+                  "compression ratio becomes round time",
+                  codec="raw-fp32",
+                  channel=ChannelConfig(up_mbps=1.0, down_mbps=8.0,
+                                        latency_s=0.05)))
+register(Scenario("chan_lossy_k4",
+                  "10% upload drop rate, heterogeneous bandwidths, cohorts "
+                  "of 4",
+                  cohort_size=4,
+                  channel=ChannelConfig(up_mbps=4.0, down_mbps=16.0,
+                                        latency_s=0.02, bandwidth_sigma=0.5,
+                                        drop_rate=0.1)))
+register(Scenario("bnwire_v2_full",
+                  "wire schema v2: BN statistics travel inside every codec "
+                  "payload (nothing out-of-band)",
+                  wire_schema=2))
 
 
 def run_scenario(scenario: str | Scenario, *, rounds: int | None = None,

@@ -34,6 +34,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         # summation-order noise the parity tolerances allow.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # One seed gives the same bytes and model on every run, as the
+        # reference's XLA programs do: cuDNN's default algorithms differ
+        # from run to run, its deterministic ones do not.
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev!s}: use 'cuda' or 'cpu'")
     return dev

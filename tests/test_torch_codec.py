@@ -207,13 +207,34 @@ def test_vgg11_int8_payload_size():
 
 @pytest.mark.parametrize("name", ["golomb", "nnc-cabac", "auto"])
 def test_unported_codecs_raise(name):
-    """The level codecs are ported (``"auto"`` is nnc-cabac); the part of
-    them still queued, the schema-v2 frame with BN on the wire, raises."""
+    """The level codecs are ported (``"auto"`` is nnc-cabac) with the
+    schema-v2 frame: a v2 spec with a BN section round-trips its BN tail,
+    and, as in the reference, an unknown version and a BN section under
+    v1 raise ``ValueError``."""
     codec = comms.resolve_codec(name, quantize=True)
     assert codec.name == ("nnc-cabac" if name == "auto" else name)
-    template = comms.shape_template(convert.to_tensors(_template()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        comms.WireSpec(params=template, bn=template, version=2)
+    params = convert.to_tensors(_template())
+    template = comms.shape_template(params)
+    bn = {"bn0": {"mean": torch.arange(4.0), "var": torch.ones(4)}}
+    spec = comms.WireSpec(params=template, bn=comms.shape_template(bn),
+                          version=2)
+    levels = {m: {n: torch.zeros(v.shape, dtype=torch.int32)
+                  for n, v in d.items()} for m, d in params.items()}
+    payload = codec.encode(comms.ClientUpdate(levels, None, levels, None,
+                                              bn=bn), spec)
+    assert payload[0] == 2 and len(payload) == 1 + len(codec.encode(
+        comms.ClientUpdate(levels, None, levels, None),
+        comms.WireSpec(params=template))) + 32
+    _assert_trees_equal(codec.decode(payload, spec).bn,
+                        convert.to_numpy(bn))
+    for kw in ({"version": 3}, {"bn": template, "version": 1}):
+        with pytest.raises(ValueError):
+            comms.WireSpec(params=template, **kw)
+        with pytest.raises(ValueError):
+            ref_comms.WireSpec(params=ref_comms.shape_template(_template()),
+                               **{k: (ref_comms.shape_template(_template())
+                                      if k == "bn" else v)
+                                  for k, v in kw.items()})
 
 
 # ------------------------------------------- the grouped encode's plain body

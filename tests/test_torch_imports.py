@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (the coding
-stack and ``run_federated`` included) and nothing in ``chip_smoke.py``
-imports JAX or the JAX package ``repro``, ``repro.obs`` included (an AST
-walk, so imports inside functions count too)."""
+stack and ``run_federated`` included) and nothing in ``chip_smoke.py`` or
+``cudnn_cost.py`` imports JAX or the JAX package ``repro``, ``repro.obs``
+included (an AST walk, so imports inside functions count too)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "cudnn_cost.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
@@ -35,7 +35,9 @@ def test_port_has_modules():
     "coding/__init__.py", "coding/errors.py", "coding/bitstream.py",
     "coding/golomb.py", "coding/cabac.py", "coding/nnc.py", "core/fsfl.py",
     "kernels/level_assign.py", "kernels/delta_apply.py",
-    "kernels/row_stats.py", "kernels/scaled_matmul.py"])
+    "kernels/row_stats.py", "kernels/scaled_matmul.py", "core/prand.py",
+    "comms/channel.py", "comms/codec.py", "comms/device.py",
+    "fl/rounds.py"])
 def test_walk_covers_the_main_path_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 

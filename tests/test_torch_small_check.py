@@ -14,7 +14,10 @@ W)^T``, a fault the kernel's epilogue could make) fails.
 
 The ``gpu`` tests run the card's check (``small_input_check``, cuDNN
 deterministic) 10 times on each scenario, and the comparison on 10 runs
-with cuDNN's default algorithms, which differ from run to run.
+of the card's path as the port runs it (which, since the port's entry
+points select cuDNN's deterministic algorithms, no longer differ from
+run to run); and two card runs of each scenario must put the same bytes
+on the wire and end in the same server state, bit for bit.
 """
 import importlib.util
 from pathlib import Path
@@ -187,3 +190,17 @@ def test_card_runs_with_default_cudnn_pass(smoke, cuda, route, name,
               f"{failures or 'pass'}")
         failed += failures
     assert failed == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_card_runs_repeat_bit_for_bit(smoke, cuda, name):
+    """Two card runs of a scenario, with the algorithms the port selects
+    (``runtime.resolve_device``: cuDNN deterministic, no autotuning), put
+    the same payloads on the wire and end in the same server state, bit
+    for bit."""
+    report, failures = smoke.repeat_small_runs(torch, fl, rounds_mod, name)
+    print(f"{name}: {report}")
+    assert failures == []
+    assert report["payloads"] > 0
+    assert report["cudnn_deterministic"] and not report["cudnn_benchmark"]
