@@ -77,6 +77,18 @@ Phases (any failure exits non-zero):
      ``sim_time_s`` the channel's ``round_time`` summed.  One round of
      ``bnwire_v2_full``: each payload its v1 encode + 6,913 bytes, the
      server's BN state bitwise the mean of the survivors' device rows;
+   * the FedOpt engine and buffered async.  Path F: 2 aggregations of
+     ``async_b4_fsfl`` (FedBuff, buffer 4, 4 concurrent clients, one
+     completion a window: 4 ``level_assign`` and 434/408
+     ``scaled_matmul`` launches an aggregation), the buffer's clients the
+     participants, arrivals and ``sim_time_s`` never going backwards,
+     staleness within the aggregations before it, the FedBuff weights.
+     Path G: 2 rounds of ``noniid_dir1_k4_fedyogi`` (a dirichlet(1.0)
+     label partition of the 6,400 images, cohorts of 4, FedYogi; 4
+     ``level_assign`` and 434/408 ``scaled_matmul`` a round), the server
+     and FedYogi's moments finite.  Path H: 1 aggregation of
+     ``async_windowed_b4`` (clients finishing within 0.5 s train in one
+     executor call), the counts those of the recorded window sizes;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -108,9 +120,11 @@ Phases (any failure exits non-zero):
    steps per client, with cuDNN's deterministic algorithms, gives the
    same bytes and nearly the same model on the card as the plain path on
    the CPU, with the clients' discrete decisions counted apart
-   (``compare_small_runs``); and two card runs of ``bidi_sync_full`` with
-   the port's own cuDNN selection give the same payloads and server
-   state, bit for bit (``repeat_small_runs``);
+   (``compare_small_runs``; ``async_b4_fsfl`` and ``sync_k4_fedadam``
+   too, the params' step scaled by the server optimizer's gain); and two
+   card runs each of ``bidi_sync_full``, ``async_b4_fsfl`` and
+   ``sync_k4_fedadam`` with the port's own cuDNN selection give the same
+   payloads and server state, bit for bit (``repeat_small_runs``);
 5. a JSON summary of the run (build, rounds, profiles), a JSON line with
    every ported kernel's launches and times, the device line, and the
    final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
@@ -820,7 +834,8 @@ def la_main_path(torch, la, captured) -> dict:
 SMALL_ROUNDS = 2
 SMALL_SAMPLES = 1280     # 3 local steps per client on the tiny VGG
 SMALL_SCENARIOS = ("sync_full_fedavg_fsfl", "device_encode_int8",
-                   "bidi_sync_full")
+                   "bidi_sync_full", "async_b4_fsfl", "sync_k4_fedadam")
+REPEATED = ("bidi_sync_full", "async_b4_fsfl", "sync_k4_fedadam")
 MAX_FLIPS = 5            # params off by more than one quantization step
 MAX_OFF = 34             # params off by more than 1e-6 (0.5% of 6,786)
 MAX_COUNTED = 1          # clients a round whose scales are counted apart
@@ -869,6 +884,7 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
     model, splits = fl.default_setting(s.num_clients, n_samples=SMALL_SAMPLES)
     log, steps = [], []     # steps: per client trained, its scale steps
     intake0 = rounds_mod.Uplink.intake
+    agg0 = rounds_mod.Aggregate.__call__
     step0 = rounds_mod.ServerStep.__call__
     compress0 = rounds_mod.Downlink.compress
     bind0 = executors.SerialExecutor.bind
@@ -898,15 +914,40 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
             raise RuntimeError(f"{len(steps)} clients trained, "
                                f"{len(clients)} in the cohort")
         decoded = [host(c.delta_scales) for c in contribs]
-        log.append({"clients": list(clients),
-                    "params": host(out.levels_params),
-                    "scales": host(out.levels_scales),
-                    "scale_epoch": out.metrics["scale_epoch"].cpu(),
-                    "scale_delta": {p: torch.stack([d[p] for d in decoded])
-                                    for p in decoded[0]},
-                    "scale_steps": list(steps), "down": {}})
+        entry = {"clients": list(clients),
+                 "params": host(out.levels_params),
+                 "scales": host(out.levels_scales),
+                 "scale_epoch": out.metrics["scale_epoch"].cpu(),
+                 "scale_delta": {p: torch.stack([d[p] for d in decoded])
+                                 for p in decoded[0]},
+                 "scale_steps": list(steps), "down": {}, "weights": None}
         steps.clear()
+        if log and "server_params" not in log[-1]:
+            # an async dispatch window of an aggregation still filling:
+            # one entry an aggregation, its windows' clients in order
+            last = log[-1]
+            last["clients"] += entry["clients"]
+            last["scale_steps"] += entry["scale_steps"]
+            last["scale_epoch"] = torch.cat([last["scale_epoch"],
+                                             entry["scale_epoch"]])
+            for part in ("params", "scales", "scale_delta"):
+                last[part] = {p: torch.cat([v, entry[part][p]])
+                              for p, v in last[part].items()}
+        else:
+            log.append(entry)
         return contribs
+
+    def aggregate(self, contribs, weights=None):
+        # the buffer's contributions are in arrival order, the log's
+        # clients in training order: the weights follow the log
+        if weights is not None:
+            at = {}
+            for c, w in zip(contribs, weights):
+                at.setdefault(c.client, []).append(float(w))
+            # a client in the buffer twice arrived first from its first
+            # training
+            log[-1]["weights"] = [at[c].pop(0) for c in log[-1]["clients"]]
+        return agg0(self, contribs, weights)
 
     def server_step(self, server, agg, downlink, receivers, transmit):
         new, down = step0(self, server, agg, downlink, receivers, transmit)
@@ -921,6 +962,7 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
         return broadcast, down
 
     patches = [(rounds_mod.Uplink, "intake", intake, intake0),
+               (rounds_mod.Aggregate, "__call__", aggregate, agg0),
                (rounds_mod.ServerStep, "__call__", server_step, step0),
                (rounds_mod.Downlink, "compress", compress, compress0),
                (executors.SerialExecutor, "bind", bind, bind0),
@@ -964,7 +1006,8 @@ def scale_cap(base_steps, run_steps, start: int) -> dict:
 
 
 def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
-                       n_test: int) -> tuple[dict, list[str]]:
+                       n_test: int, gain: float = 1.0
+                       ) -> tuple[dict, list[str]]:
     """Hold ``run`` and its recorded decisions (``record_small_run``)
     against ``base`` and its own; returns (counts, failures).
 
@@ -975,8 +1018,9 @@ def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
     * a params level that crosses a rounding boundary moves the server's
       mean by at most one quantization step, a top-k flip by that client's
       whole update (``flips``): every server param within one quantization
-      step except at most 5 flips, and at most 34 (0.5%) params off by more
-      than 1e-6;
+      step (times ``gain``, the most the server optimizer moves its update
+      per unit of mean delta: 1 for FedAvg) except at most 5 flips, and at
+      most 34 (0.5%) params off by more than 1e-6;
     * a client whose scale levels lie more than one level apart is counted
       apart only for a discrete cause found in its record: another kept
       sub-epoch (the Eq. 4 accept decision), a top-k flip in its params, or
@@ -985,7 +1029,9 @@ def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
       another way).  At most 1 such client a round.  Its two decoded scale
       deltas may lie apart by no more than its scale steps can move them
       from the cause on (``scale_cap``, plus one fine step), and that
-      difference over the cohort size is taken out of the server's scales;
+      difference times its aggregation weight (1 over the cohort size, or
+      the async buffer's staleness weight) is taken out of the server's
+      scales;
       every scale must then lie within one fine step a round (a client's
       scale level may cross one rounding boundary);
     * test accuracy within one image; bytes equal where every client's
@@ -1037,8 +1083,9 @@ def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
                         f"round {r}: client {c}'s scale delta moved "
                         f"{over:.3g} more than its scale steps can from its "
                         f"{', '.join(causes)} on")
+                w = 1.0 / k if lb["weights"] is None else lb["weights"][i]
                 for p, d in diff.items():
-                    d_scales[p] = d_scales[p] - d / k
+                    d_scales[p] = d_scales[p] - d * w
             per_client.append({
                 "client": c, "scale_epoch": epochs, "topk_flips": topk,
                 "rounding": rounding, "grad_ratios": ratios,
@@ -1070,7 +1117,7 @@ def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
 
     dp = torch.cat([(run_log[-1]["server_params"][path] - v).abs().reshape(-1)
                     for path, v in base_log[-1]["server_params"].items()])
-    flips = int((dp > cfg.step_size * 1.01).sum())
+    flips = int((dp > gain * cfg.step_size * 1.01).sum())
     off = int((dp > 1e-6).sum())
     rest = max(float(d.abs().max()) for d in d_scales.values())
     bound = SMALL_ROUNDS * fine
@@ -1113,7 +1160,8 @@ def small_input_check(torch, fl, rounds_mod, name: str,
         card, card_log, _ = record_small_run(torch, fl, rounds_mod, name,
                                              "cuda")
     report, failures = compare_small_runs(torch, cfg, name, cpu, cpu_log,
-                                          card, card_log, n_test)
+                                          card, card_log, n_test,
+                                          server_gain(fl, name))
     print(f"small input {name}: {SMALL_ROUNDS} rounds, up_bytes "
           f"{report['up_bytes'][1]} on the card, {report['up_bytes'][0]} on "
           f"the CPU; down_bytes {report['down_bytes'][1]} on the card, "
@@ -2287,6 +2335,165 @@ def bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
             "v1_bytes": [len(b) for _, b in seen["pairs"]]}
 
 
+# ------------------------------------------------------------ slice 9
+
+
+def spy_aggregations(eng) -> list:
+    """Log each aggregation's contributions (in buffer order) and weights
+    as the engine hands them to ``Aggregate``."""
+    log = []
+    agg = eng.aggregate
+
+    def spy(contribs, weights=None):
+        log.append((list(contribs), weights))
+        return agg(contribs, weights)
+
+    eng.aggregate = spy
+    return log
+
+
+def async_path(torch, la, sm, fl, models, splits, rounds_out, label: str,
+               rounds: int) -> dict:
+    """``rounds`` aggregations of the async scenario ``label`` at full
+    width.  Every client training launches ``level_assign`` once and the
+    dense layers' ``scaled_matmul`` 108 forward and 102 backward times,
+    each evaluation 2 forward: the expected counts are the scheduler's
+    recorded window sizes times those.  The buffer's clients are the
+    round's participants, in (arrival, client) order; arrival times and
+    ``sim_time_s`` never go backwards; a contribution's staleness is at
+    most the aggregations before it (0 in the first); the weights are the
+    normalised FedBuff staleness weights; the server stays finite."""
+    s = fl.get_scenario(label)
+    eng = fl.FederatedEngine(models.vgg11_thinned(),
+                             fl.build_protocol(s, rounds), splits,
+                             engine_cfg=fl.build_engine(s), device="cuda")
+    log = spy_aggregations(eng)
+    la.reset_counters()
+    sm.reset_counters()
+    recs = []
+    for rnd in range(1, rounds + 1):
+        rec = eng.run(1).records[0]
+        torch.cuda.synchronize()
+        round_line(label, rnd, rec, rounds_out)
+        recs.append(rec)
+    windows = list(eng.scheduler.batch_sizes)
+    trained = sum(windows)
+    arrivals, staleness = [], []
+    for rnd, ((contribs, weights), rec) in enumerate(zip(log, recs)):
+        clients = tuple(c.client for c in contribs)
+        if rec.participants != clients:
+            fail(f"{label}: participants {rec.participants}, buffer "
+                 f"{clients}")
+        keys = [(c.arrival_time, c.client) for c in contribs]
+        if keys != sorted(keys) or len(contribs) < s.buffer_size:
+            fail(f"{label}: buffer {keys} out of order or short")
+        st = [c.staleness for c in contribs]
+        if min(st) < 0 or max(st) > rnd:
+            fail(f"{label}: staleness {st} in aggregation {rnd + 1}")
+        raw = [1.0 / (1.0 + t) ** s.staleness_exponent for t in st]
+        if not all(math.isclose(float(w), r / sum(raw), rel_tol=1e-12)
+                   for w, r in zip(weights, raw)):
+            fail(f"{label}: weights {weights} for staleness {st}")
+        arrivals += [c.arrival_time for c in contribs]
+        staleness.append(st)
+    sim = [r.sim_time_s for r in recs]
+    if arrivals != sorted(arrivals) or sim != sorted(sim) or sim[-1] <= 0:
+        fail(f"{label}: arrivals {arrivals}, sim_time_s {sim}")
+    if sum(len(c) for c, _ in log) != trained or eng.version != rounds:
+        fail(f"{label}: {trained} trainings in windows {windows}, "
+             f"{sum(len(c) for c, _ in log)} contributions, version "
+             f"{eng.version}")
+    check_server(torch, label, eng.server)
+    count = la.LAUNCHES["level_assign"]
+    if count != trained:
+        fail(f"{label}: level_assign launched {count} times for {trained} "
+             f"trainings")
+    got, calls = dict(sm.LAUNCHES), dict(sm.CALLS)
+    want, want_calls = sm_expected(trained, 1)
+    # one evaluation an aggregation, 2 forward launches each
+    want["forward"] += 2 * (rounds - 1)
+    want_calls["forward"] += 2 * (rounds - 1)
+    SM_RUNS[label] = got
+    if got != want or calls != want_calls:
+        fail(f"{label}: scaled_matmul launched {got} computing {calls}, "
+             f"expected {want} computing {want_calls} for {trained} "
+             f"trainings and {rounds} evaluations")
+    print(f"  {label}: windows {windows} ({trained} trainings), level_assign "
+          f"{count} launches, scaled_matmul {got}; staleness {staleness}; "
+          f"sim_time_s {sim}")
+    return {"level_assign": count, "scaled_matmul": got, "windows": windows,
+            "staleness": staleness, "sim_time_s": sim,
+            "walls_s": [r.wall_s for r in recs],
+            "up_bytes": [r.up_bytes for r in recs],
+            "participants": [list(r.participants) for r in recs]}
+
+
+def full_width_dirichlet_splits(torch, data, alpha: float):
+    """The 6,400 images of ``full_width_splits`` partitioned by label with
+    dirichlet(``alpha``)."""
+    x, y = data.synthetic.make_image_dataset(
+        torch.Generator().manual_seed(0), data.synthetic.CIFAR_LIKE, 6400)
+    return data.federated.split_federated(torch.Generator().manual_seed(1),
+                                          x, y, 8, dirichlet_alpha=alpha)
+
+
+def path_g(torch, la, sm, fl, data, models, rounds_out) -> dict:
+    """Path G: 2 rounds of ``noniid_dir1_k4_fedyogi`` (dirichlet(1.0)
+    label partition of the 6,400 images, cohorts of 4, FedYogi): 4
+    ``level_assign`` a round and 434/408 ``scaled_matmul`` launches a
+    round; the server and FedYogi's moments finite, its step 2."""
+    from repro_torch.tree import items
+    rounds, label = 2, "noniid_dir1_k4_fedyogi"
+    s = fl.get_scenario(label)
+    splits = full_width_dirichlet_splits(torch, data, s.dirichlet_alpha)
+    share = max(float(torch.bincount(c, minlength=10).max()) / len(c)
+                for c in splits.client_y)
+    eng = fl.FederatedEngine(models.vgg11_thinned(),
+                             fl.build_protocol(s, rounds), splits,
+                             engine_cfg=fl.build_engine(s), device="cuda")
+    la.reset_counters()
+    sm.reset_counters()
+    recs = []
+    for rnd in range(1, rounds + 1):
+        rec = eng.run(1).records[0]
+        torch.cuda.synchronize()
+        round_line(label, rnd, rec, rounds_out)
+        recs.append(rec)
+        if len(rec.participants) != 4:
+            fail(f"{label}: {len(rec.participants)} participants")
+    check_server(torch, label, eng.server)
+    state = eng.server_step.state
+    if int(state.step) != rounds or not all(
+            bool(torch.isfinite(v).all()) for _, v in
+            items(state.mu) + items(state.nu)):
+        fail(f"{label}: FedYogi's state is not finite after {rounds} steps")
+    count = la.LAUNCHES["level_assign"]
+    got = check_sm(sm, label, 4, rounds)
+    if count != 4 * rounds:
+        fail(f"{label}: level_assign launched {count} times, expected "
+             f"{4 * rounds}")
+    print(f"  {label}: {splits.n_train} training images a client, largest "
+          f"label share {share:.3f}; level_assign {count} launches; FedYogi "
+          f"step {int(state.step)}, moments finite")
+    return {"level_assign": count, "scaled_matmul": got,
+            "largest_label_share": share,
+            "walls_s": [r.wall_s for r in recs],
+            "up_bytes": [r.up_bytes for r in recs],
+            "participants": [list(r.participants) for r in recs]}
+
+
+def server_gain(fl, name: str) -> float:
+    """The most the scenario's server optimizer moves its update per unit
+    of mean delta: lr for FedAvg, lr / (1 - momentum) for FedAvgM, lr /
+    eps for the adaptive ones."""
+    opt = fl.build_engine(fl.get_scenario(name)).server_opt
+    if opt.name == "fedavg":
+        return opt.lr
+    if opt.name == "fedavgm":
+        return opt.lr / (1.0 - opt.momentum)
+    return opt.lr / opt.eps
+
+
 def repeat_small_runs(torch, fl, rounds_mod, name: str):
     """Two runs of scenario ``name`` on the tiny VGG on the card, with the
     algorithms the port selects (no context of this script's around them):
@@ -2454,6 +2661,17 @@ def main() -> int:
                           rounds_out)
     t1 = phase("bnwire_v2_full round", t1)
 
+    # slice 9: buffered async (paths F and H) and the FedOpt engine on a
+    # dirichlet split (path G)
+    f_out = async_path(torch, la, sm, fl, models, splits, rounds_out,
+                       "async_b4_fsfl", 2)
+    t1 = phase("path F (async_b4_fsfl)", t1)
+    g_out = path_g(torch, la, sm, fl, data, models, rounds_out)
+    t1 = phase("path G (noniid_dir1_k4_fedyogi)", t1)
+    h_out = async_path(torch, la, sm, fl, models, splits, rounds_out,
+                       "async_windowed_b4", 1)
+    t1 = phase("path H (async_windowed_b4)", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
@@ -2464,11 +2682,13 @@ def main() -> int:
     small = {name: small_input_check(torch, fl, rounds_mod, name, cpu_runs)
              for name in SMALL_SCENARIOS}
     t1 = phase("small-input checks", t1)
-    repeat, failures = repeat_small_runs(torch, fl, rounds_mod,
-                                         "bidi_sync_full")
-    print(f"repeatability bidi_sync_full: two card runs, {repeat}")
-    if failures:
-        fail("; ".join(failures))
+    repeat = {}
+    for name in REPEATED:
+        repeat[name], failures = repeat_small_runs(torch, fl, rounds_mod,
+                                                   name)
+        print(f"repeatability {name}: two card runs, {repeat[name]}")
+        if failures:
+            fail("; ".join(failures))
     t1 = phase("repeatability", t1)
     bidi_int8 = fl.Scenario("bidi_int8_k4", cohort_size=4,
                             codec="int8-blockscale", bidirectional=True)
@@ -2541,7 +2761,10 @@ def main() -> int:
         "launches_bidirectional_path_a":
             a_launches["run_federated bidirectional"],
         "launches_path_d": d_out["level_assign"],
-        "launches_path_e": e_out["launches"]["level_assign"]})
+        "launches_path_e": e_out["launches"]["level_assign"],
+        "launches_path_f": f_out["level_assign"],
+        "launches_path_g": g_out["level_assign"],
+        "launches_path_h": h_out["level_assign"]})
     if la_launches["sync_full_fedavg_fsfl"] < 1:
         fail("level_assign was not launched on the main path")
     kernels.append({
@@ -2631,7 +2854,9 @@ def main() -> int:
         "path_d_partial_fc_k4": {k: v for k, v in d_out.items()},
         "path_e_partial_int8_v2_lossy_k4": {
             k: v for k, v in e_out.items() if k != "kernel"},
-        "bnwire_v2_full": bn_out, "repeatability_bidi_sync_full": repeat,
+        "bnwire_v2_full": bn_out, "path_f_async_b4_fsfl": f_out,
+        "path_g_noniid_dir1_k4_fedyogi": g_out,
+        "path_h_async_windowed_b4": h_out, "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {dev}")

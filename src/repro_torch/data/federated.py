@@ -1,9 +1,12 @@
 """Federated data handling: client splits and batching.
 
-Port of ``repro.data.federated`` (IID split only).  ``FederatedSplits``
-holds per-client arrays stacked on a leading client axis plus a shared test
-set; ``FederatedSplits.from_numpy`` takes the reference's arrays as they are
-so both packages train on the same data.
+Port of ``repro.data.federated``: the IID split and the dirichlet
+(non-IID) partition.  ``FederatedSplits`` holds per-client arrays stacked
+on a leading client axis plus a shared test set;
+``FederatedSplits.from_numpy`` takes the reference's arrays as they are so
+both packages train on the same data.  ``dirichlet_partition`` draws from
+numpy's ``default_rng(seed)`` in the reference's order, so one integer seed
+gives the reference's client index sets bit for bit.
 """
 from __future__ import annotations
 
@@ -12,7 +15,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.runtime import not_ported
 
 
 @dataclasses.dataclass
@@ -49,19 +51,59 @@ class FederatedSplits:
                                  for f in dataclasses.fields(self)))
 
 
+def dirichlet_partition(labels, num_clients: int, alpha: float,
+                        seed: int) -> np.ndarray:
+    """Row indices into ``labels`` for equal client shards, client after
+    client, each shard's core following a per-class dirichlet(``alpha``)
+    draw.
+
+    Every class is spread over the clients by a dirichlet draw; each client
+    keeps up to ``len(labels) // num_clients`` of its draw (shuffled before
+    truncation) and shortfalls are filled from a shuffled pool of the
+    over-quota leftovers.  The draws follow ``np.random.default_rng(seed)``
+    in the reference's order."""
+    rng = np.random.default_rng(int(seed))
+    labels = np.asarray(labels)
+    classes = int(labels.max()) + 1
+    client_of = np.zeros(len(labels), np.int64)
+    for c in range(classes):
+        idx = np.nonzero(labels == c)[0]
+        probs = rng.dirichlet([alpha] * num_clients)
+        client_of[idx] = rng.choice(num_clients, len(idx), p=probs)
+    per = len(labels) // num_clients
+    by_client = [rng.permutation(np.nonzero(client_of == c)[0])
+                 for c in range(num_clients)]
+    kept = [ids[:per] for ids in by_client]
+    leftover = rng.permutation(np.concatenate([ids[per:]
+                                               for ids in by_client]))
+    filled, used = [], 0
+    for t in kept:
+        need = per - len(t)
+        if need > 0:
+            t = np.concatenate([t, leftover[used:used + need]])
+            used += need
+        filled.append(t)
+    return np.concatenate(filled)
+
+
 def split_federated(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
                     num_clients: int, train_frac: float = 0.7,
                     val_frac: float = 0.15,
                     dirichlet_alpha: float | None = None) -> FederatedSplits:
-    """IID random partition into equal client shards plus a test set."""
-    if dirichlet_alpha is not None:
-        raise not_ported("dirichlet splits", "non-IID splits")
+    """Random partition into equal client shards plus a test set: IID, or
+    by label with ``dirichlet_partition`` (its seed drawn from ``gen``)."""
     n = x.shape[0]
     perm = torch.randperm(n, generator=gen).to(x.device)
     x, y = x[perm], y[perm]
     n_test = int(n * (1.0 - train_frac - val_frac))
     test_x, test_y = x[:n_test], y[:n_test]
     rest_x, rest_y = x[n_test:], y[n_test:]
+    if dirichlet_alpha is not None:
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+        sel = torch.as_tensor(dirichlet_partition(
+            rest_y.cpu().numpy(), num_clients, dirichlet_alpha, seed),
+            device=x.device)
+        rest_x, rest_y = rest_x[sel], rest_y[sel]
     per = rest_x.shape[0] // num_clients
     cx = rest_x[: per * num_clients].reshape((num_clients, per)
                                              + tuple(x.shape[1:]))

@@ -1,9 +1,14 @@
 """Federated simulation engine: one orchestrator, scheduling as policy.
 
-Port of ``repro.fl.engine`` for the sync scheduler.  ``FederatedEngine``
-builds one instance of each ``repro_torch.fl.rounds`` stage and asks the
-scheduler for one ``RoundIntake`` per aggregation, which it folds through
-``Aggregate -> ServerStep (-> Downlink) -> Evaluate``.  With
+Port of ``repro.fl.engine`` for the sync and buffered-async schedulers.
+``FederatedEngine`` builds one instance of each ``repro_torch.fl.rounds``
+stage and asks the scheduler (``mode``) for one ``RoundIntake`` per
+aggregation, which it folds through ``Aggregate -> ServerStep (->
+Downlink) -> Evaluate``; the server's ``version`` counts the aggregations
+that had survivors (async staleness is measured against it).  Cohorts may
+be drawn uniformly or by weight (``SamplingConfig``), and the server
+optimizer is any of FedAvg, FedAvgM, FedAdam, FedYogi and FedAdagrad
+(``ServerOptConfig``), its state kept across rounds.  With
 ``EngineConfig.bidirectional`` the server's update is compressed and put
 on the wire before it is applied (§5.2), and ``down_bytes`` counts it.
 ``EngineConfig.channel`` turns payload lengths into simulated seconds
@@ -11,11 +16,12 @@ on the wire before it is applied (§5.2), and ``down_bytes`` counts it.
 the leaves it rejects off the wire (partial updates); ``wire_schema=2``
 puts the clients' BN statistics inside every payload.
 
-Randomness: standalone runs draw the initial state, cohorts and batch
-orders from one ``torch.Generator`` seeded with ``seed``.  Runs held
-against the reference pass ``init_state`` (the reference's initial
+Randomness: standalone runs draw the initial state, cohorts, latencies
+and batch orders from one ``torch.Generator`` seeded with ``seed``.  Runs
+held against the reference pass ``init_state`` (the reference's initial
 ``ServerState``/``ClientPersistent`` through ``repro_torch.convert``) and
-``plan`` (its per-round cohorts and batch indices) instead.
+``plan`` (sync: its per-round cohorts and batch indices; async: a
+``rounds.AsyncPlan``) instead.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.comms.channel import ChannelConfig, ChannelModel
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.protocol import ProtocolConfig, make_protocol
 from repro_torch.data.federated import FederatedSplits
+from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.executors import EXECUTORS, make_executor
 from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
                                    Downlink, Evaluate, LocalTrain,
@@ -122,7 +129,8 @@ class EngineConfig:
         default_factory=SamplingConfig)
     server_opt: ServerOptConfig = dataclasses.field(
         default_factory=ServerOptConfig)
-    mode: str = "sync"
+    mode: str = "sync"                   # "sync" | "async"
+    async_cfg: AsyncConfig = dataclasses.field(default_factory=AsyncConfig)
     bidirectional: bool = False
     down_step_size: float = quant_lib.STEP_SIZE_BI
     measure_bytes: bool = True           # real wire round trips
@@ -140,20 +148,45 @@ class EngineConfig:
     telemetry: str = "off"
     mesh_shape: tuple[int, ...] | None = None
 
-    def validate(self) -> None:
+    def validate(self, num_clients: int | None = None) -> None:
         for name, (default, item) in _NOT_PORTED_FIELDS.items():
             if getattr(self, name) != default:
                 raise not_ported(f"EngineConfig.{name}={getattr(self, name)!r}",
                                  item)
-        if self.mode == "async":
-            raise not_ported("async scheduling", "async scheduling")
+        if self.async_cfg.adaptive_window:
+            raise not_ported("AsyncConfig.adaptive_window",
+                             "streaming ingest, population, telemetry")
         if self.mode not in SCHEDULERS:
             raise ValueError(f"unknown engine mode: {self.mode!r}")
         if self.executor not in EXECUTORS:
             raise ValueError(f"unknown executor: {self.executor!r}")
+        if self.sampling.strategy == "weighted":
+            w = self.sampling.weights
+            if w is None or (num_clients is not None
+                             and len(w) != num_clients):
+                raise ValueError(
+                    "weighted sampling needs one weight per client")
         if self.channel is not None and not self.measure_bytes:
             raise ValueError("a channel model needs real payloads: "
                              "set measure_bytes=True")
+        if (self.channel is not None and self.channel.drop_rate > 0.0
+                and self.mode == "async"):
+            raise ValueError("ChannelConfig.drop_rate models sync-round "
+                             "upload loss only; async mode does not "
+                             "implement drops")
+        if self.mode == "async" and self.sampling.cohort_size is not None:
+            raise ValueError(
+                "async mode has no per-round cohort: participation is driven "
+                "by AsyncConfig.concurrency; leave SamplingConfig.cohort_size "
+                "unset")
+        if self.async_cfg.dispatch_window < 0.0:
+            raise ValueError("AsyncConfig.dispatch_window must be >= 0 "
+                             "(simulated seconds)")
+        if self.mode != "async" and self.async_cfg.dispatch_window > 0.0:
+            raise ValueError(
+                "AsyncConfig.dispatch_window batches concurrently-finishing "
+                "async completions; it has no meaning for mode="
+                f"{self.mode!r} — drop it or set mode='async'")
         if self.wire_schema not in (1, 2):
             raise ValueError(
                 f"unknown wire schema {self.wire_schema!r} (known: 1, 2)")
@@ -198,7 +231,7 @@ class FederatedEngine:
                  *, seed: int = 42, engine_cfg: EngineConfig | None = None,
                  init_state=None, plan=None, device=None):
         engine_cfg = engine_cfg if engine_cfg is not None else EngineConfig()
-        engine_cfg.validate()
+        engine_cfg.validate(splits.num_clients)
         self.device = resolve_device(device)
         self.config_name = cfg.name
         self.protocol_cfg = cfg
@@ -214,13 +247,16 @@ class FederatedEngine:
         else:
             server, persistent0 = init_state
         self.server = server
+        self.version = 0    # aggregations with survivors (async staleness)
+        self.async_cfg = engine_cfg.async_cfg
 
         self.cohort = CohortPlan(engine_cfg.sampling, self.num_clients)
         self.local_train = LocalTrain(
             client_round, splits, persistent0, self.num_clients,
             cfg.batch_size, make_executor(engine_cfg.executor))
         self.uplink = Uplink(cfg, engine_cfg, server)
-        self.aggregate = Aggregate(self.device)
+        self.aggregate = Aggregate(self.device, engine_cfg.measure_bytes,
+                                   engine_cfg.wire_schema == 2)
         self.server_step = ServerStep(make_server_opt(engine_cfg.server_opt))
         self.server_step.init(server.params)
         self.downlink = Downlink(cfg, engine_cfg.down_step_size,
@@ -260,9 +296,11 @@ class FederatedEngine:
                 down_bytes = 0
                 if survivors:
                     self.server, down_bytes = self.server_step(
-                        self.server, self.aggregate(survivors),
+                        self.server, self.aggregate(survivors,
+                                                    intake.weights),
                         self.downlink, intake.receivers,
                         self.uplink.transmit)
+                    self.version += 1
                 cum += up_bytes + down_bytes
                 acc = self.evaluate(self.server)
                 rec = RoundRecord(

@@ -2,9 +2,11 @@
 
 Port of ``repro.fl.executors`` (serial backend).  ``SerialExecutor`` runs
 one ``client_round`` per client and stacks the outputs on a leading client
-axis, the (K, ...) ``RoundOutput`` the uplink consumes.  The reference's
-tests hold its serial backend equal to the vmapped one within one
-quantization level.
+axis, the (K, ...) ``RoundOutput`` the uplink consumes: ``run_shared``
+against one server snapshot (a sync cohort), ``run_stacked`` each row
+against its own snapshot (an async dispatch window whose members started
+from different server versions).  The reference's tests hold its serial
+backend equal to the vmapped one within one quantization level.
 """
 from __future__ import annotations
 
@@ -32,6 +34,10 @@ class ClientExecutor:
         """Batch vs ONE server snapshot (sync cohort barrier)."""
         raise NotImplementedError
 
+    def run_stacked(self, servers, pers, cx, cy, cvx, cvy, bidx):
+        """Batch vs per-row server snapshots (``servers[i]`` for row i)."""
+        raise NotImplementedError
+
 
 class SerialExecutor(ClientExecutor):
     """One ``client_round`` per client, outputs stacked in cohort order."""
@@ -43,6 +49,11 @@ class SerialExecutor(ClientExecutor):
 
     def run_shared(self, server, pers, cx, cy, cvx, cvy, bidx):
         return _stack([self.round(server, row(pers, i), cx[i], cy[i],
+                                  cvx[i], cvy[i], bidx[i])
+                       for i in range(cx.shape[0])])
+
+    def run_stacked(self, servers, pers, cx, cy, cvx, cvy, bidx):
+        return _stack([self.round(servers[i], row(pers, i), cx[i], cy[i],
                                   cvx[i], cvy[i], bidx[i])
                        for i in range(cx.shape[0])])
 

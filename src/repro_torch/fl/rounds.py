@@ -1,13 +1,22 @@
 """Round-lifecycle stages: the paper's Algorithm 1 as composable objects.
 
-Port of ``repro.fl.rounds`` (sync scheduling, gather ingest):
+Port of ``repro.fl.rounds`` (sync and buffered-async scheduling, gather
+ingest):
 
     CohortPlan -> LocalTrain -> Uplink -> Aggregate -> ServerStep
     (-> Downlink) -> Evaluate
 
-With a channel model the sync scheduler advances a simulated clock by each
-round's slowest transfer and drops uploads; under error feedback a dropped
-client's decoded delta goes back into its residual (Eq. 5).
+Two scheduling policies drive the same stage instances:
+
+* ``SyncScheduler``, the cohort barrier.  With a channel model it
+  advances a simulated clock by each round's slowest transfer and drops
+  uploads; under error feedback a dropped client's decoded delta goes
+  back into its residual (Eq. 5).
+* ``BufferedAsyncScheduler``, FedBuff: M clients train concurrently
+  against the server version each started from, and the buffer
+  aggregates with staleness weights once B updates have landed; clients
+  whose simulated finish times fall in one dispatch window train in one
+  executor call (``LocalTrain.train_window``).
 
 ``Uplink`` puts every cohort member's update on the wire and aggregates
 only what decodes: per client through ``Codec.encode_batch`` (for
@@ -39,10 +48,13 @@ from repro_torch.core import delta as delta_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.core.protocol import ProtocolConfig, ServerState
-from repro_torch.data.federated import client_epoch_batches
+from repro_torch.data.federated import client_epoch_batches, epoch_batches
+from repro_torch.fl.async_buffer import (client_latencies,
+                                         normalized_staleness_weights,
+                                         weighted_mean_trees)
 from repro_torch.fl.executors import ClientExecutor
 from repro_torch.fl.sampling import (EmptyCohortError, SamplingConfig,
-                                     sample_cohort)
+                                     sample_available, sample_cohort)
 from repro_torch.fl.server_opt import server_update
 from repro_torch.kernels.delta_apply import delta_apply_leaves
 from repro_torch.optim import apply_updates
@@ -82,6 +94,8 @@ class Contribution:
     delta_scales: Any
     bn_state: Any
     payload_bytes: int = 0
+    staleness: int = 0           # server versions elapsed while training
+    arrival_time: float = 0.0    # simulated seconds (async)
     metrics: dict[str, float] | None = None
 
 
@@ -97,17 +111,21 @@ class RoundIntake:
     """A scheduler's hand-off for ONE aggregation: every charged upload,
     the indices of those that aggregate (channel drops leave out clients
     without refunding their bytes), how many clients receive the following
-    broadcast, and the simulated clock after the round."""
+    broadcast, the simulated clock after the round, and the aggregation
+    weights (None: the plain mean; async: the normalised FedBuff
+    staleness weights)."""
     contributions: list[Contribution]
     survivors: list[int]
     receivers: int = 0
     sim_time: float = 0.0
+    weights: np.ndarray | None = None
 
 
 # ---------------------------------------------------------------- cohort plan
 
 class CohortPlan:
-    """Stage 1: who participates (materialized uniform draws)."""
+    """Stage 1: who participates (materialized uniform or weighted
+    draws)."""
 
     def __init__(self, sampling: SamplingConfig, num_clients: int):
         self.sampling = sampling
@@ -118,6 +136,11 @@ class CohortPlan:
         if self.full:
             return np.arange(self.num_clients)
         return sample_cohort(gen, self.num_clients, self.sampling)
+
+    def select_available(self, gen: torch.Generator, available: np.ndarray,
+                         k: int) -> np.ndarray:
+        """An async dispatch draw of ``k`` clients from the idle set."""
+        return sample_available(gen, available, k, self.sampling)
 
 
 # ---------------------------------------------------------------- local train
@@ -144,18 +167,20 @@ class LocalTrain:
     def batches(self, gen: torch.Generator, k: int) -> torch.Tensor:
         return client_epoch_batches(gen, k, self.n_train, self.batch_size)
 
-    def train_cohort(self, idx: np.ndarray, batch_idx: torch.Tensor,
-                     server: ServerState):
-        """One barrier round over the cohort ``idx`` -> stacked RoundOutput."""
-        if len(idx) == 0:
-            raise EmptyCohortError("train_cohort received an empty cohort")
+    def _run(self, idx, batch_idx: torch.Tensor, servers: list):
+        """Rows ``idx`` through the executor, row i against ``servers[i]``
+        (one shared snapshot takes ``run_shared``); their persistent state
+        scattered back -> stacked RoundOutput in ``idx`` order."""
         dev = self.splits.client_x.device
         sel = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=dev)
         s = self.splits
-        pers = tree_map(lambda x: x[sel], self.state)
-        out = self.executor.run_shared(
-            server, pers, s.client_x[sel], s.client_y[sel],
-            s.client_val_x[sel], s.client_val_y[sel], batch_idx.to(dev))
+        args = (tree_map(lambda x: x[sel], self.state), s.client_x[sel],
+                s.client_y[sel], s.client_val_x[sel], s.client_val_y[sel],
+                batch_idx.to(dev))
+        if all(srv is servers[0] for srv in servers[1:]):
+            out = self.executor.run_shared(servers[0], *args)
+        else:
+            out = self.executor.run_stacked(servers, *args)
 
         def scatter(full, rows):
             full[sel] = rows
@@ -163,6 +188,22 @@ class LocalTrain:
 
         self.state = tree_map(scatter, self.state, out.persistent)
         return out
+
+    def train_cohort(self, idx: np.ndarray, batch_idx: torch.Tensor,
+                     server: ServerState):
+        """One barrier round over the cohort ``idx`` -> stacked RoundOutput."""
+        if len(idx) == 0:
+            raise EmptyCohortError("train_cohort received an empty cohort")
+        return self._run(idx, batch_idx, [server])
+
+    def train_window(self, batch_idx: torch.Tensor, clients: list[int],
+                     servers: list[ServerState]):
+        """One async dispatch window in one executor call: row i trains
+        ``clients[i]`` with its own batch order ``batch_idx[i]`` against
+        the server snapshot ``servers[i]`` it was dispatched with."""
+        if len(clients) == 0:
+            raise EmptyCohortError("train_window received an empty window")
+        return self._run(clients, batch_idx, servers)
 
     def reinject_residual(self, client: int, delta: Any) -> None:
         """A dropped upload must not break Eq. 5: put the lost (decoded)
@@ -247,22 +288,41 @@ class Uplink:
 # ---------------------------------------------------------------- aggregate
 
 class Aggregate:
-    """Stage 4: the plain mean of the survivors' contributions."""
+    """Stage 4: the plain mean of the survivors' contributions, or, with
+    weights (the async buffer's), their weighted mean.
 
-    def __init__(self, device: torch.device):
+    The weighted mean folds each tree as the reference folds it, which
+    depends on where the reference holds that tree: a decoded payload tree
+    (params and scales on the wire; BN under schema v2) is host numpy
+    there and folds in float64 (``TreeAccumulator``), while schema v1's BN
+    rows and the no-wire reconstructions stay on its device and fold as a
+    float32 ``sum(w_i * l_i)``.  ``transmit`` and ``bn_on_wire`` say which
+    applies; where the port's tensors live does not matter."""
+
+    def __init__(self, device: torch.device, transmit: bool = True,
+                 bn_on_wire: bool = False):
         self.device = device
+        self.host_deltas = transmit
+        self.host_bn = transmit and bn_on_wire
 
-    def __call__(self, contribs: list[Contribution]) -> AggregatedRound:
+    def __call__(self, contribs: list[Contribution],
+                 weights: np.ndarray | None = None) -> AggregatedRound:
         if not contribs:
             raise ValueError("cannot aggregate zero contributions")
-
-        def mean(trees):
-            return tree_mean0(stack_trees(trees, self.device))
+        if weights is None:
+            def mean(trees, host):
+                return tree_mean0(stack_trees(trees, self.device))
+        else:
+            def mean(trees, host):
+                return weighted_mean_trees(trees, weights, host=host,
+                                           device=self.device)
 
         return AggregatedRound(
-            delta_params=mean([c.delta_params for c in contribs]),
-            delta_scales=mean([c.delta_scales for c in contribs]),
-            bn_state=mean([c.bn_state for c in contribs]))
+            delta_params=mean([c.delta_params for c in contribs],
+                              self.host_deltas),
+            delta_scales=mean([c.delta_scales for c in contribs],
+                              self.host_deltas),
+            bn_state=mean([c.bn_state for c in contribs], self.host_bn))
 
 
 # ---------------------------------------------------------------- server step
@@ -510,4 +570,170 @@ class SyncScheduler:
         return line
 
 
-SCHEDULERS = {"sync": SyncScheduler}
+@dataclasses.dataclass
+class AsyncPlan:
+    """The draws of an async run held against the reference: the client
+    latency vector (seconds), each ``select_available`` draw in order
+    (sorted client arrays), and each trained member's ``(steps, batch)``
+    batch indices in training order."""
+    latencies: np.ndarray
+    draws: list
+    batches: list
+
+
+@dataclasses.dataclass
+class _InFlight:
+    client: int
+    start_version: int
+    server: ServerState
+    finish: float
+
+
+class BufferedAsyncScheduler:
+    """FedBuff buffer: M concurrent clients, one aggregation every B
+    arrivals with staleness weights; per-client latencies drive a
+    simulated clock.
+
+    Completions pop in dispatch windows: every in-flight client whose
+    finish time lies within ``AsyncConfig.dispatch_window`` of the earliest
+    finisher trains in ONE executor call (``LocalTrain.train_window``),
+    each row against the server snapshot it started from.
+    ``dispatch_window=0`` pops exactly one completion, ties broken by
+    client id.  Contributions enter the buffer in ``(arrival_time,
+    client)`` order and the clock is clamped so that recorded arrivals
+    never go backwards; a window that overfills the buffer aggregates the
+    whole buffer.  The replacements of a window are dispatched at the top
+    of the next pop, so those that follow an aggregation train from the
+    newest server version.  Staleness is the engine's ``version`` (which
+    rises only after a round with survivors) less the version a client
+    started from.
+
+    With a channel a dispatch starts after ``down_time`` of the current
+    broadcast (``broadcast_ref_bytes``, round 0) and an arrival is the
+    finish time plus ``up_time`` of the payload; async has no drops.
+
+    Latencies, replacement draws and batch orders come from the
+    scheduler's ``torch.Generator``, or, held against the reference, from
+    an :class:`AsyncPlan`."""
+
+    def bind(self, engine, gen: torch.Generator, plan=None) -> None:
+        self.eng = engine
+        self.gen = gen
+        self.plan = plan
+        self._draws = None if plan is None else list(plan.draws)
+        self._batches = None if plan is None else list(plan.batches)
+        acfg = engine.async_cfg
+        self.acfg = acfg
+        self.concurrency = min(acfg.concurrency, engine.num_clients)
+        self.now = 0.0
+        self.latency = (np.asarray(plan.latencies) if plan is not None
+                        else client_latencies(gen, engine.num_clients, acfg))
+        self.available = set(range(engine.num_clients))
+        self.in_flight: list[_InFlight] = []
+        for c in self._draw(self.concurrency):
+            self.available.discard(c)
+            self.in_flight.append(_InFlight(
+                c, 0, engine.server,
+                self._dispatch_delay(c) + float(self.latency[c])))
+        self.pending_dispatch = 0
+        self.batch_sizes: list[int] = []   # executor-call window sizes
+
+    def _draw(self, k: int) -> list[int]:
+        available = np.array(sorted(self.available))
+        if self._draws is None:
+            idx = self.eng.cohort.select_available(self.gen, available, k)
+        else:
+            if not self._draws:
+                raise ValueError("the async plan has no draw left")
+            idx = np.asarray(self._draws.pop(0))
+            if (len(idx) != min(k, len(available))
+                    or not set(idx.tolist()) <= self.available):
+                raise ValueError(f"planned draw {idx.tolist()} is not {k} "
+                                 f"of the idle clients {available.tolist()}")
+        return [int(c) for c in idx]
+
+    def _batch_rows(self, n: int) -> torch.Tensor:
+        if self._batches is None:
+            lt = self.eng.local_train
+            return torch.stack([epoch_batches(self.gen, lt.n_train,
+                                              lt.batch_size)
+                                for _ in range(n)])
+        if len(self._batches) < n:
+            raise ValueError("the async plan has no batch order left")
+        rows = [self._batches.pop(0) for _ in range(n)]
+        return torch.tensor(np.stack(rows), dtype=torch.long)
+
+    def _dispatch_delay(self, client: int) -> float:
+        """The model-download leg of a dispatch (with a channel only)."""
+        if self.eng.channel is None:
+            return 0.0
+        return self.eng.channel.down_time(client,
+                                          self.eng.broadcast_ref_bytes())
+
+    def _dispatch_one(self) -> None:
+        eng = self.eng
+        (nxt,) = self._draw(1)
+        self.available.discard(nxt)
+        self.in_flight.append(_InFlight(
+            nxt, eng.version, eng.server,
+            self.now + self._dispatch_delay(nxt) + float(self.latency[nxt])))
+
+    def _pop_window(self) -> list[_InFlight]:
+        """The in-flight clients finishing within ``dispatch_window`` of the
+        earliest finisher, in (finish, client) order; exactly one with a
+        window of 0."""
+        key = (lambda f: (f.finish, f.client))
+        if self.acfg.dispatch_window <= 0.0:
+            window = [min(self.in_flight, key=key)]
+        else:
+            t0 = min(f.finish for f in self.in_flight)
+            window = sorted((f for f in self.in_flight
+                             if f.finish <= t0 + self.acfg.dispatch_window),
+                            key=key)
+        for e in window:
+            self.in_flight.remove(e)
+        return window
+
+    def next_round(self) -> RoundIntake:
+        eng = self.eng
+        buffer: list[Contribution] = []
+        while True:
+            for _ in range(self.pending_dispatch):
+                self._dispatch_one()
+            self.pending_dispatch = 0
+            window = self._pop_window()
+            clients = [e.client for e in window]
+            out = eng.local_train.train_window(
+                self._batch_rows(len(window)), clients,
+                [e.server for e in window])
+            self.batch_sizes.append(len(window))
+            contribs = eng.uplink.intake(out, clients)
+            for e, c in zip(window, contribs):
+                c.staleness = eng.version - e.start_version
+                c.arrival_time = e.finish + (
+                    eng.channel.up_time(e.client, c.payload_bytes)
+                    if eng.channel is not None else 0.0)
+                self.available.add(e.client)
+            contribs.sort(key=lambda c: (c.arrival_time, c.client))
+            for c in contribs:
+                self.now = max(self.now, c.arrival_time)
+                c.arrival_time = self.now
+            buffer.extend(contribs)
+            self.pending_dispatch += len(window)
+            if len(buffer) >= self.acfg.buffer_size:
+                w = normalized_staleness_weights(
+                    [b.staleness for b in buffer],
+                    self.acfg.staleness_exponent)
+                return RoundIntake(buffer, list(range(len(buffer))),
+                                   receivers=self.concurrency,
+                                   sim_time=self.now, weights=w)
+
+    def log_line(self, rec, intake: RoundIntake) -> str:
+        return (f"agg {rec.round:3d} acc={rec.test_acc:.3f} "
+                f"t_sim={rec.sim_time_s:.2f}s "
+                f"staleness={[c.staleness for c in intake.contributions]} "
+                f"up={rec.up_bytes / 1e6:.3f}MB "
+                f"down={rec.down_bytes / 1e6:.3f}MB")
+
+
+SCHEDULERS = {"sync": SyncScheduler, "async": BufferedAsyncScheduler}

@@ -1,8 +1,11 @@
 """Client sampling: which K of C clients participate in a round.
 
-Port of ``repro.fl.sampling`` (uniform materialized draws).  Draws come from
-an explicit ``torch.Generator``; parity runs pass the reference's cohorts
-instead (``FederatedEngine(plan=...)``).
+Port of ``repro.fl.sampling`` (materialized draws, uniform and weighted).
+Draws come from an explicit ``torch.Generator``, without replacement and
+returned sorted; parity runs pass the reference's draws instead
+(``FederatedEngine(plan=...)``).  The streaming draw over a virtual
+population (``stream_cohort``) belongs to the population item and is not
+ported.
 """
 from __future__ import annotations
 
@@ -11,20 +14,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.runtime import not_ported
-
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
-    """``cohort_size`` None (or >= num_clients) is full participation."""
+    """``cohort_size`` None (or >= num_clients) is full participation.
+    ``strategy="weighted"`` draws clients in proportion to ``weights``, one
+    per client."""
     cohort_size: int | None = None
-    strategy: str = "uniform"
+    strategy: str = "uniform"            # "uniform" | "weighted"
     weights: tuple[float, ...] | None = None
-
-    def __post_init__(self):
-        if self.strategy != "uniform" or self.weights is not None:
-            raise not_ported(f"{self.strategy!r} sampling",
-                             "sampling and server optimizers")
 
     def effective_size(self, num_clients: int) -> int:
         if self.cohort_size is None:
@@ -39,11 +37,39 @@ class EmptyCohortError(RuntimeError):
     """A zero-row cohort reached a stage that needs at least one client."""
 
 
+def _weighted(gen: torch.Generator, w, k: int) -> np.ndarray:
+    """k distinct indices drawn with probabilities ``w / sum(w)``."""
+    p = torch.tensor(np.asarray(w, np.float32))
+    p = p / torch.sum(p)
+    return torch.multinomial(p, k, replacement=False, generator=gen).numpy()
+
+
 def sample_cohort(gen: torch.Generator, num_clients: int,
                   cfg: SamplingConfig) -> np.ndarray:
     """Sorted client indices for one round (without replacement)."""
     k = cfg.effective_size(num_clients)
     if k >= num_clients:
         return np.arange(num_clients)
-    idx = torch.randperm(num_clients, generator=gen)[:k]
-    return np.sort(idx.numpy())
+    if cfg.strategy == "uniform":
+        idx = torch.randperm(num_clients, generator=gen)[:k].numpy()
+    elif cfg.strategy == "weighted":
+        if cfg.weights is None or len(cfg.weights) != num_clients:
+            raise ValueError("weighted sampling needs one weight per client")
+        idx = _weighted(gen, cfg.weights, k)
+    else:
+        raise ValueError(f"unknown sampling strategy: {cfg.strategy!r}")
+    return np.sort(idx)
+
+
+def sample_available(gen: torch.Generator, available: np.ndarray, k: int,
+                     cfg: SamplingConfig) -> np.ndarray:
+    """k clients of the idle set ``available`` (async replacements: an
+    in-flight client cannot be dispatched again until its update lands)."""
+    available = np.asarray(available)
+    if len(available) <= k:
+        return np.sort(available)
+    if cfg.strategy == "weighted" and cfg.weights is not None:
+        idx = _weighted(gen, [cfg.weights[c] for c in available], k)
+    else:
+        idx = torch.randperm(len(available), generator=gen)[:k].numpy()
+    return np.sort(available[idx])

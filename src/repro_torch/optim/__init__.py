@@ -1,5 +1,6 @@
-from repro_torch.optim.optim import (LR, AdamState, Optimizer, SGDState,
-                                    adam, apply_updates, sgd)
+from repro_torch.optim.optim import (LR, AdagradState, AdamState, Optimizer,
+                                    SGDState, adagrad, adam, apply_updates,
+                                    sgd, yogi)
 
-__all__ = ["LR", "AdamState", "Optimizer", "SGDState", "adam",
-           "apply_updates", "sgd"]
+__all__ = ["LR", "AdagradState", "AdamState", "Optimizer", "SGDState",
+           "adagrad", "adam", "apply_updates", "sgd", "yogi"]

@@ -3,9 +3,10 @@
 Port of ``repro.optim.optim``: ``opt = adam(lr); state = opt.init(params);
 updates, state = opt.update(grads, state)``, with updates *added* to the
 params.  Learning rates may be schedules (callables of the int32 step
-tensor), read at the pre-increment step.  Adam is bias-corrected as
-``-lr * (m / bc1) / (sqrt(v / bc2) + eps)``, evaluated in float32 in the
-reference's operation order.
+tensor), read at the pre-increment step.  Adam and Yogi are bias-corrected
+as ``-lr * (m / bc1) / (sqrt(v / bc2) + eps)``, evaluated in float32 in the
+reference's operation order; Yogi moves ``v`` by
+``v - (1 - b2) * sign(v - g*g) * g * g``, Adagrad accumulates ``g*g``.
 """
 from __future__ import annotations
 
@@ -69,29 +70,77 @@ class AdamState(NamedTuple):
     nu: Any
 
 
+def _bias_corrected(lr_t, b1: float, b2: float, step, mu, nu, eps):
+    """``-lr * (m / bc1) / (sqrt(v / bc2) + eps)`` with ``bc = 1 - b**step``
+    taken by a float32 ``pow`` on the step's device."""
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                     device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                     device=stepf.device), stepf)
+    return tree_map(
+        lambda m, v: -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps),
+        mu, nu)
+
+
+def _moments0(params) -> AdamState:
+    return AdamState(
+        torch.zeros((), dtype=torch.int32, device=_device_of(params)),
+        tree_map(torch.zeros_like, params),
+        tree_map(torch.zeros_like, params))
+
+
 def adam(lr: LR, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Optimizer:
-    def init(params):
-        return AdamState(
-            torch.zeros((), dtype=torch.int32, device=_device_of(params)),
-            tree_map(torch.zeros_like, params),
-            tree_map(torch.zeros_like, params))
-
     def update(grads, state, params=None):
         del params
         step = state.step + 1
         lr_t = _lr_at(lr, state.step)
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
-        stepf = step.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                         device=stepf.device), stepf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                         device=stepf.device), stepf)
-        updates = tree_map(
-            lambda m, v: -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps),
-            mu, nu)
-        return updates, AdamState(step, mu, nu)
+        return (_bias_corrected(lr_t, b1, b2, step, mu, nu, eps),
+                AdamState(step, mu, nu))
+
+    return Optimizer(_moments0, update)
+
+
+def yogi(lr: LR, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    """Yogi: Adam whose ``v`` moves toward ``g*g`` by a bounded additive
+    step, so the effective lr can grow again after large gradients."""
+    def update(grads, state, params=None):
+        del params
+        step = state.step + 1
+        lr_t = _lr_at(lr, state.step)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+        nu = tree_map(
+            lambda v, g: v - (1 - b2) * torch.sign(v - g * g) * g * g,
+            state.nu, grads)
+        return (_bias_corrected(lr_t, b1, b2, step, mu, nu, eps),
+                AdamState(step, mu, nu))
+
+    return Optimizer(_moments0, update)
+
+
+class AdagradState(NamedTuple):
+    step: torch.Tensor
+    nu: Any
+
+
+def adagrad(lr: LR, eps: float = 1e-8) -> Optimizer:
+    """Adagrad: a per-coordinate lr decayed by the running sum of g*g."""
+    def init(params):
+        return AdagradState(
+            torch.zeros((), dtype=torch.int32, device=_device_of(params)),
+            tree_map(torch.zeros_like, params))
+
+    def update(grads, state, params=None):
+        del params
+        lr_t = _lr_at(lr, state.step)
+        nu = tree_map(lambda v, g: v + g * g, state.nu, grads)
+        updates = tree_map(lambda g, v: -lr_t * g / (torch.sqrt(v) + eps),
+                           grads, nu)
+        return updates, AdagradState(state.step + 1, nu)
 
     return Optimizer(init, update)
 

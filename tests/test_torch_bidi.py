@@ -86,6 +86,17 @@ from repro_torch.kernels import level_assign as la
 from repro_torch.kernels import row_stats as rs
 from repro_torch.models import cnn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs its files in parallel workers,
+    and more threads a worker only contend for the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL = 1e-6
 TRIPS = 3
 RECEIVERS = 2

@@ -17,6 +17,13 @@ reference.
 * A channel that drops every upload freezes the server while the clients'
   payloads grow (Eq. 5 across drops); a channel needs the wire; an empty
   cohort advances the clock by 1 s, as in the reference.
+* ``chan_lossy_k4`` with bidirectional compression, against the
+  reference along its cohorts: the download leg of each round's clock is
+  the last compressed broadcast (``broadcast_ref_bytes`` switches from the
+  raw model after round 1, in both packages, to sizes within 2%), the
+  drops and participants are the reference's, and ``sim_time_s`` equals
+  the reference channel's ``round_time`` over the port's own upload and
+  broadcast sizes (teacher-forced), within 5% of the reference's clock.
 """
 import dataclasses
 import math
@@ -112,12 +119,13 @@ def test_channel_times_and_drops_equal_reference(cfg):
 ROUNDS = 2          # round 2 drops clients 0 and 2 of its cohort
 
 
-def _setting(name, rounds):
+def _setting(name, rounds, **changes):
     """The port's tiny setting (its arrays also the reference's), the
     reference engine, its cohorts and batch orders for ``rounds`` rounds
     (its key discipline replayed), and the port's engine from the
-    reference's initial state along that plan."""
-    s = ref_scenarios.get_scenario(name)
+    reference's initial state along that plan; ``changes`` replace fields
+    of both scenarios."""
+    s = dataclasses.replace(ref_scenarios.get_scenario(name), **changes)
     cfg = ref_scenarios.build_protocol(s, rounds)
     model, splits = scenarios.default_setting(s.num_clients)
     ref_splits = RefSplits(*(
@@ -142,7 +150,7 @@ def _setting(name, rounds):
                     ref_scenarios.build_engine(s))
     state = jax.device_get((ref.server, jax.tree.map(
         lambda x: x[0], ref.local_train.persistent)))
-    port_s = scenarios.get_scenario(name)
+    port_s = dataclasses.replace(scenarios.get_scenario(name), **changes)
     port = engine.FederatedEngine(
         model, scenarios.build_protocol(port_s, rounds), splits,
         engine_cfg=scenarios.build_engine(port_s),
@@ -282,3 +290,40 @@ def test_empty_cohort_advances_the_clock_as_in_the_reference():
     assert [r.sim_time_s for r in recs] == [r.sim_time_s for r in ref_recs] \
         == [1.0, 2.0]
     assert all(r.participants == () for r in recs)
+
+
+def test_bidirectional_channel_clock_and_drops_match_reference():
+    s, ref, port, plan = _setting("chan_lossy_k4", ROUNDS,
+                                  bidirectional=True)
+    raw = 4 * sum(v.numel() for _, v in sorted_items(port.server.params))
+    chan = ref_channel.ChannelModel(
+        ref_channel.ChannelConfig(**dataclasses.asdict(s.channel)))
+    seen = {}
+    intake = port.uplink.intake
+
+    def spy(out, clients):
+        contribs = intake(out, clients)
+        seen["sizes"] = [c.payload_bytes for c in contribs]
+        return contribs
+
+    port.uplink.intake = spy
+    clock, drops = 0.0, 0
+    for rnd, (idx, _) in enumerate(plan, 1):
+        down_ref = port.broadcast_ref_bytes()
+        ref_down_ref = ref.broadcast_ref_bytes()
+        assert (down_ref == ref_down_ref == raw) if rnd == 1 else (
+            down_ref == port.downlink.last_payload_bytes < raw
+            and abs(down_ref - ref_down_ref) <= 0.02 * ref_down_ref)
+        r = ref.run(1).records[0]
+        p = port.run(1).records[0]
+        clients = [int(c) for c in idx]
+        lost = [c for c in clients if chan.dropped(rnd, c)]
+        drops += len(lost)
+        assert p.participants == r.participants == tuple(
+            c for c in clients if c not in lost)
+        assert p.down_bytes > 0 and abs(p.down_bytes - r.down_bytes) <= (
+            0.02 * r.down_bytes)
+        clock += chan.round_time(clients, seen["sizes"], down_ref, rnd)
+        assert p.sim_time_s == clock
+        assert math.isclose(p.sim_time_s, r.sim_time_s, rel_tol=0.05)
+    assert drops >= 1

@@ -34,6 +34,17 @@ from repro_torch.comms import device
 from repro_torch.core.protocol import RoundOutput
 from repro_torch.fl import engine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs its files in parallel workers,
+    and more threads a worker only contend for the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = {"conv0": {"w": (6, 3, 3, 3), "b": (6,)},
           "bn0": {"gamma": (6,), "beta": (6,)},
           "fc0": {"w": (10, 24), "b": (10,)},

@@ -41,6 +41,7 @@ cohorts of 4 left out the one client affected there.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import fsfl as ref_fsfl
 from repro.core.protocol import baseline_configs as ref_baselines
@@ -55,6 +56,17 @@ from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl import rounds, scenarios
 from repro_torch.kernels import level_assign as la
 from repro_torch.models import cnn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs its files in parallel workers,
+    and more threads a worker only contend for the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROUNDS = 2
 DATA_SEED = 1

@@ -49,6 +49,17 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scaled_matmul as sm
 from repro_torch.models import cnn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs its files in parallel workers,
+    and more threads a worker only contend for the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 U = 2.0 ** -24
 MAIN = [(m, n, 128) for m in (32, 120, 960) for n in (128, 10)]
 RAGGED = [(1, 1, 1), (5, 3, 7), (33, 129, 130), (17, 16, 32), (2, 10, 16)]

@@ -47,6 +47,17 @@ from repro_torch.fl import engine, scenarios
 from repro_torch.kernels import delta_compress as dc
 from repro_torch.models import cnn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs its files in parallel workers,
+    and more threads a worker only contend for the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROUNDS = 2
 N_SAMPLES = 1280
 MAX_FLIPS = 5

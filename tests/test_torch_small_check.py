@@ -31,6 +31,17 @@ from repro_torch.fl import executors
 from repro_torch.fl import rounds as rounds_mod
 from repro_torch.models import cnn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs its files in parallel workers,
+    and more threads a worker only contend for the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -88,17 +99,13 @@ def _dense_float64(p, x, s=None):
 
 @pytest.mark.parametrize("name", ["sync_full_fedavg_fsfl", "bidi_sync_full"])
 def test_dense_products_summed_in_float64_pass(smoke, name, monkeypatch):
-    """On one CPU thread (the float order of the convolutions fixed), round
-    2 has one client whose training takes another discrete decision."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
-        monkeypatch.setattr(cnn, "dense_apply", _dense_float64)
-        other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
-        monkeypatch.undo()
-    finally:
-        torch.set_num_threads(threads)
+    """On one CPU thread (the module's, the float order of the
+    convolutions fixed), round 2 has one client whose training takes
+    another discrete decision."""
+    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    monkeypatch.setattr(cnn, "dense_apply", _dense_float64)
+    other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    monkeypatch.undo()
     report, failures = _compare(smoke, name, base, other)
     assert failures == []
     assert report["max_scale_diff"] > 0
