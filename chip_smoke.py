@@ -32,7 +32,12 @@ Phases (any failure exits non-zero):
    ``scaled_matmul``'s forward, dx, dw and ds within the float32 error
    bound at the dense layers' shapes (M = 32, 120, 960) and ragged ones,
    and its one-launch backward for every subset of (dx, dw, ds) there,
-   each run twice to the same bits;
+   each run twice to the same bits; and every grouped kernel on the
+   leaves of ``resnet18_small(20, 3)`` and ``vgg16_tiny(2, 1)``: the int8
+   encode in two launches (110, 68 and 4 x 110 entries, and the split
+   inside the params and at the scales), ``level_assign_leaves`` on 55
+   and 34 leaves, ``delta_apply_leaves`` on 55, ``row_stats_leaves`` on
+   20 and 12 views (rows of 9), ``scaled_matmul`` at N = 20 and 2;
 4. slice phase at full width: the paper's ``vgg11_thinned`` on 6,400
    synthetic CIFAR-like images over 8 clients, FSFL (fixed sparsity 0.9),
    batch 32 (17 local steps).  The launch counters are set to 0 before
@@ -89,6 +94,18 @@ Phases (any failure exits non-zero):
      and FedYogi's moments finite.  Path H: 1 aggregation of
      ``async_windowed_b4`` (clients finishing within 0.5 s train in one
      executor call), the counts those of the recorded window sizes;
+   * the paper's ResNet and VGG16 settings, each round's launches read at
+     its evaluation and held to the prediction.  Path I:
+     ``resnet18_small(20, 3)`` on VOC-like data, 2 rounds of
+     ``run_federated`` (8 ``level_assign`` and 433/408 ``scaled_matmul``
+     a round: one dense layer).  Path J: ``vgg16_tiny(2, 1)`` on X-ray-like
+     data (one channel), 2 rounds.  Path K: the ResNet with
+     int8-blockscale on both legs, cohorts of 4, the device cohort encode,
+     1 round (the cohort's 110 entries in 2 launches, the broadcast's 55
+     in 1; 1,337,044-byte payloads up, 1,330,296 down; the server's
+     params bitwise the host decode plus add).  Path L: the ResNet with
+     ``fsfl_dyn``, bidirectional, 1 round (9 ``row_stats`` launches of 20
+     views);
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -124,7 +141,16 @@ Phases (any failure exits non-zero):
    too, the params' step scaled by the server optimizer's gain); and two
    card runs each of ``bidi_sync_full``, ``async_b4_fsfl`` and
    ``sync_k4_fedadam`` with the port's own cuDNN selection give the same
-   payloads and server state, bit for bit (``repeat_small_runs``);
+   payloads and server state, bit for bit (``repeat_small_runs``).  The
+   reduced ResNet (``[8, 16, 32, 32]``, 1,280 VOC-like images): its
+   forward and gradients on the card against the CPU
+   (``resnet_model_check``), its engine on the card fed the CPU's client
+   outputs and server (``resnet_engine_check``), two bit-equal card runs,
+   and its own client training on the card against the CPU with round 2
+   started from the CPU's state (``resnet_own_training``): a client that
+   parts is counted apart only for a discrete cause found in its record,
+   and the rest of each round's server stays within the bounds of
+   ``compare_small_runs``;
 5. a JSON summary of the run (build, rounds, profiles), a JSON line with
    every ported kernel's launches and times, the device line, and the
    final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
@@ -650,13 +676,15 @@ def main_path_kernels(torch, dc, device_mod, captured) -> dict:
     return timings
 
 
-def full_width_splits(torch, data):
-    task = data.synthetic.CIFAR_LIKE
+def full_width_splits(torch, data, task=None):
+    """6,400 synthetic images of ``task`` (CIFAR-like unless given) over 8
+    clients: 560 training and 120 validation images each, 960 to test."""
+    task = task or data.synthetic.CIFAR_LIKE
     x, y = data.synthetic.make_image_dataset(
         torch.Generator().manual_seed(0), task, 6400)
     splits = data.federated.split_federated(torch.Generator().manual_seed(1),
                                             x, y, 8)
-    print(f"slice phase: vgg11_thinned, {splits.num_clients} clients x "
+    print(f"slice phase: {task.name}, {splits.num_clients} clients x "
           f"{splits.n_train} training images, test set {len(splits.test_y)}")
     return splits
 
@@ -669,44 +697,23 @@ def check_server(torch, name, server) -> None:
                     fail(f"{name}: non-finite server value {m}/{n}")
 
 
-def int8_slice_phase(torch, dc, la, sm, fl, models, splits, rounds_out):
+def int8_slice_phase(torch, mods, rounds_mod, fl, models, splits,
+                     rounds_out):
+    """The int8 uplink: 1 round each of ``device_encode_int8`` (one
+    ``delta_compress_batch`` launch a cohort) and ``codec_int8_k4`` (one
+    ``delta_compress`` launch a client), cohorts of 4."""
     launches = {}
-    for scenario, rounds, kernel, per_round in (
-            ("device_encode_int8", 1, "delta_compress_batch", 1),
-            ("codec_int8_k4", 1, "delta_compress", 4)):
-        for mod in (dc, la, sm):
-            mod.reset_counters()
-        res = fl.run_scenario(scenario, rounds=rounds,
-                              model=models.vgg11_thinned(), splits=splits,
-                              device="cuda")
-        torch.cuda.synchronize()
-        counts = dict(dc.LAUNCHES)
-        la_count = la.LAUNCHES["level_assign"]
-        check_sm(sm, scenario, 4, rounds)
-        for rec in res.records:
-            print(f"  {scenario} round {rec.round}: test_acc={rec.test_acc:.4f}"
-                  f" train_loss={rec.train_loss:.4f} up_bytes={rec.up_bytes}"
-                  f" wall_s={rec.wall_s:.3f}")
-            rounds_out.append([scenario, rec.round, rec.test_acc,
-                               rec.train_loss, rec.up_bytes, rec.wall_s])
-            if rec.up_bytes != 4 * PAYLOAD_BYTES:
-                fail(f"{scenario}: up_bytes {rec.up_bytes} != "
-                     f"{4 * PAYLOAD_BYTES}")
-            if not (math.isfinite(rec.train_loss)
-                    and 0.0 <= rec.test_acc <= 1.0):
-                fail(f"{scenario}: non-finite loss or accuracy {rec}")
-        print(f"  {scenario} launches: {counts}, level_assign {la_count}")
-        if counts[kernel] != per_round * rounds:
-            fail(f"{scenario}: {kernel} launched {counts[kernel]} times, "
-                 f"expected {per_round * rounds}")
-        other = sum(v for k, v in counts.items() if k != kernel)
-        if other:
-            fail(f"{scenario}: unexpected launches {counts}")
-        if la_count != 4 * rounds:       # one a client
-            fail(f"{scenario}: level_assign launched {la_count} times, "
-                 f"expected {4 * rounds}")
-        check_server(torch, scenario, res.server)
-        launches[kernel] = counts[kernel]
+    for scenario, kernel, per_round in (
+            ("device_encode_int8", "delta_compress_batch", 1),
+            ("codec_int8_k4", "delta_compress", 4)):
+        out = run_path(
+            torch, mods, rounds_mod, scenario,
+            lambda: fl.run_scenario(scenario, rounds=1,
+                                    model=models.vgg11_thinned(),
+                                    splits=splits, device="cuda"),
+            {kernel: per_round, "level_assign": 4, **sm_per_round(4)}, 4,
+            2, rounds_out, up=4 * PAYLOAD_BYTES)
+        launches[kernel] = path_total(out, kernel)
     return launches
 
 
@@ -737,48 +744,26 @@ def checked_cohort_encode(torch, codecs_mod, comms, tree_row, tree_map,
     return orig
 
 
-def nnc_slice_phase(torch, la, sm, fl, fsfl, models, splits, rounds_out,
-                    checked: list):
+def nnc_slice_phase(torch, mods, rounds_mod, fl, fsfl, models, splits,
+                    rounds_out, checked: list):
     """The paper's main path: 2 rounds of sync_full_fedavg_fsfl through
-    run_federated, then 1 round of device_encode_cabac."""
+    run_federated, then 1 round of device_encode_cabac; one
+    ``level_assign`` launch a client."""
+    n = splits.num_clients
+    cfg = fl.build_protocol(fl.get_scenario("sync_full_fedavg_fsfl"), 2)
+    want = {"level_assign": n, **sm_per_round(n)}
     launches = {}
-    for scenario, rounds in (("sync_full_fedavg_fsfl", 2),
-                             ("device_encode_cabac", 1)):
-        s = fl.get_scenario(scenario)
-        cfg = fl.build_protocol(s, rounds)
-        la.reset_counters()
-        sm.reset_counters()
-        if scenario == "sync_full_fedavg_fsfl":
-            res = fsfl.run_federated(models.vgg11_thinned(), cfg, splits,
-                                     rounds, device="cuda")
-        else:
-            res = fl.run_scenario(scenario, rounds=rounds,
-                                  model=models.vgg11_thinned(),
-                                  splits=splits, device="cuda")
-        torch.cuda.synchronize()
-        count = la.LAUNCHES["level_assign"]
-        check_sm(sm, scenario, splits.num_clients, rounds)
-        for rec in res.records:
-            print(f"  {scenario} round {rec.round}: "
-                  f"test_acc={rec.test_acc:.4f} "
-                  f"train_loss={rec.train_loss:.4f} "
-                  f"up_bytes={rec.up_bytes} "
-                  f"sparsity={rec.update_sparsity:.4f} "
-                  f"wall_s={rec.wall_s:.3f}")
-            rounds_out.append([scenario, rec.round, rec.test_acc,
-                               rec.train_loss, rec.up_bytes, rec.wall_s])
-            if not (math.isfinite(rec.train_loss)
-                    and 0.0 <= rec.test_acc <= 1.0 and rec.up_bytes > 0):
-                fail(f"{scenario}: bad round record {rec}")
-            if len(rec.participants) != splits.num_clients:
-                fail(f"{scenario}: {len(rec.participants)} participants")
-        print(f"  {scenario} launches: level_assign {count} "
-              f"({count / rounds:.0f} a round, one a client)")
-        if count != splits.num_clients * rounds:
-            fail(f"{scenario}: level_assign launched {count} times, "
-                 f"expected {splits.num_clients * rounds}")
-        check_server(torch, scenario, res.server)
-        launches[scenario] = count
+    for scenario, run in (
+            ("sync_full_fedavg_fsfl",
+             lambda: fsfl.run_federated(models.vgg11_thinned(), cfg, splits,
+                                        2, device="cuda")),
+            ("device_encode_cabac",
+             lambda: fl.run_scenario("device_encode_cabac", rounds=1,
+                                     model=models.vgg11_thinned(),
+                                     splits=splits, device="cuda"))):
+        out = run_path(torch, mods, rounds_mod, scenario, run, want, n, 2,
+                       rounds_out)
+        launches[scenario] = path_total(out, "level_assign")
     if not checked:
         fail("device_encode_cabac encoded no cohort on the device")
     print(f"  device_encode_cabac: {sum(len(c) for c in checked)} "
@@ -859,30 +844,50 @@ def deterministic_cudnn(torch):
          torch.backends.cudnn.benchmark) = old
 
 
-def record_small_run(torch, fl, rounds_mod, name: str, device: str):
+def record_small_run(torch, fl, rounds_mod, name: str, device: str,
+                     model=None, splits=None, forced=None, init_state=None,
+                     plan=None):
     """One run of scenario ``name`` on the tiny scenario VGG with 1,280
-    samples (3 local steps per client) for 2 rounds on ``device``, with
+    samples (3 local steps per client), or on ``model`` and ``splits``,
+    for 2 rounds on ``device``, with
     each round's discrete decisions kept on the host: per client its params
     and scale levels, the kept Eq. 4 sub-epoch (``scale_epoch``, 0 for
     none), its decoded scale delta as the server aggregates it, and the
-    gradient and update of each of its scale steps; the broadcast's
+    gradient and update of each of its weight and scale steps; the
+    clients' persistent state after the round; the broadcast's
     reconstruction where there is a downlink; the server's state after the
-    round.  Returns (RunResult, the per-round log, the number of test
-    images)."""
+    round.  With ``forced``, the log of another run of the same
+    synchronous scenario, every round after the first starts from that
+    run's server state and clients' persistent state after the round
+    before, so the two runs' clients train each round from the same
+    start.  ``init_state`` and ``plan`` go to ``run_scenario``.  Returns
+    (RunResult, the per-round log, the number of test images)."""
     from repro_torch.core import protocol as protocol_mod
     from repro_torch.fl import executors
-    from repro_torch.tree import items
+    from repro_torch.tree import items, tree_map
 
     def host(tree):
         return {path: torch.as_tensor(v).detach().cpu()
                 for path, v in items(tree)}
 
+    def kept(tree):
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+    def start(r: int):
+        """The server state and clients' persistent state round ``r``
+        (0-based) is forced to start from, on ``device``."""
+        entry = forced[r - 1]
+        return tuple(tree_map(lambda t: t.to(device, copy=True), entry[part])
+                     for part in ("server", "persistent"))
+
     def is_scales(tree):
         return all(v.ndim <= 1 for _, v in items(tree))
 
-    s = fl.get_scenario(name)
-    model, splits = fl.default_setting(s.num_clients, n_samples=SMALL_SAMPLES)
-    log, steps = [], []     # steps: per client trained, its scale steps
+    if model is None:
+        model, splits = fl.default_setting(fl.get_scenario(name).num_clients,
+                                           n_samples=SMALL_SAMPLES)
+    log, steps = [], []     # steps: per client trained, its steps
+    train0 = rounds_mod.LocalTrain.train_cohort
     intake0 = rounds_mod.Uplink.intake
     agg0 = rounds_mod.Aggregate.__call__
     step0 = rounds_mod.ServerStep.__call__
@@ -891,21 +896,29 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
     grad0 = protocol_mod._grad_tree
     apply0 = protocol_mod.apply_updates
 
+    def train_cohort(self, idx, batch_idx, server):
+        if forced is not None and log:
+            if list(idx) != list(range(self.splits.num_clients)):
+                raise RuntimeError(f"forced rounds need every client in "
+                                   f"order, not {list(idx)}")
+            server, self.state = start(len(log))
+        return train0(self, idx, batch_idx, server)
+
     def bind(self, client_round):
         def traced(*args):
-            steps.append([])
+            steps.append({"weight": [], "scale": []})
             return client_round(*args)
         bind0(self, traced)
 
     def grad_tree(loss, tree):
         grads = grad0(loss, tree)
-        if is_scales(tree):
-            steps[-1].append({"grad": host(grads)})
+        steps[-1]["scale" if is_scales(tree) else "weight"].append(
+            {"grad": host(grads)})
         return grads
 
     def apply_updates(params, updates):
-        if is_scales(params):
-            steps[-1][-1]["update"] = host(updates)
+        steps[-1]["scale" if is_scales(params) else "weight"][-1][
+            "update"] = host(updates)
         return apply0(params, updates)
 
     def intake(self, out, clients):
@@ -914,13 +927,19 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
             raise RuntimeError(f"{len(steps)} clients trained, "
                                f"{len(clients)} in the cohort")
         decoded = [host(c.delta_scales) for c in contribs]
+        decoded_p = [host(c.delta_params) for c in contribs]
         entry = {"clients": list(clients),
                  "params": host(out.levels_params),
                  "scales": host(out.levels_scales),
                  "scale_epoch": out.metrics["scale_epoch"].cpu(),
                  "scale_delta": {p: torch.stack([d[p] for d in decoded])
                                  for p in decoded[0]},
-                 "scale_steps": list(steps), "down": {}, "weights": None}
+                 "params_delta": {p: torch.stack([d[p] for d in decoded_p])
+                                  for p in decoded_p[0]},
+                 "scale_steps": [c["scale"] for c in steps],
+                 "weight_steps": [c["weight"] for c in steps],
+                 "persistent": kept(out.persistent), "down": {},
+                 "weights": None}
         steps.clear()
         if log and "server_params" not in log[-1]:
             # an async dispatch window of an aggregation still filling:
@@ -928,9 +947,10 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
             last = log[-1]
             last["clients"] += entry["clients"]
             last["scale_steps"] += entry["scale_steps"]
+            last["weight_steps"] += entry["weight_steps"]
             last["scale_epoch"] = torch.cat([last["scale_epoch"],
                                              entry["scale_epoch"]])
-            for part in ("params", "scales", "scale_delta"):
+            for part in ("params", "scales", "scale_delta", "params_delta"):
                 last[part] = {p: torch.cat([v, entry[part][p]])
                               for p, v in last[part].items()}
         else:
@@ -950,7 +970,10 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
         return agg0(self, contribs, weights)
 
     def server_step(self, server, agg, downlink, receivers, transmit):
+        if forced is not None and len(log) > 1:
+            server = start(len(log) - 1)[0]
         new, down = step0(self, server, agg, downlink, receivers, transmit)
+        log[-1]["server"] = kept(new)
         log[-1]["server_params"] = host(new.params)
         log[-1]["server_scales"] = host(new.scales)
         return new, down
@@ -961,7 +984,8 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
             log[-1]["down"] = host(broadcast.recon)
         return broadcast, down
 
-    patches = [(rounds_mod.Uplink, "intake", intake, intake0),
+    patches = [(rounds_mod.LocalTrain, "train_cohort", train_cohort, train0),
+               (rounds_mod.Uplink, "intake", intake, intake0),
                (rounds_mod.Aggregate, "__call__", aggregate, agg0),
                (rounds_mod.ServerStep, "__call__", server_step, step0),
                (rounds_mod.Downlink, "compress", compress, compress0),
@@ -972,22 +996,28 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str):
         setattr(owner, attr, new)
     try:
         res = fl.run_scenario(name, rounds=SMALL_ROUNDS, model=model,
-                              splits=splits, device=device)
+                              splits=splits, init_state=init_state,
+                              plan=plan, device=device)
     finally:
         for owner, attr, _, old in patches:
             setattr(owner, attr, old)
     return res, log, len(splits.test_y)
 
 
-def scale_event(base_steps, run_steps) -> tuple[int | None, list[float]]:
+def scale_event(base_steps, run_steps, weights: bool = False
+                ) -> tuple[int | None, list[float]]:
     """The first scale step (0-based) at which the two runs' scale
     gradients part by more than ``GRAD_EVENT`` of their norm in some leaf,
-    or None; and that ratio at every step."""
+    or None; and that ratio at every step.  With ``weights``, the same of
+    weight steps, over every leaf whose gradient is not 0."""
     ratios = []
     for a, b in zip(base_steps, run_steps, strict=True):
         ratios.append(max(
             (float((b["grad"][path] - g).norm() / g.norm().clamp_min(1e-30))
-             for path, g in a["grad"].items() if g.ndim == 1), default=0.0))
+             for path, g in a["grad"].items()
+             if ((g.ndim >= 1 and bool(g.any())) if weights
+                 else g.ndim == 1)),
+            default=0.0))
     event = next((t for t, r in enumerate(ratios) if r > GRAD_EVENT), None)
     return event, ratios
 
@@ -1003,6 +1033,22 @@ def scale_cap(base_steps, run_steps, start: int) -> dict:
             cap[path] = cap.get(path, 0.0) + (
                 (v - u).abs() if t < start else u.abs() + v.abs())
     return cap
+
+
+def level_diffs(lb, lr, i: int) -> tuple[int, int, int, tuple[int, int]]:
+    """Client ``i``'s levels in two runs' logs of one round: params levels
+    zero in one run only (top-k flips) and non-zero in both but unequal
+    (rounding crossings), the widest scale level difference, and the kept
+    sub-epochs."""
+    topk = rounding = 0
+    for path, v in lb["params"].items():
+        a, b = v[i], lr["params"][path][i]
+        topk += int(((a == 0) != (b == 0)).sum())
+        rounding += int(((a != b) & (a != 0) & (b != 0)).sum())
+    widest = int(max(float((v[i] - lr["scales"][path][i]).abs().max())
+                     for path, v in lb["scales"].items()))
+    return topk, rounding, widest, (int(lb["scale_epoch"][i]),
+                                    int(lr["scale_epoch"][i]))
 
 
 def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
@@ -1053,15 +1099,9 @@ def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
         k = len(lb["clients"])
         per_client = []
         for i, c in enumerate(lb["clients"]):
-            topk = rounding = 0
-            for path, v in lb["params"].items():
-                a, b = v[i], lr["params"][path][i]
-                topk += int(((a == 0) != (b == 0)).sum())
-                rounding += int(((a != b) & (a != 0) & (b != 0)).sum())
+            topk, rounding, widest, epochs = level_diffs(lb, lr, i)
             level_diff = [(v[i] - lr["scales"][path][i]).abs()
                           for path, v in lb["scales"].items()]
-            widest = int(max(float(d.max()) for d in level_diff))
-            epochs = (int(lb["scale_epoch"][i]), int(lr["scale_epoch"][i]))
             event, ratios = scale_event(lb["scale_steps"][i],
                                         lr["scale_steps"][i])
             causes = (["kept sub-epoch"] if epochs[0] != epochs[1] else []) + (
@@ -1143,6 +1183,147 @@ def compare_small_runs(torch, cfg, name: str, base, base_log, run, run_log,
               "down_bytes": [[x.down_bytes for x in base.records],
                              [x.down_bytes for x in run.records]]}
     return report, failures
+
+
+def sign_step(base_steps, run_steps) -> int | None:
+    """The first step (0-based) at which some element's update has one
+    sign in one run and the other sign in the other, or None: Adam steps
+    by about its rate whatever the size of the gradient, so a gradient
+    within float noise of 0 moves the element a whole step either way."""
+    return next((t for t, (a, b) in enumerate(zip(base_steps, run_steps,
+                                                  strict=True))
+                 if any(bool((u * b["update"][path] < 0).any())
+                        for path, u in a["update"].items())), None)
+
+
+def client_causes(lb, lr, i: int) -> dict:
+    """What client ``i``'s records in two runs' logs of one round show:
+    how its levels differ, and the discrete decisions that explain it.
+    Its params part by a top-k flip; its causes there are a weight step
+    at which its gradients part by more than ``GRAD_EVENT`` of their norm
+    (a ReLU or max-pool input within float noise of zero, routed the other
+    way) or at which an update element takes the other sign (Adam steps
+    by about its rate whatever the size of the gradient, so a gradient
+    within float noise of zero moves the element a whole step either
+    way).  Its scales part by more than one level, or by another kept
+    sub-epoch; their causes are those of its params, a top-k flip (the
+    scale steps then start from another model), another kept sub-epoch,
+    and the same two events in a scale step."""
+    topk, rounding, widest, epochs = level_diffs(lb, lr, i)
+    found = {}
+    for kind in ("weight", "scale"):
+        a, b = lb[f"{kind}_steps"][i], lr[f"{kind}_steps"][i]
+        event, found[kind] = scale_event(a, b, weights=kind == "weight")
+        found[f"{kind} event"] = event
+        sign = sign_step(a, b)
+        found[f"{kind} causes"] = (
+            [f"{kind} step {event + 1}"] if event is not None else []) + (
+            [f"sign at {kind} step {sign + 1}"] if sign is not None else [])
+    weight_causes = found["weight causes"]
+    scale_causes = weight_causes + (["top-k flip"] if topk else []) + (
+        ["kept sub-epoch"] if epochs[0] != epochs[1] else []) + found[
+        "scale causes"]
+    return {"topk_flips": topk, "rounding": rounding,
+            "max_scale_level_diff": widest, "scale_epoch": epochs,
+            "params_apart": topk > 0 and bool(weight_causes),
+            "scales_apart": ((widest > 1 or epochs[0] != epochs[1])
+                             and bool(scale_causes)),
+            "causes": list(dict.fromkeys(weight_causes + scale_causes)),
+            "scale_event": found["scale event"],
+            "weight_ratios": found["weight"], "scale_ratios": found["scale"]}
+
+
+def forced_round_check(torch, cfg, base_log, run_log
+                       ) -> tuple[list[dict], list[str]]:
+    """Two runs' logs (``record_small_run``), each round of the second
+    started from the first's server and clients' state, so that every
+    round holds only that round's training apart.  The bounds of
+    ``compare_small_runs``, each round on its own:
+
+    * a client whose params part by a top-k flip, or whose scales part by
+      more than one level or by another kept sub-epoch, is counted apart
+      only for a discrete cause found in its record (``client_causes``);
+      ``compare_small_runs`` allows ``MAX_COUNTED`` a round, which the
+      caller holds or reports from the returned rounds; a counted
+      client's scale delta may
+      move no more than its scale steps can from its first cause on
+      (``scale_cap``, plus one fine step);
+    * with the counted clients' decoded deltas taken out (times 1 over
+      the cohort size), the round's server params lie within one
+      quantization step but for at most ``MAX_FLIPS`` and within 1e-6 but
+      for at most ``MAX_OFF``, and its scales within one fine step: a
+      client that parts without a cause must fit in these.
+
+    Returns (per round: the counted clients and the rest's worst, the
+    failures)."""
+    failures, rounds = [], []
+    fine = cfg.fine_step_size
+    for r, (lb, lr) in enumerate(zip(base_log, run_log, strict=True), 1):
+        if lb["clients"] != lr["clients"]:
+            failures.append(f"round {r}: cohorts {lr['clients']} and "
+                            f"{lb['clients']}")
+            continue
+        k = len(lb["clients"])
+        dp = {p: lr["server_params"][p] - v
+              for p, v in lb["server_params"].items()}
+        ds = {p: lr["server_scales"][p] - v
+              for p, v in lb["server_scales"].items()}
+        counted = []
+        for i, c in enumerate(lb["clients"]):
+            found = client_causes(lb, lr, i)
+            if not (found["params_apart"] or found["scales_apart"]):
+                continue
+            counted.append({"client": c, **found})
+            for p in dp:
+                dp[p] = dp[p] - (lr["params_delta"][p][i]
+                                 - lb["params_delta"][p][i]) / k
+            diff = {p: lr["scale_delta"][p][i] - v[i]
+                    for p, v in lb["scale_delta"].items()}
+            for p in ds:
+                ds[p] = ds[p] - diff[p] / k
+            event = found["scale_event"]
+            start = (0 if found["params_apart"] or found["scale_epoch"][0]
+                     != found["scale_epoch"][1] or event is None else event)
+            cap = scale_cap(lb["scale_steps"][i], lr["scale_steps"][i], start)
+            over = max(float((d.abs() - cap[p] - fine * 1.01).max())
+                       for p, d in diff.items())
+            if over > 0:
+                failures.append(f"round {r}: client {c}'s scale delta "
+                                f"moved {over:.3g} more than its scale steps "
+                                f"can from step {start + 1} on")
+        flat = torch.cat([d.abs().reshape(-1) for d in dp.values()])
+        flips = int((flat > cfg.step_size * 1.01).sum())
+        off = int((flat > 1e-6).sum())
+        rest = max(float(d.abs().max()) for d in ds.values())
+        rounds.append({"round": r, "counted": counted, "flips": flips,
+                       "params_off": off, "max_scale_diff_others": rest})
+        if flips > MAX_FLIPS or off > MAX_OFF:
+            failures.append(f"round {r}: without the counted clients, "
+                            f"{flips} server params off by more than one "
+                            f"quantization step (at most {MAX_FLIPS}) and "
+                            f"{off} by more than 1e-6 (at most {MAX_OFF})")
+        if rest > fine * 1.01:
+            failures.append(f"round {r}: without the counted clients, "
+                            f"server scales {rest:.3g} apart (bound "
+                            f"{fine:.3g})")
+    return rounds, failures
+
+
+def print_forced(label: str, rounds: list[dict]) -> None:
+    for rnd in rounds:
+        print(f"  {label} round {rnd['round']}: {len(rnd['counted'])} "
+              f"clients counted apart; without them {rnd['flips']} server "
+              f"params off by more than one quantization step, "
+              f"{rnd['params_off']} by more than 1e-6, scales "
+              f"{rnd['max_scale_diff_others']:.3g} apart")
+        for c in rnd["counted"]:
+            print(f"    client {c['client']}: {c['topk_flips']} top-k flips, "
+                  f"{c['rounding']} rounding crossings, scale levels up to "
+                  f"{c['max_scale_level_diff']} apart, kept sub-epochs "
+                  f"{c['scale_epoch']}; gradients apart by at most "
+                  f"{max(c['weight_ratios'], default=0):.2g} (weights) and "
+                  f"{max(c['scale_ratios'], default=0):.2g} (scales) of "
+                  f"their norm; causes: {', '.join(c['causes'])}")
 
 
 def small_input_check(torch, fl, rounds_mod, name: str,
@@ -1257,17 +1438,19 @@ def profile_round(torch, run, label: str, mine: tuple,
 # ------------------------------------------------------------ slice 4
 
 def sm_expected(clients: int, rounds: int, steps: int = STEPS,
-                sub: int = SCALE_SUBEPOCHS) -> tuple[dict, dict]:
+                sub: int = SCALE_SUBEPOCHS, dense: int = 2
+                ) -> tuple[dict, dict]:
     """``scaled_matmul`` launches (forward, backward) and products per
     direction of ``rounds`` FSFL rounds over ``clients`` clients: each of
-    the 2 dense layers runs forward in every weight step, scale step and
-    validation pass (``sub`` + 1) and in the server's evaluation, and one
-    backward launch in every step computing dx, with dw in the weight
-    steps and ds in the scale steps."""
-    per = {"forward": 2 * (steps + sub * steps + sub + 1),
-           "dx": 2 * (steps + sub * steps), "dw": 2 * steps,
-           "ds": 2 * sub * steps}
-    calls = {d: rounds * (clients * n + (2 if d == "forward" else 0))
+    the ``dense`` dense layers (2 in the VGGs, 1 in the ResNet) runs
+    forward in every weight step, scale step and validation pass (``sub``
+    + 1) and in the server's evaluation, and one backward launch in every
+    step computing dx, with dw in the weight steps and ds in the scale
+    steps."""
+    per = {"forward": dense * (steps + sub * steps + sub + 1),
+           "dx": dense * (steps + sub * steps), "dw": dense * steps,
+           "ds": dense * sub * steps}
+    calls = {d: rounds * (clients * n + (dense if d == "forward" else 0))
              for d, n in per.items()}
     return {"forward": calls["forward"], "backward": calls["dx"]}, calls
 
@@ -1275,11 +1458,12 @@ def sm_expected(clients: int, rounds: int, steps: int = STEPS,
 SM_RUNS: dict[str, dict] = {}    # scaled_matmul launches per path run
 
 
-def check_sm(sm, label: str, clients: int, rounds: int) -> dict:
+def check_sm(sm, label: str, clients: int, rounds: int,
+             dense: int = 2) -> dict:
     """The path's ``scaled_matmul`` launches and products per direction,
     read after it ran, against ``sm_expected``; kept in ``SM_RUNS``."""
     got, calls = dict(sm.LAUNCHES), dict(sm.CALLS)
-    want, want_calls = sm_expected(clients, rounds)
+    want, want_calls = sm_expected(clients, rounds, dense=dense)
     SM_RUNS[label] = got
     print(f"  {label} launches: scaled_matmul {got} "
           f"({ {d: n // rounds for d, n in got.items()} } a round), "
@@ -1288,6 +1472,99 @@ def check_sm(sm, label: str, clients: int, rounds: int) -> dict:
         fail(f"{label}: scaled_matmul launched {got} computing {calls}, "
              f"expected {want} computing {want_calls}")
     return got
+
+
+LAUNCH_KEYS = ("level_assign", "row_stats", "delta_apply", "delta_compress",
+               "delta_compress_batch", "scaled_matmul forward",
+               "scaled_matmul backward")
+
+
+def launch_counts(la, rs, da, dc, sm) -> dict:
+    return {"level_assign": la.LAUNCHES["level_assign"],
+            "row_stats": rs.LAUNCHES["row_stats"],
+            "delta_apply": da.LAUNCHES["delta_apply"],
+            "delta_compress": dc.LAUNCHES["delta_compress"],
+            "delta_compress_batch": dc.LAUNCHES["delta_compress_batch"],
+            "scaled_matmul forward": sm.LAUNCHES["forward"],
+            "scaled_matmul backward": sm.LAUNCHES["backward"]}
+
+
+def run_path(torch, mods, rounds_mod, label: str, run, want: dict,
+             clients: int, dense: int, rounds_out, up=None, down=None,
+             bidirectional: bool = False):
+    """Run one path (``run()`` returns its RunResult) with every launch
+    counter set to 0, read the counters at the end of each round (its
+    evaluation), and fail unless each round's launches are ``want``
+    (absent keys: none), its ``clients`` participants, its
+    ``scaled_matmul`` products those of ``dense`` dense layers, its bytes
+    up and down ``up`` and ``down`` where given, and its bytes down more
+    than 0 where ``bidirectional``.  Prints each round's wall, bytes and
+    launches; returns them a round."""
+    la, rs, da, dc, sm = mods
+    per_round = []
+    evaluate0 = rounds_mod.Evaluate.__call__
+
+    def evaluate(self, server):
+        acc = evaluate0(self, server)
+        torch.cuda.synchronize()
+        per_round.append(launch_counts(*mods))
+        return acc
+
+    for mod in mods:
+        mod.reset_counters()
+    rounds_mod.Evaluate.__call__ = evaluate
+    try:
+        res = run()
+    finally:
+        rounds_mod.Evaluate.__call__ = evaluate0
+    torch.cuda.synchronize()
+    rounds = len(res.records)
+    check_sm(sm, label, clients, rounds, dense)
+    if len(per_round) != rounds:
+        fail(f"{label}: {len(per_round)} evaluations in {rounds} rounds")
+    expect = {k: want.get(k, 0) for k in LAUNCH_KEYS}
+    before = dict.fromkeys(LAUNCH_KEYS, 0)
+    out = {"walls_s": [], "up_bytes": [], "down_bytes": [], "launches": []}
+    for rec, counts in zip(res.records, per_round):
+        got = {k: counts[k] - before[k] for k in LAUNCH_KEYS}
+        before = counts
+        print(f"  {label} round {rec.round}: wall_s={rec.wall_s:.3f} "
+              f"up_bytes={rec.up_bytes} down_bytes={rec.down_bytes} "
+              f"test_acc={rec.test_acc:.4f} train_loss={rec.train_loss:.4f} "
+              f"launches { {k: v for k, v in got.items() if v} }")
+        rounds_out.append([label, rec.round, rec.test_acc, rec.train_loss,
+                           rec.up_bytes, rec.wall_s, rec.down_bytes])
+        if not (math.isfinite(rec.train_loss) and 0.0 <= rec.test_acc <= 1.0
+                and rec.up_bytes > 0):
+            fail(f"{label}: bad round record {rec}")
+        if len(rec.participants) != clients:
+            fail(f"{label}: {len(rec.participants)} participants")
+        if got != expect:
+            fail(f"{label} round {rec.round}: launches {got}, expected "
+                 f"{expect}")
+        if up is not None and rec.up_bytes != up:
+            fail(f"{label}: up_bytes {rec.up_bytes} != {up}")
+        if down is not None and rec.down_bytes != down:
+            fail(f"{label}: down_bytes {rec.down_bytes} != {down}")
+        if bidirectional and rec.down_bytes <= 0:
+            fail(f"{label}: no bytes down in round {rec.round}")
+        for k, v in (("walls_s", rec.wall_s), ("up_bytes", rec.up_bytes),
+                     ("down_bytes", rec.down_bytes), ("launches", got)):
+            out[k].append(v)
+    check_server(torch, label, res.server)
+    return out
+
+
+def sm_per_round(clients: int, dense: int = 2) -> dict:
+    """``run_path``'s ``want`` of ``scaled_matmul`` for one round."""
+    want = sm_expected(clients, 1, dense=dense)[0]
+    return {"scaled_matmul forward": want["forward"],
+            "scaled_matmul backward": want["backward"]}
+
+
+def path_total(out: dict, key: str) -> int:
+    """A kernel's launches over every round of a ``run_path`` run."""
+    return sum(r[key] for r in out["launches"])
 
 
 # what each direction reads, of x (M, K), w (N, K), s (N,) and dy (M, N)
@@ -1391,6 +1668,24 @@ def sm_backward_check(torch, sm, dy, x, w, s, flags) -> tuple[float, float]:
     return err, share
 
 
+def sm_check_shape(torch, sm, gen, m: int, n: int, k: int, worst: dict):
+    """Every direction and backward subset of ``scaled_matmul`` against its
+    plain version at (M, N, K) on random inputs, the backward twice;
+    ``worst`` keeps the largest share of the error bound per direction.
+    Returns (the checks, the inputs x, w, s, dy)."""
+    x = torch.randn((m, k), generator=gen).cuda()
+    w = (torch.randn((n, k), generator=gen) / math.sqrt(k)).cuda()
+    s = (0.8 + 0.4 * torch.rand(n, generator=gen)).cuda()
+    dy = torch.randn((m, n), generator=gen).cuda()
+    for d, args in (("forward", (x, w, s)), ("dx", (dy, w, s)),
+                    ("dw", (dy, x, s)), ("ds", (dy, x, w))):
+        worst[d] = max(worst[d], sm_compare(torch, sm, d, *args)[1])
+    for flags in SM_SUBSETS:
+        worst["backward"] = max(worst["backward"], sm_backward_check(
+            torch, sm, dy, x, w, s, flags)[1])
+    return 4 + len(SM_SUBSETS), (x, w, s, dy)
+
+
 def sm_kernel_phase(torch, sm) -> int:
     """Each direction of ``scaled_matmul`` against its plain version on
     random inputs at the main path's shapes (M = 32, 120, 960 against the
@@ -1400,20 +1695,9 @@ def sm_kernel_phase(torch, sm) -> int:
     gen = torch.Generator().manual_seed(3)
     shapes = [(m, n, 128) for m in (32, 120, 960) for n in (128, 10)] + [
         (1, 1, 1), (5, 3, 7), (33, 129, 130), (17, 16, 32), (70, 33, 65)]
-    worst, checks = dict.fromkeys(sm.DIRECTIONS + ("backward",), 0.0), 0
-    for m, n, k in shapes:
-        x = torch.randn((m, k), generator=gen).cuda()
-        w = (torch.randn((n, k), generator=gen) / math.sqrt(k)).cuda()
-        s = (0.8 + 0.4 * torch.rand(n, generator=gen)).cuda()
-        dy = torch.randn((m, n), generator=gen).cuda()
-        for d, args in (("forward", (x, w, s)), ("dx", (dy, w, s)),
-                        ("dw", (dy, x, s)), ("ds", (dy, x, w))):
-            worst[d] = max(worst[d], sm_compare(torch, sm, d, *args)[1])
-            checks += 1
-        for flags in SM_SUBSETS:
-            worst["backward"] = max(worst["backward"], sm_backward_check(
-                torch, sm, dy, x, w, s, flags)[1])
-            checks += 1
+    worst = dict.fromkeys(sm.DIRECTIONS + ("backward",), 0.0)
+    checks = sum(sm_check_shape(torch, sm, gen, *shape, worst)[0]
+                 for shape in shapes)
     print(f"kernel phase: {checks} scaled_matmul-vs-plain comparisons (4 "
           f"directions and the backward for {len(SM_SUBSETS)} subsets of "
           f"its gradients, twice to the same bits, at {len(shapes)} "
@@ -1701,54 +1985,28 @@ def capture_calls(module, name: str, keep: int, clone) -> list:
     return captured
 
 
-def bidi_records(torch, scenario, res, splits, rounds_out, clients) -> None:
-    for rec in res.records:
-        print(f"  {scenario} round {rec.round}: test_acc={rec.test_acc:.4f} "
-              f"train_loss={rec.train_loss:.4f} up_bytes={rec.up_bytes} "
-              f"down_bytes={rec.down_bytes} "
-              f"sparsity={rec.update_sparsity:.4f} wall_s={rec.wall_s:.3f}")
-        rounds_out.append([scenario, rec.round, rec.test_acc,
-                           rec.train_loss, rec.up_bytes, rec.wall_s,
-                           rec.down_bytes])
-        if not (math.isfinite(rec.train_loss) and 0.0 <= rec.test_acc <= 1.0
-                and rec.up_bytes > 0 and rec.down_bytes > 0):
-            fail(f"{scenario}: bad round record {rec}")
-        if len(rec.participants) != clients:
-            fail(f"{scenario}: {len(rec.participants)} participants")
-    check_server(torch, scenario, res.server)
-
-
-def path_a(torch, la, sm, fl, fsfl, models, splits, rounds_out) -> dict:
+def path_a(torch, mods, rounds_mod, fl, fsfl, models, splits,
+           rounds_out) -> dict:
     """Path A, the paper's bidirectional setting: 2 rounds of
     run_federated(bidirectional=True) with fsfl, then 1 round of
-    bidi_sync_full; nnc-cabac on both legs, level_assign on both."""
+    bidi_sync_full; nnc-cabac on both legs, level_assign on both: one
+    launch a client and one on the downlink."""
+    n = splits.num_clients
+    cfg = fl.build_protocol(fl.get_scenario("bidi_sync_full"), 2)
+    want = {"level_assign": n + 1, **sm_per_round(n)}
     launches = {}
-    for scenario, rounds in (("run_federated bidirectional", 2),
-                             ("bidi_sync_full", 1)):
-        cfg = fl.build_protocol(fl.get_scenario("bidi_sync_full"), rounds)
-        la.reset_counters()
-        sm.reset_counters()
-        if scenario == "bidi_sync_full":
-            res = fl.run_scenario(scenario, rounds=rounds,
-                                  model=models.vgg11_thinned(),
-                                  splits=splits, device="cuda")
-        else:
-            res = fsfl.run_federated(models.vgg11_thinned(), cfg, splits,
-                                     rounds, bidirectional=True,
-                                     device="cuda")
-        torch.cuda.synchronize()
-        count = la.LAUNCHES["level_assign"]
-        check_sm(sm, scenario, splits.num_clients, rounds)
-        bidi_records(torch, scenario, res, splits, rounds_out,
-                     splits.num_clients)
-        want = (splits.num_clients + 1) * rounds
-        print(f"  {scenario} launches: level_assign {count} "
-              f"({count / rounds:.0f} a round: one a client and one on "
-              f"the downlink)")
-        if count != want:
-            fail(f"{scenario}: level_assign launched {count} times, "
-                 f"expected {want}")
-        launches[scenario] = count
+    for scenario, run in (
+            ("run_federated bidirectional",
+             lambda: fsfl.run_federated(models.vgg11_thinned(), cfg, splits,
+                                        2, bidirectional=True,
+                                        device="cuda")),
+            ("bidi_sync_full",
+             lambda: fl.run_scenario("bidi_sync_full", rounds=1,
+                                     model=models.vgg11_thinned(),
+                                     splits=splits, device="cuda"))):
+        out = run_path(torch, mods, rounds_mod, scenario, run, want, n, 2,
+                       rounds_out, bidirectional=True)
+        launches[scenario] = path_total(out, "level_assign")
     return launches
 
 
@@ -1762,56 +2020,76 @@ def fsfl_dyn_config(protocol_mod, rounds: int):
         scale_lr=2e-2, scale_subepochs=2, total_rounds=rounds)
 
 
-def path_b(torch, rs, sm, sparsify_mod, protocol_mod, fsfl, models, splits,
-           rounds_out):
+def path_b(torch, mods, rounds_mod, sparsify_mod, protocol_mod, fsfl,
+           models, splits, rounds_out):
     """Path B, the adaptive Eqs. 2+3 setting, bidirectional: 2 rounds of
     run_federated(bidirectional=True) with fsfl_dyn; row_stats once per
     client and on the downlink, each launch over the 10 weight views.
     Returns (launches, the first client's captured row_stats views)."""
-    rounds = 2
+    rs = mods[1]
+    n = splits.num_clients
     captured = capture_calls(sparsify_mod, "row_stats_leaves", 1,
                              lambda a, k: [w.clone() for w in a[0]])
-    rs.reset_counters()
-    sm.reset_counters()
-    res = fsfl.run_federated(models.vgg11_thinned(),
-                             fsfl_dyn_config(protocol_mod, rounds), splits,
-                             rounds, bidirectional=True, device="cuda")
-    torch.cuda.synchronize()
-    count = rs.LAUNCHES["row_stats"]
-    check_sm(sm, "fsfl_dyn bidirectional", splits.num_clients, rounds)
-    sparsify_mod.row_stats_leaves = rs.row_stats_leaves
-    bidi_records(torch, "fsfl_dyn bidirectional", res, splits, rounds_out,
-                 splits.num_clients)
-    want = (splits.num_clients + 1) * rounds
-    print(f"  fsfl_dyn bidirectional launches: row_stats {count} "
-          f"({count / rounds:.0f} a round: one per client and one on the "
-          f"downlink, each over {VGG_WEIGHTS} weight views)")
-    if count != want:
-        fail(f"fsfl_dyn: row_stats launched {count} times, expected {want}")
-    return count, captured
+    try:
+        out = run_path(
+            torch, mods, rounds_mod, "fsfl_dyn bidirectional",
+            lambda: fsfl.run_federated(
+                models.vgg11_thinned(), fsfl_dyn_config(protocol_mod, 2),
+                splits, 2, bidirectional=True, device="cuda"),
+            {"row_stats": n + 1, **sm_per_round(n)}, n, 2, rounds_out,
+            bidirectional=True)
+    finally:
+        sparsify_mod.row_stats_leaves = rs.row_stats_leaves
+    return path_total(out, "row_stats"), captured
 
 
-def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
-           splits, rounds_out):
+def path_c(torch, mods, rounds_mod, fl, codecs_mod, models, splits,
+           rounds_out):
     """Path C, the int8 broadcast: cohorts of 4, int8-blockscale on both
-    legs; the server's params after each apply are held bitwise against
-    the host decode of the broadcast payload plus the old params.
-    Returns (delta_apply launches, the first downlink's captured residual
-    and apply calls, checked leaves)."""
-    from repro_torch.tree import items, sorted_items
+    legs, 2 rounds; ``delta_apply`` twice a round (the downlink's residual
+    and the server's apply), the server's params after each apply held
+    bitwise against the host decode of the broadcast payload plus the old
+    params.  Returns (delta_apply launches, the first downlink's captured
+    residual and apply calls, checked leaves)."""
+    da = mods[2]
     rounds = 2
     captured = capture_calls(rounds_mod, "delta_apply_leaves", 2,
                              lambda a, k: tuple([x.clone() for x in col]
                                                 for col in a[:3]) + (a[3],))
-    payloads = []
+    payloads, applied, restore = spy_broadcasts(codecs_mod, rounds_mod)
+    try:
+        out = run_path(
+            torch, mods, rounds_mod, "int8 bidirectional k4",
+            lambda: fl.run_simulation(
+                models.vgg11_thinned(),
+                fl.build_protocol(fl.get_scenario("codec_int8_k4"), rounds),
+                splits, rounds, engine=fl.EngineConfig(
+                    sampling=fl.SamplingConfig(cohort_size=4),
+                    codec="int8-blockscale", bidirectional=True),
+                device="cuda"),
+            {"delta_apply": 2, "delta_compress": 5, "level_assign": 5,
+             **sm_per_round(4)}, 4, 2, rounds_out, up=4 * PAYLOAD_BYTES,
+            down=4 * DOWN_PAYLOAD_BYTES)
+    finally:
+        restore()
+        rounds_mod.delta_apply_leaves = da.delta_apply_leaves
+    checked = check_broadcast_applies(codecs_mod, "int8 bidirectional",
+                                      payloads, applied, rounds)
+    return path_total(out, "delta_apply"), captured, checked
+
+
+def spy_broadcasts(codecs_mod, rounds_mod):
+    """Keep each int8 broadcast payload as the clients' device sections
+    read it, and the server's params before and after each int8 apply, on
+    the host; returns (payloads, applies, a function that restores)."""
+    from repro_torch.tree import items
+    payloads, applied = [], []
     orig_sections = codecs_mod.Int8BlockScaleCodec.device_sections
+    orig_apply = rounds_mod.Broadcast.apply
 
     def device_sections(self, payload, spec, device):
         payloads.append((payload, spec))
         return orig_sections(self, payload, spec, device)
-
-    applied = []
-    orig_apply = rounds_mod.Broadcast.apply
 
     def apply(self, params):
         out = orig_apply(self, params)
@@ -1820,39 +2098,24 @@ def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
                             {k: v.cpu() for k, v in items(out)}))
         return out
 
+    def restore():
+        codecs_mod.Int8BlockScaleCodec.device_sections = orig_sections
+        rounds_mod.Broadcast.apply = orig_apply
+
     codecs_mod.Int8BlockScaleCodec.device_sections = device_sections
     rounds_mod.Broadcast.apply = apply
-    for mod in (da, dc, la, sm):
-        mod.reset_counters()
-    res = fl.run_simulation(
-        models.vgg11_thinned(),
-        fl.build_protocol(fl.get_scenario("codec_int8_k4"), rounds), splits,
-        rounds, engine=fl.EngineConfig(
-            sampling=fl.SamplingConfig(cohort_size=4),
-            codec="int8-blockscale", bidirectional=True), device="cuda")
-    torch.cuda.synchronize()
-    counts = {"delta_apply": da.LAUNCHES["delta_apply"],
-              **dc.LAUNCHES, "level_assign": la.LAUNCHES["level_assign"]}
-    check_sm(sm, "int8 bidirectional k4", 4, rounds)
-    codecs_mod.Int8BlockScaleCodec.device_sections = orig_sections
-    rounds_mod.Broadcast.apply = orig_apply
-    rounds_mod.delta_apply_leaves = da.delta_apply_leaves
-    bidi_records(torch, "int8 bidirectional k4", res, splits, rounds_out, 4)
-    for rec in res.records:
-        if rec.up_bytes != 4 * PAYLOAD_BYTES:
-            fail(f"int8 bidirectional: up_bytes {rec.up_bytes}")
-        if rec.down_bytes != 4 * DOWN_PAYLOAD_BYTES:
-            fail(f"int8 bidirectional: down_bytes {rec.down_bytes} != "
-                 f"{4 * DOWN_PAYLOAD_BYTES}")
-    print(f"  int8 bidirectional k4 launches: {counts}")
-    want = {"delta_apply": 2 * rounds, "delta_compress":
-            5 * rounds, "delta_compress_batch": 0,
-            "level_assign": 5 * rounds}
-    if counts != want:
-        fail(f"int8 bidirectional: launches {counts}, expected {want}")
+    return payloads, applied, restore
+
+
+def check_broadcast_applies(codecs_mod, label: str, payloads, applied,
+                            rounds: int) -> int:
+    """The server's params after each int8 apply, bitwise the host decode
+    of that round's broadcast plus the params before; returns the leaves
+    checked."""
+    from repro_torch.tree import sorted_items
     if len(applied) != rounds or len(payloads) != rounds:
-        fail(f"int8 bidirectional: {len(applied)} applies and "
-             f"{len(payloads)} broadcast payloads in {rounds} rounds")
+        fail(f"{label}: {len(applied)} applies and {len(payloads)} "
+             f"broadcast payloads in {rounds} rounds")
     checked = 0
     for (before, after), (payload, spec) in zip(applied, payloads):
         decoded = dict(sorted_items(codecs_mod.Int8BlockScaleCodec()
@@ -1861,13 +2124,12 @@ def path_c(torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models,
             want_np = w.numpy() + decoded[path]
             if not (after[path].numpy().view("int32")
                     == want_np.view("int32")).all():
-                fail(f"int8 bidirectional: server param {path} is not the "
-                     f"host decode plus add")
+                fail(f"{label}: server param {path} is not the host decode "
+                     f"plus add")
             checked += 1
-    print(f"  int8 bidirectional: the server's params after {rounds} "
-          f"applies bitwise equal to the host decode plus add "
-          f"({checked} leaves)")
-    return counts["delta_apply"], captured, checked
+    print(f"  {label}: the server's params after {rounds} applies bitwise "
+          f"equal to the host decode plus add ({checked} leaves)")
+    return checked
 
 
 def da_main_path(torch, da, captured) -> dict:
@@ -2494,9 +2756,11 @@ def server_gain(fl, name: str) -> float:
     return opt.lr / opt.eps
 
 
-def repeat_small_runs(torch, fl, rounds_mod, name: str):
-    """Two runs of scenario ``name`` on the tiny VGG on the card, with the
-    algorithms the port selects (no context of this script's around them):
+def repeat_small_runs(torch, fl, rounds_mod, name: str, model=None,
+                      splits=None):
+    """Two runs of scenario ``name`` on the tiny VGG (or on ``model`` and
+    ``splits``) on the card, with the algorithms the port selects (no
+    context of this script's around them):
     every payload put on the wire, up and down, and the server's params,
     scales and BN state must be equal bit for bit.  Returns (report,
     failures)."""
@@ -2527,7 +2791,8 @@ def repeat_small_runs(torch, fl, rounds_mod, name: str):
         codecs_mod.NncCabacCodec.decode_batch = decode_batch
         codecs_mod.Int8BlockScaleCodec.device_sections = device_sections
         try:
-            res = record_small_run(torch, fl, rounds_mod, name, "cuda")[0]
+            res = record_small_run(torch, fl, rounds_mod, name, "cuda",
+                                   model, splits)[0]
         finally:
             codec_mod.Codec.decode = dec0
             codecs_mod.NncCabacCodec.decode_batch = nnc0
@@ -2556,6 +2821,476 @@ def repeat_small_runs(torch, fl, rounds_mod, name: str):
               "cudnn_deterministic": torch.backends.cudnn.deterministic,
               "cudnn_benchmark": torch.backends.cudnn.benchmark}
     return report, failures
+
+
+# ------------------------------------------------------------ slice 10
+
+RESNET_LEAVES, RESNET_WEIGHTS = 55, 20   # resnet18_small(20, 3)
+VGG16_LEAVES, VGG16_WEIGHTS = 34, 12     # vgg16_tiny(2, 1)
+RESNET_INT8_BYTES = 1_337_044    # resnet18_small's v1 int8 payload
+RESNET_DOWN_BYTES = 1_330_296    # its v1 int8 broadcast: params only
+SLICE10_N = (20, 2)              # the ResNet's fc, vgg16_tiny's fc1
+
+
+def leaf_shapes(torch, model) -> list[tuple]:
+    params, _ = model.init(torch.Generator().manual_seed(0))
+    return [tuple(v.shape) for d in params.values() for v in d.values()]
+
+
+def int8_leaves(torch, gen, p_shapes, s_shapes, k: int):
+    """(k, ...) params leaves on the card, 90%-sparse deltas, and scales
+    leaves: (k, M) of a weight of M rows, (k,) of a placeholder."""
+    p = [(1e-3 * torch.randn((k,) + sh, generator=gen)
+          * (torch.rand((k,) + sh, generator=gen) < 0.1)).cuda()
+         for sh in p_shapes]
+    s = [(1e-5 * torch.randn((k,) + sh[:1] if len(sh) >= 2 else (k,),
+                             generator=gen)).cuda() for sh in s_shapes]
+    return p, s
+
+
+def slice10_kernel_phase(torch, dc, la, da, rs, sm, models):
+    """Every grouped kernel against its plain version on the leaves of
+    ``resnet18_small(20, 3)`` and ``vgg16_tiny(2, 1)``: the int8 encode of a
+    ResNet message (110 entries), a VGG16 message (68) and a ResNet cohort
+    of 4, each in two launches, and of 70 and 64 params entries (the split
+    inside the params and at the scales) bitwise; ``level_assign_leaves``
+    on the 55 and 34 leaves of a client, bitwise; ``delta_apply_leaves`` on
+    a ResNet broadcast's 55 leaves, bitwise; ``row_stats_leaves`` on the 20
+    and 12 weight views (rows of 9 in VGG16's first convolution) within
+    rtol 1e-6 and bitwise to one-view launches, one launch each; and
+    ``scaled_matmul`` at N = 20 and 2 (K = 128, M = 32, 120, 960), every
+    direction and backward subset within the float32 error bound, twice to
+    the same bits.  Each kernel is then timed on the ResNet's inputs.
+    Returns (checks, timings)."""
+    gen = torch.Generator().manual_seed(10)
+    resnet = leaf_shapes(torch, models.resnet18_small(20, 3))
+    vgg16 = leaf_shapes(torch, models.vgg16_tiny(2, 1))
+    if len(resnet) != RESNET_LEAVES or len(vgg16) != VGG16_LEAVES:
+        fail(f"{len(resnet)} resnet18_small and {len(vgg16)} vgg16_tiny "
+             f"leaves")
+    checks, timings = 0, {}
+    cases = (("a resnet18_small message", resnet, resnet, 1, "message"),
+             ("a vgg16_tiny message", vgg16, vgg16, 1, None),
+             ("a resnet18_small cohort of 4", resnet, resnet, 4, "cohort"),
+             ("70 params entries (the split inside them)",
+              (resnet * 2)[:70], resnet[:6], 1, None),
+             ("64 params entries (the split at the scales)",
+              (resnet * 2)[:64], resnet[:20], 1, None))
+    for what, p_shapes, s_shapes, k, timed in cases:
+        p, s = int8_leaves(torch, gen, p_shapes, s_shapes, k)
+        dc.reset_counters()
+        checks += encode_compare(torch, dc, p, s, k > 1, what)
+        launches, entries = sum(dc.LAUNCHES.values()), len(p) + len(s)
+        if launches != 2:
+            fail(f"int8_encode_leaves made {launches} launches for {what} "
+                 f"({entries} entries)")
+        if timed:
+            sizes = [math.prod(sh) for sh in p_shapes]
+            s_sizes = [t.shape[1] if t.ndim > 1 else 1 for t in s]
+            timings[f"int8_encode_{timed}"] = dict(
+                **kernel_times(torch, lambda p=p, s=s, k=k:
+                               dc.int8_encode_leaves(p, s, 0.0, 128,
+                                                     batched=k > 1),
+                               lambda p=p, s=s: dc.int8_encode_leaves_plain(
+                                   p, s, 0.0, 128)),
+                bound=encode_bound_ms(sizes, s_sizes, k, 128),
+                entries=entries, rows=k, launches=launches)
+    print(f"kernel phase: {checks} int8_encode_leaves bodies on the "
+          f"resnet18_small and vgg16_tiny leaves, bitwise to plain, two "
+          f"launches each")
+    for name, shapes in (("resnet18_small", resnet), ("vgg16_tiny", vgg16)):
+        d, r, th, steps = la_leaf_inputs(torch, gen, shapes)
+        la_group_compare(torch, la, d, r, th, steps)
+        checks += 1
+        if name == "resnet18_small":
+            n = sum(x.numel() for x in d)
+            timings["level_assign"] = dict(
+                **kernel_times(torch,
+                               lambda: la.level_assign_leaves(d, r, th, steps),
+                               lambda: la.level_assign_leaves_plain(
+                                   d, r, th, steps)),
+                bound=la_bound_ms(n), elements=n, leaves=len(d))
+    sizes = [math.prod(sh) for sh in resnet]
+    ws = [(0.1 * torch.randn(sh, generator=gen)).cuda() for sh in resnet]
+    qs = [torch.randint(-127, 128, (n,), generator=gen,
+                        dtype=torch.int8).cuda() for n in sizes]
+    ss = [(1e-3 * torch.rand(-(-n // 128), generator=gen) + 1e-6).cuda()
+          for n in sizes]
+    for coef in (1.0, -1.0):
+        da.reset_counters()
+        got = da.delta_apply_leaves(ws, qs, ss, coef)
+        if da.LAUNCHES["delta_apply"] != 1:
+            fail(f"delta_apply_leaves made {da.LAUNCHES['delta_apply']} "
+                 f"launches for {len(ws)} leaves")
+        want = da.delta_apply_leaves_plain(ws, qs, ss, coef, 128)
+        torch.cuda.synchronize()
+        if not all(bits_equal(torch, g, w) for g, w in zip(got, want)):
+            fail(f"delta_apply_leaves disagrees with its plain version on "
+                 f"the resnet18_small leaves (coef {coef})")
+        checks += 1
+    timings["delta_apply"] = dict(
+        **kernel_times(torch, lambda: da.delta_apply_leaves(ws, qs, ss, -1.0),
+                       lambda: da.delta_apply_leaves_plain(ws, qs, ss, -1.0,
+                                                           128)),
+        bound=da_bound_ms(sum(sizes)), elements=sum(sizes), leaves=len(ws))
+    worst = 0.0
+    for name, shapes, n_views in (("resnet18_small", resnet, RESNET_WEIGHTS),
+                                  ("vgg16_tiny", vgg16, VGG16_WEIGHTS)):
+        views = [(1e-3 * torch.randn((sh[0], math.prod(sh[1:])),
+                                     generator=gen)).cuda()
+                 for sh in shapes if len(sh) >= 2]
+        if len(views) != n_views:
+            fail(f"{name} has {len(views)} weight views, not {n_views}")
+        rs.reset_counters()
+        got = rs.row_stats_leaves(views)
+        if rs.LAUNCHES["row_stats"] != 1:
+            fail(f"row_stats_leaves made {rs.LAUNCHES['row_stats']} launches "
+                 f"for the {len(views)} {name} views")
+        for v, g in zip(views, got):
+            if not bits_equal(torch, g, rs.row_stats(v)):
+                fail(f"row_stats_leaves differs from a one-view launch at "
+                     f"{tuple(v.shape)}")
+            worst = max(worst, rs_compare(torch, rs, v))
+            checks += 1
+        if name == "resnet18_small":
+            timings["row_stats"] = dict(
+                **kernel_times(torch, lambda: rs.row_stats_leaves(views),
+                               lambda: rs.row_stats_leaves_plain(views)),
+                bound=(sum(rs_bound_ms(*v.shape)[0] for v in views),
+                       rs_bound_ms(*views[0].shape)[1]),
+                views=len(views))
+        else:
+            rows9 = [tuple(v.shape) for v in views if v.shape[1] == 9]
+            if rows9 != [(32, 9)]:
+                fail(f"vgg16_tiny's views of rows of 9: {rows9}")
+    print(f"kernel phase: level_assign_leaves on {RESNET_LEAVES} and "
+          f"{VGG16_LEAVES} leaves and delta_apply_leaves on "
+          f"{RESNET_LEAVES} leaves bitwise in one launch; row_stats_leaves "
+          f"on {RESNET_WEIGHTS} and {VGG16_WEIGHTS} views (the (32, 9) view "
+          f"too) in one launch, max relative difference {worst:.3g}")
+    worst = dict.fromkeys(sm.DIRECTIONS + ("backward",), 0.0)
+    for m in (32, 120, 960):
+        for n in SLICE10_N:
+            count, (x, w, s, dy) = sm_check_shape(torch, sm, gen, m, n, 128,
+                                                  worst)
+            checks += count
+            if (m, n) == (32, 20):
+                timings["scaled_matmul"] = dict(
+                    **kernel_times(torch, lambda: sm.forward(x, w, s),
+                                   lambda: sm.scaled_matmul_plain(x, w, s)),
+                    library_ms=time_ms(torch, lambda: SM_LIBRARY["forward"](
+                        torch, x, w, s)),
+                    bound=sm_bound_ms(("forward",), m, n, 128),
+                    mnk=[m, n, 128])
+                flags = (True, True, False)
+                timings["scaled_matmul_backward"] = dict(
+                    **kernel_times(
+                        torch, lambda: sm.backward(dy, x, w, s, *flags),
+                        lambda: [sm.dx_plain(dy, w, s), sm.dw_plain(dy, x, s)]),
+                    library_ms=time_ms(torch, lambda: [
+                        SM_LIBRARY[d](torch, dy, x, w, s) for d in ("dx",
+                                                                    "dw")]),
+                    bound=sm_bound_ms(("dx", "dw"), m, n, 128),
+                    mnk=[m, n, 128], grads=["dx", "dw"])
+    print(f"kernel phase: scaled_matmul at N = {SLICE10_N} (M = 32, 120, "
+          f"960; K = 128) within the float32 error bound, twice to the same "
+          f"bits; largest share of it used: "
+          f"{ {d: round(v, 4) for d, v in worst.items()} }")
+    for name, t in timings.items():
+        print(f"  {name} on resnet18_small's inputs: kernel {t['ms']:.4f} ms "
+              f"(whole wrapper call {t['call_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms"
+              + (f", library {t['library_ms']:.4f} ms"
+                 if "library_ms" in t else "")
+              + f", bound {t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    return checks, timings
+
+
+def slice10_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod,
+                  sparsify_mod, protocol_mod, data, models, rounds_out):
+    """Paths I to L at full width, 6,400 images over 8 clients (560
+    training and 120 validation images a client, 960 to test), batch 32:
+
+    * I: ``resnet18_small(20, 3)`` on VOC-like data, 2 rounds of
+      ``run_federated`` (fsfl, FedAvg, nnc-cabac): 8 ``level_assign`` and
+      433/408 ``scaled_matmul`` launches a round (one dense layer);
+    * J: ``vgg16_tiny(2, 1)`` on X-ray-like data, 2 rounds likewise: 8
+      ``level_assign`` and 866/816 ``scaled_matmul`` a round;
+    * K: the ResNet with int8-blockscale on both legs, cohorts of 4, the
+      device cohort encode, 1 round: the cohort's 110 entries in 2
+      ``int8_encode_leaves`` launches, the broadcast's 55 in 1, 2
+      ``delta_apply``, 5 ``level_assign``, 217/204 ``scaled_matmul``;
+      payloads of 1,337,044 bytes up and 1,330,296 down, and the server's
+      params bitwise the host decode of the broadcast plus the params
+      before;
+    * L: the ResNet with ``fsfl_dyn``, bidirectional, 1 round: 9
+      ``row_stats`` launches (one a client and one on the downlink), each
+      over the 20 weight views, and 433/408 ``scaled_matmul``."""
+    la, rs, da, dc, sm = mods
+    voc = full_width_splits(torch, data, data.synthetic.VOC_LIKE)
+    xray = full_width_splits(torch, data, data.synthetic.XRAY_LIKE)
+    out = {}
+    cfg = fl.build_protocol(fl.get_scenario("sync_full_fedavg_fsfl"), 2)
+
+    out["I"] = run_path(
+        torch, mods, rounds_mod, "path I resnet18_small voc_like",
+        lambda: fsfl.run_federated(models.resnet18_small(20, 3), cfg, voc, 2,
+                                   device="cuda"),
+        {"level_assign": 8, **sm_per_round(8, 1)}, 8, 1, rounds_out)
+    out["J"] = run_path(
+        torch, mods, rounds_mod, "path J vgg16_tiny xray_like",
+        lambda: fsfl.run_federated(models.vgg16_tiny(2, 1), cfg, xray, 2,
+                                   device="cuda"),
+        {"level_assign": 8, **sm_per_round(8, 2)}, 8, 2, rounds_out)
+
+    launch0 = dc._launch
+    tables = capture_calls(dc, "_launch", 100,
+                           lambda a, k: (len(a[0]), a[0][0].shape[0]))
+    payloads, applied, restore = spy_broadcasts(codecs_mod, rounds_mod)
+    try:
+        out["K"] = run_path(
+            torch, mods, rounds_mod, "path K resnet18_small int8 both legs",
+            lambda: fl.run_simulation(
+                models.resnet18_small(20, 3),
+                fl.build_protocol(fl.get_scenario("codec_int8_k4"), 1), voc,
+                1, engine=fl.EngineConfig(
+                    sampling=fl.SamplingConfig(cohort_size=4),
+                    codec="int8-blockscale", device_encode=True,
+                    bidirectional=True), device="cuda"),
+            {"level_assign": 5, "delta_apply": 2, "delta_compress": 1,
+             "delta_compress_batch": 2, **sm_per_round(4, 1)}, 4, 1, rounds_out,
+            up=4 * RESNET_INT8_BYTES, down=4 * RESNET_DOWN_BYTES)
+    finally:
+        restore()
+        dc._launch = launch0
+    if tables != [(2 * RESNET_LEAVES, 4), (RESNET_LEAVES, 1)]:
+        fail(f"path K: int8 encodes (entries, rows) {tables}, expected the "
+             f"cohort's {2 * RESNET_LEAVES} entries over 4 rows and the "
+             f"broadcast's {RESNET_LEAVES} over 1")
+    out["K"]["encodes"] = tables
+    out["K"]["leaves_checked"] = check_broadcast_applies(
+        codecs_mod, "path K", payloads, applied, 1)
+
+    views = capture_calls(sparsify_mod, "row_stats_leaves", 100,
+                          lambda a, k: len(a[0]))
+    try:
+        out["L"] = run_path(
+            torch, mods, rounds_mod, "path L resnet18_small fsfl_dyn bidi",
+            lambda: fsfl.run_federated(
+                models.resnet18_small(20, 3),
+                fsfl_dyn_config(protocol_mod, 1), voc, 1,
+                bidirectional=True, device="cuda"),
+            {"row_stats": 9, **sm_per_round(8, 1)}, 8, 1, rounds_out)
+    finally:
+        sparsify_mod.row_stats_leaves = rs.row_stats_leaves
+    if views != [RESNET_WEIGHTS] * 9:
+        fail(f"path L: row_stats_leaves took {views} views a call, expected "
+             f"{RESNET_WEIGHTS} in each of 9")
+    return out
+
+
+def small_resnet_setting(torch, data, models):
+    """The reduced ResNet ``make_resnet("resnet_t", [8, 16, 32, 32], 1,
+    20)`` (a projection shortcut in stages 1 and 2, a strided one in stage
+    3) and 1,280 VOC-like images over 8 clients (3 local steps a client)."""
+    x, y = data.synthetic.make_image_dataset(
+        torch.Generator().manual_seed(0), data.synthetic.VOC_LIKE,
+        SMALL_SAMPLES)
+    splits = data.federated.split_federated(torch.Generator().manual_seed(1),
+                                            x, y, 8)
+    return models.make_resnet("resnet_t", [8, 16, 32, 32], 1, 20), splits
+
+
+def resnet_model_check(torch, model, splits) -> dict:
+    """The reduced ResNet on the card against the CPU on the first 32
+    training images of client 0, from one init with scales off 1: logits
+    and new BN state in training and evaluation mode within rtol and atol
+    1e-5 of the CPU's (float32 sums in another order); the gradients of a
+    weight step (params, training mode) and of a scale step (params and
+    scales, evaluation mode, ``fc``'s scale inside its product on
+    ``scaled_matmul``) each within ``GRAD_EVENT`` of its norm of the CPU's
+    float64 evaluation: float32 sums stay far inside it, a wrong padding,
+    shortcut or scale far outside, as would a ReLU input within float
+    noise of zero routing the backward another way (none on this batch).
+    Returns the largest shares used."""
+    import torch.nn.functional as F
+    from repro_torch.core import scaling
+    from repro_torch.tree import sorted_items, tree_map
+    params, state = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    scales = tree_map(lambda s: s + 0.05 * torch.randn(s.shape, generator=gen)
+                      if s.ndim else s, scaling.init_scales(params))
+    x, y = splits.client_x[0][:32], splits.client_y[0][:32]
+
+    def on(tree, device, dtype=torch.float32):
+        return tree_map(lambda t: t.to(device, dtype, copy=True), tree)
+
+    def run(device, dtype, train, grads):
+        p, s, st = (on(t, device, dtype) for t in (params, scales, state))
+        if grads:
+            p, s = (tree_map(lambda t: t.requires_grad_(True), t)
+                    for t in (p, s))
+        if dtype == torch.float32:    # fc's scale inside its product
+            logits, new = model.apply(scaling.apply_scales_tree(p, s), st,
+                                      x.to(device, dtype), train=train,
+                                      scales=s)
+        else:                         # every leaf scaled first
+            logits, new = model.apply(tree_map(scaling.apply_scale, p, s), st,
+                                      x.to(device, dtype), train=train)
+        if not grads:
+            return {"logits": logits, **dict(sorted_items(new))}
+        F.cross_entropy(logits, y.to(device)).backward()
+        out = {f"params/{k}": v.grad for k, v in sorted_items(p)}
+        if not train:
+            out.update({f"scales/{k}": v.grad for k, v in sorted_items(s)
+                        if v.ndim})
+        return out
+
+    report = {}
+    for train in (True, False):
+        card, cpu = run("cuda", torch.float32, train, False), run(
+            "cpu", torch.float32, train, False)
+        worst = 0.0
+        for k, v in cpu.items():
+            got = card[k].detach().cpu()
+            err = (got - v).abs() - 1e-5 * v.abs()
+            worst = max(worst, float(((got - v).abs() / (
+                1e-5 + 1e-5 * v.abs())).max()))
+            if float(err.max()) > 1e-5:
+                fail(f"resnet_t forward (train={train}): {k} off the CPU's "
+                     f"by {float((got - v).abs().max()):.3g}")
+        report[f"forward train={train}"] = worst
+        card, exact = run("cuda", torch.float32, train, True), run(
+            "cpu", torch.float64, train, True)
+        worst = largest = 0.0
+        for k, v in exact.items():
+            diff = card[k].cpu().double() - v
+            share = float(diff.norm() / v.norm().clamp_min(1e-300))
+            worst = max(worst, share)
+            largest = max(largest, float(diff.abs().max()
+                                         / v.abs().max().clamp_min(1e-300)))
+            if share > GRAD_EVENT:
+                fail(f"resnet_t {'weight' if train else 'scale'} step: the "
+                     f"card's gradient of {k} is {share:.3g} of its norm "
+                     f"off the CPU's float64 one")
+        report[f"gradients train={train} (of the norm)"] = worst
+        report[f"gradients train={train} (of the largest)"] = largest
+    print(f"  resnet_t on the card against the CPU: forward within rtol and "
+          f"atol 1e-5, gradients within {GRAD_EVENT} of each leaf's norm "
+          f"of the float64 ones; largest shares "
+          f"{ {k: float(f'{v:.3g}') for k, v in report.items()} }")
+    return report
+
+
+def resnet_engine_check(torch, fl, rounds_mod, model, splits) -> dict:
+    """Two rounds of ``sync_full_fedavg_fsfl`` on the reduced ResNet on
+    the CPU, then on the card with each round teacher-forced from the
+    CPU's: its client outputs (levels, reconstructions, BN state,
+    persistent state) and the server state it starts from.  The card's
+    wire, aggregation, server step and evaluation on the ResNet's trees:
+    ``up_bytes`` equal, the server state after each round within 2 ulps of
+    the CPU's (the mean over the clients sums in another order), an ulp
+    taken of the larger of the value and the server's value before the
+    round (a weight and its update can cancel), test accuracy within one
+    test image."""
+    from repro_torch.tree import sorted_items, tree_map
+    s = fl.get_scenario("sync_full_fedavg_fsfl")
+    outs = []
+    train0 = rounds_mod.LocalTrain.train_cohort
+
+    def cpu_train(self, idx, batch_idx, server):
+        out = train0(self, idx, batch_idx, server)
+        outs.append((list(idx), out))
+        return out
+
+    def card_train(self, idx, batch_idx, server):
+        want_idx, out = outs[len(recs["cuda"])]
+        if list(idx) != want_idx:
+            fail(f"resnet_t engine check: cohort {list(idx)} on the card, "
+                 f"{want_idx} on the CPU")
+        out = tree_map(lambda t: t.cuda(), out)
+        self.state = out.persistent
+        return out
+
+    recs, servers = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
+    for device, train in (("cpu", cpu_train), ("cuda", card_train)):
+        eng = fl.FederatedEngine(model, fl.build_protocol(s, SMALL_ROUNDS),
+                                 splits, engine_cfg=fl.build_engine(s),
+                                 device=device)
+        rounds_mod.LocalTrain.train_cohort = train
+        if device == "cpu":
+            servers["initial"] = tree_map(lambda t: t.clone(), eng.server)
+        try:
+            for r in range(SMALL_ROUNDS):
+                if device == "cuda" and r:
+                    eng.server = tree_map(lambda t: t.cuda(),
+                                          servers["cpu"][r - 1])
+                recs[device].append(eng.run(1).records[0])
+                servers[device].append(tree_map(lambda t: t.cpu(),
+                                                eng.server))
+        finally:
+            rounds_mod.LocalTrain.train_cohort = train0
+    worst, n_test = 0.0, len(splits.test_y)
+    for r, (a, b) in enumerate(zip(recs["cpu"], recs["cuda"]), 1):
+        if b.up_bytes != a.up_bytes or abs(b.test_acc - a.test_acc) > (
+                1 / n_test + 1e-6):
+            fail(f"resnet_t engine check round {r}: up_bytes {b.up_bytes} "
+                 f"and test_acc {b.test_acc} on the card, {a.up_bytes} and "
+                 f"{a.test_acc} on the CPU")
+        before = servers["cpu"][r - 2] if r > 1 else servers["initial"]
+        for part in ("params", "scales", "bn_state"):
+            card = dict(sorted_items(getattr(servers["cuda"][r - 1], part)))
+            prev = dict(sorted_items(getattr(before, part)))
+            for path, v in sorted_items(getattr(servers["cpu"][r - 1],
+                                                part)):
+                ulp = torch.pow(2.0, torch.floor(torch.log2(torch.maximum(
+                    v.abs(), prev[path].abs()).clamp_min(1e-38))) - 23)
+                ulps = float(((card[path] - v).abs() / ulp).max())
+                worst = max(worst, ulps)
+                if ulps > 2.0:
+                    fail(f"resnet_t engine check round {r}: server "
+                         f"{part}/{path} {ulps:.3g} ulps off the CPU's")
+    out = {"up_bytes": [x.up_bytes for x in recs["cuda"]],
+           "test_acc": [x.test_acc for x in recs["cuda"]],
+           "server_ulps": worst}
+    print(f"  resnet_t engine on the card, each round from the CPU's server "
+          f"and client outputs: up_bytes {out['up_bytes']} equal, test_acc "
+          f"{out['test_acc']}, the server within {worst:.3g} ulps of the "
+          f"CPU's")
+    return out
+
+
+def resnet_own_training(torch, fl, rounds_mod, model, splits) -> dict:
+    """The reduced ResNet's own client training on the card against the
+    CPU: 2 rounds of ``sync_full_fedavg_fsfl`` on the CPU, then on the card
+    (cuDNN deterministic) with round 2 started from the CPU's server and
+    clients' state after round 1, held together round by round by
+    ``forced_round_check``; fails on any failure it reports.  The clients
+    counted apart a round are printed against ``MAX_COUNTED``, which this
+    model's float32 training does not keep on any two devices (PERF.md
+    §2): that count is reported, and not held here."""
+    name = "sync_full_fedavg_fsfl"
+    cfg = fl.build_protocol(fl.get_scenario(name), SMALL_ROUNDS)
+    cpu_log = record_small_run(torch, fl, rounds_mod, name, "cpu", model,
+                               splits)[1]
+    with deterministic_cudnn(torch):
+        card_log = record_small_run(torch, fl, rounds_mod, name, "cuda",
+                                    model, splits, forced=cpu_log)[1]
+    rounds, failures = forced_round_check(torch, cfg, cpu_log, card_log)
+    counted = [len(r["counted"]) for r in rounds]
+    print(f"  resnet_t own training on the card against the CPU, each round "
+          f"from the CPU's state: clients counted apart {counted} a round "
+          f"(compare_small_runs allows {MAX_COUNTED}: "
+          f"{'kept' if max(counted) <= MAX_COUNTED else 'NOT kept'}; "
+          f"every other bound held)")
+    print_forced("resnet_t card against CPU", rounds)
+    if failures:
+        fail("resnet_t own training: " + "; ".join(failures))
+    return {"counted": counted,
+            "causes": [{c["client"]: c["causes"] for c in r["counted"]}
+                       for r in rounds],
+            "flips": [r["flips"] for r in rounds],
+            "params_off": [r["params_off"] for r in rounds]}
 
 
 def main() -> int:
@@ -2609,6 +3344,9 @@ def main() -> int:
               + slice3_kernel_phase(torch, da, rs, models)
               + slice6_kernel_phase(torch, da, rs, models)
               + sm_kernel_phase(torch, sm))
+    s10_checks, s10_timings = slice10_kernel_phase(torch, dc, la, da, rs, sm,
+                                                   models)
+    checks += s10_checks
     t1 = phase("kernel phase", t1)
     splits = full_width_splits(torch, data)
     rounds_out = []
@@ -2623,8 +3361,9 @@ def main() -> int:
     cohorts = []
     orig_cohort = checked_cohort_encode(torch, codecs_mod, comms, row,
                                         tree_map, cohorts)
-    la_launches = nnc_slice_phase(torch, la, sm, fl, fsfl, models, splits,
-                                  rounds_out, cohorts)
+    mods = (la, rs, da, dc, sm)
+    la_launches = nnc_slice_phase(torch, mods, rounds_mod, fl, fsfl, models,
+                                  splits, rounds_out, cohorts)
     codecs_mod.NncCabacCodec.encode_cohort = orig_cohort
     stages_mod.level_assign_leaves = la.level_assign_leaves
     for d, fn in sm_originals.items():
@@ -2633,21 +3372,21 @@ def main() -> int:
 
     # the int8 uplink
     captured, original = capture_encodes(torch, device_mod)
-    launches = int8_slice_phase(torch, dc, la, sm, fl, models, splits,
+    launches = int8_slice_phase(torch, mods, rounds_mod, fl, models, splits,
                                 rounds_out)
     device_mod.int8_encode_leaves = original
     t1 = phase("int8 slice phase", t1)
 
     # slice 3: bidirectional compression (paths A, B and C)
-    a_launches = path_a(torch, la, sm, fl, fsfl, models, splits, rounds_out)
+    a_launches = path_a(torch, mods, rounds_mod, fl, fsfl, models, splits,
+                        rounds_out)
     t1 = phase("path A (bidirectional, nnc-cabac)", t1)
-    rs_launches, rs_captured = path_b(torch, rs, sm, sparsify_mod,
+    rs_launches, rs_captured = path_b(torch, mods, rounds_mod, sparsify_mod,
                                       protocol_mod, fsfl, models, splits,
                                       rounds_out)
     t1 = phase("path B (bidirectional, fsfl_dyn)", t1)
     da_launches, da_captured, c_checked = path_c(
-        torch, da, dc, la, sm, fl, rounds_mod, codecs_mod, models, splits,
-        rounds_out)
+        torch, mods, rounds_mod, fl, codecs_mod, models, splits, rounds_out)
     t1 = phase("path C (bidirectional, int8)", t1)
 
     # slice 8: partial updates, wire schema v2 and the channel
@@ -2672,6 +3411,13 @@ def main() -> int:
                        "async_windowed_b4", 1)
     t1 = phase("path H (async_windowed_b4)", t1)
 
+    # slice 10: the paper's ResNet on VOC-like data and VGG16 on X-ray-like
+    # data (paths I to L)
+    s10 = slice10_paths(torch, mods, fl, fsfl, rounds_mod,
+                        codecs_mod, sparsify_mod, protocol_mod, data, models,
+                        rounds_out)
+    t1 = phase("paths I to L (resnet18_small, vgg16_tiny)", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
@@ -2681,6 +3427,13 @@ def main() -> int:
     cpu_runs = {}
     small = {name: small_input_check(torch, fl, rounds_mod, name, cpu_runs)
              for name in SMALL_SCENARIOS}
+    model_t, splits_t = small_resnet_setting(torch, data, models)
+    resnet_t = {
+        "model": resnet_model_check(torch, model_t, splits_t),
+        "engine": resnet_engine_check(torch, fl, rounds_mod, model_t,
+                                      splits_t),
+        "own_training": resnet_own_training(torch, fl, rounds_mod, model_t,
+                                            splits_t)}
     t1 = phase("small-input checks", t1)
     repeat = {}
     for name in REPEATED:
@@ -2689,6 +3442,12 @@ def main() -> int:
         print(f"repeatability {name}: two card runs, {repeat[name]}")
         if failures:
             fail("; ".join(failures))
+    label = "resnet_t sync_full_fedavg_fsfl"
+    repeat[label], failures = repeat_small_runs(
+        torch, fl, rounds_mod, "sync_full_fedavg_fsfl", model_t, splits_t)
+    print(f"repeatability {label}: two card runs, {repeat[label]}")
+    if failures:
+        fail("; ".join(failures))
     t1 = phase("repeatability", t1)
     bidi_int8 = fl.Scenario("bidi_int8_k4", cohort_size=4,
                             codec="int8-blockscale", bidirectional=True)
@@ -2737,6 +3496,14 @@ def main() -> int:
             "device_ops": t["ops"], "pad_cat_device_ops": t["old_ops"]})
         if launches[name] < 1:
             fail(f"{name} was not launched on the main path")
+    def s10_launches(path, key):
+        return path_total(s10[path], key)
+
+    for k, part in zip(kernels, ("cohort", "message")):
+        k.update({"launches_path_k": s10_launches(
+            "K", "delta_compress_batch" if part == "cohort"
+            else "delta_compress"),
+            "resnet18_small": s10_timings[f"int8_encode_{part}"]})
     e_kernel = e_out["kernel"]
     kernels[0].update({
         "launches_path_e": e_out["launches"]["delta_compress_batch"],
@@ -2764,7 +3531,10 @@ def main() -> int:
         "launches_path_e": e_out["launches"]["level_assign"],
         "launches_path_f": f_out["level_assign"],
         "launches_path_g": g_out["level_assign"],
-        "launches_path_h": h_out["level_assign"]})
+        "launches_path_h": h_out["level_assign"],
+        **{f"launches_path_{p.lower()}": s10_launches(p, "level_assign")
+           for p in ("I", "J", "K")},
+        "resnet18_small": s10_timings["level_assign"]})
     if la_launches["sync_full_fedavg_fsfl"] < 1:
         fail("level_assign was not launched on the main path")
     kernels.append({
@@ -2777,7 +3547,9 @@ def main() -> int:
         "library_ms": None, "call_ms": da_timing["call_ms"],
         "leaves": VGG_LEAVES, "elements": da_timing["elements"],
         "per_leaf_launches_ms": da_timing["per_leaf_ms"],
-        "per_leaf_launches_call_ms": da_timing["per_leaf_call_ms"]})
+        "per_leaf_launches_call_ms": da_timing["per_leaf_call_ms"],
+        "launches_path_k": s10_launches("K", "delta_apply"),
+        "resnet18_small": s10_timings["delta_apply"]})
     kernels.append({
         "name": "row_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/row_stats.cu",
@@ -2791,7 +3563,9 @@ def main() -> int:
         "call_ms": rs_timing["call_ms"], "shapes": rs_timing["shapes"],
         "per_leaf_launches_ms": rs_timing["per_leaf_ms"],
         "per_leaf_launches_call_ms": rs_timing["per_leaf_call_ms"],
-        "keep_mask_near_tie_flips": rs_timing["flips"]})
+        "keep_mask_near_tie_flips": rs_timing["flips"],
+        "launches_path_l": s10_launches("L", "row_stats"),
+        "resnet18_small": s10_timings["row_stats"]})
     main_sm = SM_RUNS["sync_full_fedavg_fsfl"]
     runs = {label: dict(r) for label, r in SM_RUNS.items()}
     # the main path's most frequent shape: the train step's (32, 128) x
@@ -2814,7 +3588,8 @@ def main() -> int:
             "shapes", "mnk", "ms", "plain_ms", "library_ms", "call_ms",
             "bound")} for r in fwd],
         "launches_per_path": {label: r["forward"]
-                              for label, r in runs.items()}})
+                              for label, r in runs.items()},
+        "resnet18_small": s10_timings["scaled_matmul"]})
     bwd = sm_timing["backward"]
     first = next((r for r in bwd if r["mnk"] == [32, 128, 128]
                   and r["grads"] == ["dx", "dw"]), bwd[0])
@@ -2833,7 +3608,8 @@ def main() -> int:
             "shapes", "mnk", "grads", "ms", "plain_ms", "library_ms",
             "call_ms", "bound", "alone")} for r in bwd],
         "launches_per_path": {label: r["backward"]
-                              for label, r in runs.items()}})
+                              for label, r in runs.items()},
+        "resnet18_small": s10_timings["scaled_matmul_backward"]})
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")
@@ -2856,7 +3632,9 @@ def main() -> int:
             k: v for k, v in e_out.items() if k != "kernel"},
         "bnwire_v2_full": bn_out, "path_f_async_b4_fsfl": f_out,
         "path_g_noniid_dir1_k4_fedyogi": g_out,
-        "path_h_async_windowed_b4": h_out, "repeatability": repeat,
+        "path_h_async_windowed_b4": h_out,
+        "paths_i_to_l": s10, "resnet_t_small_input": resnet_t,
+        "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {dev}")

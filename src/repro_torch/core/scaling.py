@@ -13,7 +13,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.tree import map_with_path, tree_map
+from repro_torch.tree import leaves, map_with_path, tree_map
 
 ScalePredicate = Callable[[str, torch.Tensor], bool]
 
@@ -38,6 +38,12 @@ def scale_mask(params: Any,
                predicate: ScalePredicate = default_predicate) -> Any:
     """Tree of Python bools marking leaves that carry real scales."""
     return map_with_path(lambda path, leaf: predicate(path, leaf), params)
+
+
+def num_scale_params(scales: Any, mask: Any) -> int:
+    """Paper Table 1 ``#params_add``: the scale elements of the leaves that
+    carry real scales."""
+    return sum(s.numel() for s, m in zip(leaves(scales), leaves(mask)) if m)
 
 
 def apply_scale(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,8 @@ class ImageTask:
 
 
 CIFAR_LIKE = ImageTask("cifar_like", 10, 3)
+VOC_LIKE = ImageTask("voc_like", 20, 3)
+XRAY_LIKE = ImageTask("xray_like", 2, 1)
 
 
 def _smooth_prototypes(gen: torch.Generator, task: ImageTask) -> torch.Tensor:

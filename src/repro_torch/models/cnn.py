@@ -1,6 +1,7 @@
-"""CNN models used by the paper: the VGG family.
+"""CNN models used by the paper: the VGG and ResNet families.
 
-Port of ``repro.models.cnn`` (VGG only).  Conventions as in the reference:
+Port of ``repro.models.cnn`` (VGG and ResNet; MobileNetV2 not yet).
+Conventions as in the reference:
 
 * conv weights (O, I, Kh, Kw), dense weights (O, I): dim 0 is the filter /
   output-neuron axis the scaling factors and sparsifiers act on;
@@ -43,10 +44,25 @@ def conv_init(gen, out_c: int, in_c: int, k: int, device) -> dict:
                          math.sqrt(2.0 / (in_c * k * k)), device)}
 
 
-def conv_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-1 SAME convolution on NCHW activations."""
+def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: ``ceil(size / stride)``
+    outputs, the padding they need split with the smaller half before.  A
+    3x3 stride-2 convolution on an even size pads 0 before and 1 after,
+    where ``F.conv2d(padding=1)`` would pad 1 on each side."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_apply(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """SAME convolution on NCHW activations; the input is padded apart
+    only where SAME pads one side more than the other."""
     k = p["w"].shape[-1]
-    return F.conv2d(x, p["w"], padding=k // 2)
+    (top, bottom), (left, right) = (same_padding(n, k, stride)
+                                    for n in x.shape[2:])
+    if top == bottom and left == right:
+        return F.conv2d(x, p["w"], stride=stride, padding=(top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), p["w"],
+                    stride=stride)
 
 
 def dense_init(gen, out_d: int, in_d: int, device) -> dict:
@@ -145,3 +161,74 @@ def make_vgg(name: str, widths, num_classes: int, in_channels: int = 3,
 def vgg11_thinned(num_classes: int = 10, in_channels: int = 3) -> CNNModel:
     return make_vgg("vgg11_thinned", [32, 64, 128, 128, 128, 128, 128, 128],
                     num_classes, in_channels)
+
+
+def vgg16_tiny(num_classes: int = 2, in_channels: int = 1) -> CNNModel:
+    """The Chest X-ray setting's VGG16 (one input channel, 2 classes)."""
+    return make_vgg("vgg16_tiny",
+                    [32, 32, 64, 64, 128, 128, 128, 128, 128, 128],
+                    num_classes, in_channels, pool_after=(1, 3, 5, 7, 9))
+
+
+# ------------------------------------------------------------------ ResNet
+
+def make_resnet(name: str, widths, blocks_per_stage: int, num_classes: int,
+                in_channels: int = 3) -> CNNModel:
+    """ResNet18-style basic blocks, thinned for 32x32 inputs.  The first
+    block of every stage but the first has stride 2; a block whose width
+    changes has a 1x1 projection shortcut (``_proj``), one that keeps it
+    takes every ``stride``-th pixel."""
+
+    def init(gen: torch.Generator, device="cpu"):
+        device = torch.device(device)
+        params, state = {}, {}
+        params["stem"] = conv_init(gen, widths[0], in_channels, 3, device)
+        params["stem_bn"], state["stem_bn"] = bn_init(widths[0], device)
+        in_c = widths[0]
+        for si, w in enumerate(widths):
+            for bi in range(blocks_per_stage):
+                pre = f"s{si}b{bi}"
+                params[f"{pre}_c1"] = conv_init(gen, w, in_c, 3, device)
+                params[f"{pre}_bn1"], state[f"{pre}_bn1"] = bn_init(w, device)
+                params[f"{pre}_c2"] = conv_init(gen, w, w, 3, device)
+                params[f"{pre}_bn2"], state[f"{pre}_bn2"] = bn_init(w, device)
+                if in_c != w:
+                    params[f"{pre}_proj"] = conv_init(gen, w, in_c, 1, device)
+                in_c = w
+        params["fc"] = dense_init(gen, num_classes, widths[-1], device)
+        return params, state
+
+    def apply(params, state, x, train=False, scales=None):
+        """As ``make_vgg``'s apply: with ``scales``, ``fc`` applies its
+        per-row scale inside its product."""
+        new_state = dict(state)
+
+        def bn(name, x):
+            y, new_state[name] = bn_apply(params[name], state[name], x, train)
+            return y
+
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = F.relu(bn("stem_bn", conv_apply(params["stem"], x)))
+        for si in range(len(widths)):
+            for bi in range(blocks_per_stage):
+                pre = f"s{si}b{bi}"
+                stride = 2 if (bi == 0 and si > 0) else 1
+                h = F.relu(bn(f"{pre}_bn1", conv_apply(params[f"{pre}_c1"], x,
+                                                       stride)))
+                h = bn(f"{pre}_bn2", conv_apply(params[f"{pre}_c2"], h))
+                if f"{pre}_proj" in params:
+                    x = conv_apply(params[f"{pre}_proj"], x, stride)
+                elif stride != 1:
+                    x = x[:, :, ::stride, ::stride]
+                x = F.relu(h + x)
+        x = torch.mean(x, dim=(2, 3))  # global average pool
+        s = None if scales is None else scales["fc"]["w"]
+        return dense_apply(params["fc"], x, s), new_state
+
+    return CNNModel(name, init, apply)
+
+
+def resnet18_small(num_classes: int = 20, in_channels: int = 3) -> CNNModel:
+    """The paper's ResNet18 thinned to widths [32, 64, 128, 128]."""
+    return make_resnet("resnet18_small", [32, 64, 128, 128], 2, num_classes,
+                       in_channels)

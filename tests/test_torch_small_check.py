@@ -129,6 +129,110 @@ def test_scale_event_and_cap(smoke):
     torch.testing.assert_close(cap["a"], torch.tensor([0.4, 0.4]))
 
 
+def _forced(smoke, name, base, run):
+    cfg = fl.build_protocol(fl.get_scenario(name), smoke.SMALL_ROUNDS)
+    return smoke.forced_round_check(torch, cfg, base[1], run[1])
+
+
+def test_forced_run_against_itself_passes(smoke):
+    """Round 2 started from the other run's state: a run held against
+    itself this way counts nothing apart, every client's weight and scale
+    steps recorded."""
+    name = "sync_full_fedavg_fsfl"
+    train0 = rounds_mod.LocalTrain.train_cohort
+    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    again = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu",
+                                   forced=base[1])
+    assert rounds_mod.LocalTrain.train_cohort is train0
+    rounds, failures = _forced(smoke, name, base, again)
+    assert failures == []
+    assert [r["counted"] for r in rounds] == [[], []]
+    assert all(len(c) == 3 for x in again[1] for c in x["weight_steps"])
+
+
+@pytest.mark.parametrize("name", ["sync_full_fedavg_fsfl", "bidi_sync_full"])
+def test_forced_rounds_count_every_client_of_a_faulty_model(smoke, name,
+                                                            monkeypatch):
+    """A dense layer that scales twice parts the clients in their scale
+    steps (round 1, the scales start at 1) and from their first weight
+    step (round 2): the count of clients apart is over ``MAX_COUNTED``
+    in both rounds.  Each carries a cause, so the cause alone cannot tell
+    a fault from float noise; the count does."""
+    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    dense = cnn.dense_apply
+
+    def twice(p, x, s=None):
+        if s is None or s.ndim != 1:
+            return dense(p, x, s)
+        return dense({"w": p["w"] * s[:, None], "b": p["b"]}, x, s)
+
+    monkeypatch.setattr(cnn, "dense_apply", twice)
+    faulty = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu",
+                                    forced=base[1])
+    monkeypatch.undo()
+    rounds, _ = _forced(smoke, name, base, faulty)
+    for r in rounds:
+        assert len(r["counted"]) > smoke.MAX_COUNTED
+    assert all("weight step 1" in c["causes"] for c in rounds[1]["counted"])
+
+
+def test_forced_dense_products_summed_in_float64_stay_in_bounds(
+        smoke, monkeypatch):
+    """The tiny VGG's float noise, each round from the same start: at most
+    one client a round apart, and every bound held."""
+    name = "sync_full_fedavg_fsfl"
+    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    monkeypatch.setattr(cnn, "dense_apply", _dense_float64)
+    other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu",
+                                   forced=base[1])
+    monkeypatch.undo()
+    rounds, failures = _forced(smoke, name, base, other)
+    assert failures == []
+    assert max(len(r["counted"]) for r in rounds) <= smoke.MAX_COUNTED
+
+
+def test_reduced_resnet_convolutions_in_float64_part_only_for_causes(
+        smoke, monkeypatch):
+    """The reduced ResNet of ``chip_smoke.py`` on the CPU, its second run
+    with every convolution summed in float64 and rounded to float32, round
+    2 from the first run's state: every client that parts carries a cause
+    and every other bound holds; the clients counted apart a round are
+    printed (two float32 summation orders, no fault: the yardstick for
+    the card's count, which ``compare_small_runs`` caps at one)."""
+    from repro_torch import data, models
+    model, splits = smoke.small_resnet_setting(torch, data, models)
+    name = "sync_full_fedavg_fsfl"
+    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu", model,
+                                  splits)
+    conv = torch.nn.functional.conv2d
+    monkeypatch.setattr(
+        torch.nn.functional, "conv2d",
+        lambda x, w, *a, **k: conv(x.double(), w.double(), *a, **k).float())
+    other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu", model,
+                                   splits, forced=base[1])
+    monkeypatch.undo()
+    rounds, failures = _forced(smoke, name, base, other)
+    smoke.print_forced("resnet_t, convolutions in float64", rounds)
+    assert failures == []
+    assert all(c["causes"] for r in rounds for c in r["counted"])
+
+
+def test_sign_step_and_weight_event(smoke):
+    def step(g, u):
+        return {"grad": {"w": torch.tensor(g), "z": torch.zeros(2)},
+                "update": {"w": torch.tensor(u), "z": torch.zeros(2)}}
+
+    base = [step([[1.0, 2.0]], [[0.1, 0.2]]), step([[1.0, 2.0]], [[0.1, 0.2]])]
+    run = [step([[1.0, 2.0 + 1e-7]], [[0.1, 0.2]]),
+           step([[1.0, -2.0]], [[0.1, -0.2]])]
+    assert smoke.sign_step(base, run) == 1
+    assert smoke.sign_step(base, base) is None
+    # the 2-D leaf counts as a weight, the all-zero leaf is left out
+    event, ratios = smoke.scale_event(base, run, weights=True)
+    assert event == 1 and ratios[0] < 1e-6 < ratios[1]
+    assert smoke.scale_event(base, run)[0] is None
+
+
 def test_recording_leaves_the_stages_as_they_were(smoke):
     def stages():
         return (rounds_mod.Uplink.intake, rounds_mod.ServerStep.__call__,
