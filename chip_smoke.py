@@ -37,7 +37,12 @@ Phases (any failure exits non-zero):
    encode in two launches (110, 68 and 4 x 110 entries, and the split
    inside the params and at the scales), ``level_assign_leaves`` on 55
    and 34 leaves, ``delta_apply_leaves`` on 55, ``row_stats_leaves`` on
-   20 and 12 views (rows of 9), ``scaled_matmul`` at N = 20 and 2;
+   20 and 12 views (rows of 9), ``scaled_matmul`` at N = 20 and 2; and on
+   the leaves of ``mobilenetv2_small(20, 3)``: the int8 encode of its 124
+   entries in two launches (a message under the default and the
+   projection-only scale predicate, a cohort of 4), ``level_assign_leaves``
+   and ``delta_apply_leaves`` on 62 leaves, ``row_stats_leaves`` on its 21
+   views (six depthwise ones, rows of 9);
 4. slice phase at full width: the paper's ``vgg11_thinned`` on 6,400
    synthetic CIFAR-like images over 8 clients, FSFL (fixed sparsity 0.9),
    batch 32 (17 local steps).  The launch counters are set to 0 before
@@ -106,6 +111,19 @@ Phases (any failure exits non-zero):
      params bitwise the host decode plus add).  Path L: the ResNet with
      ``fsfl_dyn``, bidirectional, 1 round (9 ``row_stats`` launches of 20
      views);
+   * MobileNetV2 and the host uplink.  Path M: ``mobilenetv2_small(20,
+     3)`` on VOC-like data, 2 rounds of ``run_federated`` (8
+     ``level_assign`` and 433/408 ``scaled_matmul`` a round).  Path N: the
+     MobileNet with the paper's projection-only scales, int8-blockscale on
+     both legs, cohorts of 4, the device encode, 1 round (the cohort's 124
+     entries in 2 launches, the broadcast's 62 in 1, the codec's payload
+     sizes, the server's params bitwise the host decode plus add).  Path
+     O: ``cabac_fast_pool_k8`` (the batched uplink on a forkserver pool of
+     2) and ``stream_ingest_k8`` at ``vgg11_thinned`` width, 1 round each,
+     their up bytes those of ``sync_full_fedavg_fsfl``'s first round, the
+     pool's 2 tasks, the streaming aggregate bitwise the CPU's float64
+     fold of the same payloads and within the float32 error bound of the
+     gather's mean of them;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -150,22 +168,24 @@ Phases (any failure exits non-zero):
    started from the CPU's state (``resnet_own_training``): a client that
    parts is counted apart only for a discrete cause found in its record,
    and the rest of each round's server stays within the bounds of
-   ``compare_small_runs``;
+   ``compare_small_runs``.  The reduced MobileNet (``[16, 24]`` blocks,
+   expansion 1, the same images) the same way, and its two card runs
+   bit-equal (depthwise convolutions included);
 5. a JSON summary of the run (build, rounds, profiles), a JSON line with
    every ported kernel's launches and times, the device line, and the
    final ``{"ok": true, ...}`` line: the figures a reader needs sit in the
    last lines of the output.
 
 Between 4 and 5 one more round of path C (4 clients, host and device
-activity), one of ``bidi_sync_full`` and one of path B (8 clients, device
-activity only, which the profiler processes in about a minute) run under
-``torch.profiler`` to print where a round's time goes: device-busy
-share, the kernels that take the most device time, and the host time in
-the coder's spans.  The profiler's own host overhead makes those rounds
-slower than the unprofiled ones.
+activity) runs under ``torch.profiler`` to print where a round's time
+goes: device-busy share, the kernels that take the most device time,
+and the host time in the coder's spans.  The profiler's own host
+overhead makes that round slower than the unprofiled ones, and its
+processing takes a minute or more.
 
 It imports nothing of the JAX package.  Without CUDA, or without the
-repository's ``src/`` beside it, it exits 1 and prints no result.
+repository's ``src/repro_torch`` beside it, it exits 1 and its last line
+is ``{"ok": false, "error": ...}`` naming what is missing.
 """
 from __future__ import annotations
 
@@ -207,7 +227,7 @@ RS_RTOL = 1e-6
 VGG_WEIGHTS = 10                 # leaves of two or more dimensions
 STEPS = 17                       # local steps a round: 560 images, batch 32
 SCALE_SUBEPOCHS = 2
-# host spans of the coding stack (repro_torch.runtime.span)
+# host spans of the coding stack (repro_torch.obs.trace.span)
 SPANS = ("codec.encode_batch", "codec.decode_batch", "nnc.encode",
          "nnc.decode", "cabac.pass1.state_scan", "cabac.pass2.range_encode")
 PORT_SPANS = SPANS + ("downlink", "downlink.compress")
@@ -3101,8 +3121,10 @@ def small_resnet_setting(torch, data, models):
     return models.make_resnet("resnet_t", [8, 16, 32, 32], 1, 20), splits
 
 
-def resnet_model_check(torch, model, splits) -> dict:
-    """The reduced ResNet on the card against the CPU on the first 32
+def small_model_check(torch, model, splits, label: str = "resnet_t",
+                      floor_share: float = 0.0) -> dict:
+    """A reduced model (the ResNet, ``label``) on the card against the CPU
+    on the first 32
     training images of client 0, from one init with scales off 1: logits
     and new BN state in training and evaluation mode within rtol and atol
     1e-5 of the CPU's (float32 sums in another order); the gradients of a
@@ -3112,7 +3134,11 @@ def resnet_model_check(torch, model, splits) -> dict:
     float64 evaluation: float32 sums stay far inside it, a wrong padding,
     shortcut or scale far outside, as would a ReLU input within float
     noise of zero routing the backward another way (none on this batch).
-    Returns the largest shares used."""
+    With ``floor_share`` a leaf may also part by that share of the tree's
+    largest leaf norm: the MobileNet's BN parameters that a ReLU6 bound or
+    a following training-mode BN nearly cancel have gradients 1e-5 to
+    1e-16 of the others', which float32 sums part by percents.  Returns
+    the largest shares used."""
     import torch.nn.functional as F
     from repro_torch.core import scaling
     from repro_torch.tree import sorted_items, tree_map
@@ -3157,33 +3183,40 @@ def resnet_model_check(torch, model, splits) -> dict:
             worst = max(worst, float(((got - v).abs() / (
                 1e-5 + 1e-5 * v.abs())).max()))
             if float(err.max()) > 1e-5:
-                fail(f"resnet_t forward (train={train}): {k} off the CPU's "
+                fail(f"{label} forward (train={train}): {k} off the CPU's "
                      f"by {float((got - v).abs().max()):.3g}")
         report[f"forward train={train}"] = worst
         card, exact = run("cuda", torch.float32, train, True), run(
             "cpu", torch.float64, train, True)
         worst = largest = 0.0
+        floor = floor_share * max(float(v.norm()) for v in exact.values())
         for k, v in exact.items():
             diff = card[k].cpu().double() - v
-            share = float(diff.norm() / v.norm().clamp_min(1e-300))
-            worst = max(worst, share)
+            # the share of the leaf's norm, or of the floor over GRAD_EVENT
+            # where that is larger
+            share = float(diff.norm() / max(float(v.norm()),
+                                            floor / GRAD_EVENT, 1e-300))
             largest = max(largest, float(diff.abs().max()
                                          / v.abs().max().clamp_min(1e-300)))
+            worst = max(worst, share)
             if share > GRAD_EVENT:
-                fail(f"resnet_t {'weight' if train else 'scale'} step: the "
+                fail(f"{label} {'weight' if train else 'scale'} step: the "
                      f"card's gradient of {k} is {share:.3g} of its norm "
                      f"off the CPU's float64 one")
         report[f"gradients train={train} (of the norm)"] = worst
         report[f"gradients train={train} (of the largest)"] = largest
-    print(f"  resnet_t on the card against the CPU: forward within rtol and "
+    print(f"  {label} on the card against the CPU: forward within rtol and "
           f"atol 1e-5, gradients within {GRAD_EVENT} of each leaf's norm "
-          f"of the float64 ones; largest shares "
+          f"of the float64 ones (or {floor_share} of the largest leaf "
+          f"norm); largest shares "
           f"{ {k: float(f'{v:.3g}') for k, v in report.items()} }")
     return report
 
 
-def resnet_engine_check(torch, fl, rounds_mod, model, splits) -> dict:
-    """Two rounds of ``sync_full_fedavg_fsfl`` on the reduced ResNet on
+def small_engine_check(torch, fl, rounds_mod, model, splits,
+                       label: str = "resnet_t",
+                       bn_mean_bound: bool = False) -> dict:
+    """Two rounds of ``sync_full_fedavg_fsfl`` on a reduced model on
     the CPU, then on the card with each round teacher-forced from the
     CPU's: its client outputs (levels, reconstructions, BN state,
     persistent state) and the server state it starts from.  The card's
@@ -3192,7 +3225,11 @@ def resnet_engine_check(torch, fl, rounds_mod, model, splits) -> dict:
     the CPU's (the mean over the clients sums in another order), an ulp
     taken of the larger of the value and the server's value before the
     round (a weight and its update can cancel), test accuracy within one
-    test image."""
+    test image.  With ``bn_mean_bound`` the server's BN state, a mean of
+    the clients' rows and nothing more, may also part by twice the float32
+    error bound of such a mean, ``(k - 1) u sum|x_i| / k + u |mean|``: the
+    MobileNet's head BN means cancel across clients, and an ulp of the
+    mean is no bound there."""
     from repro_torch.tree import sorted_items, tree_map
     s = fl.get_scenario("sync_full_fedavg_fsfl")
     outs = []
@@ -3206,7 +3243,7 @@ def resnet_engine_check(torch, fl, rounds_mod, model, splits) -> dict:
     def card_train(self, idx, batch_idx, server):
         want_idx, out = outs[len(recs["cuda"])]
         if list(idx) != want_idx:
-            fail(f"resnet_t engine check: cohort {list(idx)} on the card, "
+            fail(f"{label} engine check: cohort {list(idx)} on the card, "
                  f"{want_idx} on the CPU")
         out = tree_map(lambda t: t.cuda(), out)
         self.state = out.persistent
@@ -3234,10 +3271,11 @@ def resnet_engine_check(torch, fl, rounds_mod, model, splits) -> dict:
     for r, (a, b) in enumerate(zip(recs["cpu"], recs["cuda"]), 1):
         if b.up_bytes != a.up_bytes or abs(b.test_acc - a.test_acc) > (
                 1 / n_test + 1e-6):
-            fail(f"resnet_t engine check round {r}: up_bytes {b.up_bytes} "
+            fail(f"{label} engine check round {r}: up_bytes {b.up_bytes} "
                  f"and test_acc {b.test_acc} on the card, {a.up_bytes} and "
                  f"{a.test_acc} on the CPU")
         before = servers["cpu"][r - 2] if r > 1 else servers["initial"]
+        rows = dict(sorted_items(outs[r - 1][1].bn_state))
         for part in ("params", "scales", "bn_state"):
             card = dict(sorted_items(getattr(servers["cuda"][r - 1], part)))
             prev = dict(sorted_items(getattr(before, part)))
@@ -3245,30 +3283,38 @@ def resnet_engine_check(torch, fl, rounds_mod, model, splits) -> dict:
                                                 part)):
                 ulp = torch.pow(2.0, torch.floor(torch.log2(torch.maximum(
                     v.abs(), prev[path].abs()).clamp_min(1e-38))) - 23)
+                if bn_mean_bound and part == "bn_state":
+                    k, u = rows[path].shape[0], 2.0 ** -24
+                    ulp = torch.maximum(ulp, (
+                        (k - 1) * u * rows[path].abs().sum(0) / k
+                        + u * v.abs()))
                 ulps = float(((card[path] - v).abs() / ulp).max())
                 worst = max(worst, ulps)
                 if ulps > 2.0:
-                    fail(f"resnet_t engine check round {r}: server "
+                    fail(f"{label} engine check round {r}: server "
                          f"{part}/{path} {ulps:.3g} ulps off the CPU's")
     out = {"up_bytes": [x.up_bytes for x in recs["cuda"]],
            "test_acc": [x.test_acc for x in recs["cuda"]],
            "server_ulps": worst}
-    print(f"  resnet_t engine on the card, each round from the CPU's server "
+    print(f"  {label} engine on the card, each round from the CPU's server "
           f"and client outputs: up_bytes {out['up_bytes']} equal, test_acc "
           f"{out['test_acc']}, the server within {worst:.3g} ulps of the "
           f"CPU's")
     return out
 
 
-def resnet_own_training(torch, fl, rounds_mod, model, splits) -> dict:
-    """The reduced ResNet's own client training on the card against the
+def small_own_training(torch, fl, rounds_mod, model, splits,
+                       label: str = "resnet_t") -> dict:
+    """A reduced model's own client training on the card against the
     CPU: 2 rounds of ``sync_full_fedavg_fsfl`` on the CPU, then on the card
     (cuDNN deterministic) with round 2 started from the CPU's server and
     clients' state after round 1, held together round by round by
     ``forced_round_check``; fails on any failure it reports.  The clients
-    counted apart a round are printed against ``MAX_COUNTED``, which this
-    model's float32 training does not keep on any two devices (PERF.md
-    §2): that count is reported, and not held here."""
+    counted apart a round are printed against ``MAX_COUNTED``; float32
+    training on these networks does not keep it between any two summation
+    orders, so the count is reported, and the cap is held by the CPU's
+    float64 comparison with the reference
+    (tests/test_torch_cnn_families.py, tests/test_torch_mobilenet.py)."""
     name = "sync_full_fedavg_fsfl"
     cfg = fl.build_protocol(fl.get_scenario(name), SMALL_ROUNDS)
     cpu_log = record_small_run(torch, fl, rounds_mod, name, "cpu", model,
@@ -3278,14 +3324,14 @@ def resnet_own_training(torch, fl, rounds_mod, model, splits) -> dict:
                                     model, splits, forced=cpu_log)[1]
     rounds, failures = forced_round_check(torch, cfg, cpu_log, card_log)
     counted = [len(r["counted"]) for r in rounds]
-    print(f"  resnet_t own training on the card against the CPU, each round "
+    print(f"  {label} own training on the card against the CPU, each round "
           f"from the CPU's state: clients counted apart {counted} a round "
           f"(compare_small_runs allows {MAX_COUNTED}: "
           f"{'kept' if max(counted) <= MAX_COUNTED else 'NOT kept'}; "
           f"every other bound held)")
-    print_forced("resnet_t card against CPU", rounds)
+    print_forced(f"{label} card against CPU", rounds)
     if failures:
-        fail("resnet_t own training: " + "; ".join(failures))
+        fail(f"{label} own training: " + "; ".join(failures))
     return {"counted": counted,
             "causes": [{c["client"]: c["causes"] for c in r["counted"]}
                        for r in rounds],
@@ -3293,11 +3339,395 @@ def resnet_own_training(torch, fl, rounds_mod, model, splits) -> dict:
             "params_off": [r["params_off"] for r in rounds]}
 
 
+# ------------------------------------------------------------ slice 11
+
+MOBILENET_LEAVES, MOBILENET_WEIGHTS = 62, 21   # mobilenetv2_small(20, 3)
+MOBILENET_DEPTHWISE = 6          # its (mid, 1, 3, 3) views: rows of 9
+
+
+def mobilenet_leaves(torch, models, proj_only: bool = False):
+    """(params leaf shapes, scales entries) of ``mobilenetv2_small(20,
+    3)`` in the form ``int8_leaves`` takes: a leaf's shape where it
+    carries a scale vector, ``()`` where a scalar placeholder, under the
+    default predicate or the paper's projection-only one."""
+    from repro_torch.core import scaling
+    params, _ = models.mobilenetv2_small(20, 3).init(
+        torch.Generator().manual_seed(0))
+    pred = (models.mobilenet_proj_only_predicate if proj_only
+            else scaling.default_predicate)
+    scales = scaling.init_scales(params, pred)
+    shapes = [tuple(v.shape) for d in params.values() for v in d.values()]
+    return shapes, [sh if s.ndim else () for sh, s in zip(
+        shapes, (s for d in scales.values() for s in d.values()))]
+
+
+def mobilenet_int8_bytes(torch, comms, models, proj_only: bool
+                         ) -> tuple[int, int]:
+    """The v1 int8-blockscale sizes of ``mobilenetv2_small``'s messages,
+    from the codec on the CPU: a client's payload (its scales under the
+    predicate) and the params-only broadcast."""
+    from repro_torch.core import quant, scaling
+    from repro_torch.tree import tree_map
+    params, _ = models.mobilenetv2_small(20, 3).init(
+        torch.Generator().manual_seed(0))
+    scales = scaling.init_scales(params, (
+        models.mobilenet_proj_only_predicate if proj_only
+        else scaling.default_predicate))
+    codec = comms.get_codec("int8-blockscale")
+    zeros = tree_map(torch.zeros_like, params)
+    up = comms.WireSpec(
+        params=comms.shape_template(params),
+        scales=comms.shape_template(scales),
+        fine_mask=comms.path_fine_mask(params),
+        step_size=quant.STEP_SIZE_UNI, fine_step_size=quant.STEP_SIZE_FINE)
+    down = comms.WireSpec(params=comms.shape_template(params), scales=None,
+                          fine_mask=None, step_size=quant.STEP_SIZE_BI,
+                          fine_step_size=quant.STEP_SIZE_FINE)
+    payload = codec.encode(comms.ClientUpdate(
+        None, None, zeros, tree_map(torch.zeros_like, scales)), up)
+    broadcast = codec.encode(comms.ClientUpdate(None, None, zeros, None),
+                             down)
+    return len(payload), len(broadcast)
+
+
+def slice11_kernel_phase(torch, dc, la, da, rs, models):
+    """Every grouped kernel against its plain version on the leaves of
+    ``mobilenetv2_small(20, 3)``: the int8 encode of a message (62 params
+    and 62 scales entries) under the default and the projection-only
+    predicate and of a cohort of 4, two launches each, bitwise;
+    ``level_assign_leaves`` on a client's 62 leaves and
+    ``delta_apply_leaves`` on a broadcast's 62, bitwise, one launch each;
+    ``row_stats_leaves`` on the 21 weight views (the 6 depthwise ones rows
+    of 9) within rtol 1e-6, bitwise to one-view launches, one launch.
+    ``scaled_matmul`` at its ``fc`` shape (N = 20, K = 128) is the ResNet's
+    and held there.  Each kernel is then timed on these inputs.  Returns
+    (checks, timings)."""
+    gen = torch.Generator().manual_seed(11)
+    shapes, s_default = mobilenet_leaves(torch, models)
+    _, s_proj = mobilenet_leaves(torch, models, proj_only=True)
+    if len(shapes) != MOBILENET_LEAVES:
+        fail(f"{len(shapes)} mobilenetv2_small leaves")
+    checks, timings = 0, {}
+    for what, s_shapes, k, timed in (
+            ("a mobilenetv2_small message", s_default, 1, "message"),
+            ("a mobilenetv2_small message, projection-only scales", s_proj,
+             1, "message_proj_only"),
+            ("a mobilenetv2_small cohort of 4", s_default, 4, "cohort")):
+        p, s = int8_leaves(torch, gen, shapes, s_shapes, k)
+        dc.reset_counters()
+        checks += encode_compare(torch, dc, p, s, k > 1, what)
+        launches, entries = sum(dc.LAUNCHES.values()), len(p) + len(s)
+        if launches != 2:
+            fail(f"int8_encode_leaves made {launches} launches for {what} "
+                 f"({entries} entries)")
+        sizes = [math.prod(sh) for sh in shapes]
+        s_sizes = [t.shape[1] if t.ndim > 1 else 1 for t in s]
+        timings[f"int8_encode_{timed}"] = dict(
+            **kernel_times(torch, lambda p=p, s=s, k=k:
+                           dc.int8_encode_leaves(p, s, 0.0, 128,
+                                                 batched=k > 1),
+                           lambda p=p, s=s: dc.int8_encode_leaves_plain(
+                               p, s, 0.0, 128)),
+            bound=encode_bound_ms(sizes, s_sizes, k, 128),
+            entries=entries, rows=k, launches=launches,
+            scale_elements=sum(s_sizes))
+    d, r, th, steps = la_leaf_inputs(torch, gen, shapes)
+    la_group_compare(torch, la, d, r, th, steps)
+    checks += 1
+    n = sum(x.numel() for x in d)
+    timings["level_assign"] = dict(
+        **kernel_times(torch, lambda: la.level_assign_leaves(d, r, th, steps),
+                       lambda: la.level_assign_leaves_plain(d, r, th, steps)),
+        bound=la_bound_ms(n), elements=n, leaves=len(d))
+    sizes = [math.prod(sh) for sh in shapes]
+    ws = [(0.1 * torch.randn(sh, generator=gen)).cuda() for sh in shapes]
+    qs = [torch.randint(-127, 128, (m,), generator=gen,
+                        dtype=torch.int8).cuda() for m in sizes]
+    ss = [(1e-3 * torch.rand(-(-m // 128), generator=gen) + 1e-6).cuda()
+          for m in sizes]
+    for coef in (1.0, -1.0):
+        da.reset_counters()
+        got = da.delta_apply_leaves(ws, qs, ss, coef)
+        if da.LAUNCHES["delta_apply"] != 1:
+            fail(f"delta_apply_leaves made {da.LAUNCHES['delta_apply']} "
+                 f"launches for {len(ws)} leaves")
+        want = da.delta_apply_leaves_plain(ws, qs, ss, coef, 128)
+        torch.cuda.synchronize()
+        if not all(bits_equal(torch, g, w) for g, w in zip(got, want)):
+            fail(f"delta_apply_leaves disagrees with its plain version on "
+                 f"the mobilenetv2_small leaves (coef {coef})")
+        checks += 1
+    timings["delta_apply"] = dict(
+        **kernel_times(torch, lambda: da.delta_apply_leaves(ws, qs, ss, -1.0),
+                       lambda: da.delta_apply_leaves_plain(ws, qs, ss, -1.0,
+                                                           128)),
+        bound=da_bound_ms(sum(sizes)), elements=sum(sizes), leaves=len(ws))
+    views = [(1e-3 * torch.randn((sh[0], math.prod(sh[1:])),
+                                 generator=gen)).cuda()
+             for sh in shapes if len(sh) >= 2]
+    rows9 = sum(v.shape[1] == 9 for v in views)
+    if len(views) != MOBILENET_WEIGHTS or rows9 != MOBILENET_DEPTHWISE:
+        fail(f"mobilenetv2_small has {len(views)} weight views, {rows9} of "
+             f"rows of 9")
+    rs.reset_counters()
+    got = rs.row_stats_leaves(views)
+    if rs.LAUNCHES["row_stats"] != 1:
+        fail(f"row_stats_leaves made {rs.LAUNCHES['row_stats']} launches for "
+             f"the {len(views)} mobilenetv2_small views")
+    worst = 0.0
+    for v, g in zip(views, got):
+        if not bits_equal(torch, g, rs.row_stats(v)):
+            fail(f"row_stats_leaves differs from a one-view launch at "
+                 f"{tuple(v.shape)}")
+        worst = max(worst, rs_compare(torch, rs, v))
+        checks += 1
+    timings["row_stats"] = dict(
+        **kernel_times(torch, lambda: rs.row_stats_leaves(views),
+                       lambda: rs.row_stats_leaves_plain(views)),
+        bound=(sum(rs_bound_ms(*v.shape)[0] for v in views),
+               rs_bound_ms(*views[0].shape)[1]),
+        views=len(views), library_ms=time_ms(torch, lambda: [
+            torch.linalg.vector_norm(v, 1, dim=1) for v in views]))
+    print(f"kernel phase: mobilenetv2_small, int8_encode_leaves on 124 "
+          f"entries (both predicates, a cohort of 4) bitwise in two launches; "
+          f"level_assign_leaves and delta_apply_leaves on {MOBILENET_LEAVES} "
+          f"leaves bitwise in one launch; row_stats_leaves on "
+          f"{MOBILENET_WEIGHTS} views ({rows9} of rows of 9) in one launch, "
+          f"max relative difference {worst:.3g}")
+    for name, t in timings.items():
+        print(f"  {name} on mobilenetv2_small's inputs: kernel {t['ms']:.4f} "
+              f"ms (whole wrapper call {t['call_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms"
+              + (f", library {t['library_ms']:.4f} ms"
+                 if "library_ms" in t else "")
+              + f", bound {t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    return checks, timings
+
+
+def slice11_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod, comms,
+                  data, models, vgg_splits, rounds_out):
+    """Paths M to O at full width, 6,400 images over 8 clients, batch 32:
+
+    * M: ``mobilenetv2_small(20, 3)`` on VOC-like data, 2 rounds of
+      ``run_federated`` (fsfl, FedAvg, nnc-cabac): 8 ``level_assign`` and
+      433/408 ``scaled_matmul`` launches a round (one dense layer);
+    * N: the MobileNet with the paper's projection-only scales
+      (``mobilenet_proj_only_predicate``), int8-blockscale on both legs,
+      cohorts of 4, the device cohort encode, 1 round: the cohort's 124
+      entries in 2 ``int8_encode_leaves`` launches, the broadcast's 62 in
+      1, 2 ``delta_apply``, 5 ``level_assign``, 217/204 ``scaled_matmul``;
+      payloads of the codec's sizes, and the server's params bitwise the
+      host decode of the broadcast plus the params before;
+    * O: ``cabac_fast_pool_k8`` (the batched uplink over a forkserver pool
+      of 2) and ``stream_ingest_k8`` at ``vgg11_thinned`` width, the first
+      round of each as the main path plans 2: 8 ``level_assign`` and
+      866/816 ``scaled_matmul``; up bytes those of
+      ``sync_full_fedavg_fsfl``'s first round; the pool's 2 tasks; the
+      streaming aggregate bitwise the CPU's float64 fold of the same
+      decoded payloads and, against the gather's float32 mean of them
+      (``Aggregate``), within that mean's error bound ``(k - 1) u
+      sum|x_i| / k + u |mean|``; the v1 BN mean bitwise."""
+    la, rs, da, dc, sm = mods
+    voc = full_width_splits(torch, data, data.synthetic.VOC_LIKE)
+    out = {}
+    cfg = fl.build_protocol(fl.get_scenario("sync_full_fedavg_fsfl"), 2)
+    out["M"] = run_path(
+        torch, mods, rounds_mod, "path M mobilenetv2_small voc_like",
+        lambda: fsfl.run_federated(models.mobilenetv2_small(20, 3), cfg, voc,
+                                   2, device="cuda"),
+        {"level_assign": 8, **sm_per_round(8, 1)}, 8, 1, rounds_out)
+
+    up, down = mobilenet_int8_bytes(torch, comms, models, proj_only=True)
+    launch0 = dc._launch
+    tables = capture_calls(dc, "_launch", 100,
+                           lambda a, k: (len(a[0]), a[0][0].shape[0]))
+    payloads, applied, restore = spy_broadcasts(codecs_mod, rounds_mod)
+    proj = fl.Scenario("mobilenet_proj_int8_bidi_k4", cohort_size=4,
+                       codec="int8-blockscale", device_encode=True,
+                       bidirectional=True, protocol_overrides=(
+                           ("scale_predicate",
+                            models.mobilenet_proj_only_predicate),))
+    try:
+        out["N"] = run_path(
+            torch, mods, rounds_mod,
+            "path N mobilenetv2_small proj-only int8 both legs",
+            lambda: fl.run_scenario(proj, rounds=1,
+                                    model=models.mobilenetv2_small(20, 3),
+                                    splits=voc, device="cuda"),
+            {"level_assign": 5, "delta_apply": 2, "delta_compress": 1,
+             "delta_compress_batch": 2, **sm_per_round(4, 1)}, 4, 1,
+            rounds_out, up=4 * up, down=4 * down)
+    finally:
+        restore()
+        dc._launch = launch0
+    want_tables = [(2 * MOBILENET_LEAVES, 4), (MOBILENET_LEAVES, 1)]
+    if tables != want_tables:
+        fail(f"path N: int8 encodes (entries, rows) {tables}, expected "
+             f"{want_tables}")
+    out["N"].update(encodes=tables, payload_bytes=up, broadcast_bytes=down,
+                    leaves_checked=check_broadcast_applies(
+                        codecs_mod, "path N", payloads, applied, 1))
+    out["O"] = path_o(torch, mods, rounds_mod, fl, models, vgg_splits,
+                      rounds_out)
+    return out
+
+
+def path_o(torch, mods, rounds_mod, fl, models, splits, rounds_out) -> dict:
+    """Path O (see ``slice11_paths``)."""
+    from repro_torch.fl.async_buffer import TreeAccumulator
+    from repro_torch.tree import sorted_items
+    first_up = next(r[4] for r in rounds_out
+                    if r[0] == "sync_full_fedavg_fsfl" and r[1] == 1)
+    want = {"level_assign": 8, **sm_per_round(8)}
+    out, engines = {}, []
+    init0 = fl.FederatedEngine.__init__
+
+    def init(self, *a, **kw):
+        init0(self, *a, **kw)
+        engines.append(self)
+
+    fl.FederatedEngine.__init__ = init
+    folds = []
+    fold0 = rounds_mod.SyncScheduler._fold_streaming
+
+    def fold(self, contribs, survivors, clients):
+        server = self.eng.server
+        agg, kept = fold0(self, contribs, survivors, clients)
+        folds.append((server, [contribs[i] for i in kept], agg))
+        return agg, kept
+
+    rounds_mod.SyncScheduler._fold_streaming = fold
+    def first_round(name):
+        # the main path's protocol, planned for 2 rounds (its linear scale
+        # schedule), and its first round
+        s = fl.get_scenario(name)
+        return fl.FederatedEngine(
+            models.vgg11_thinned(), fl.build_protocol(s, 2), splits,
+            engine_cfg=fl.build_engine(s), device="cuda").run(1)
+
+    try:
+        for name in ("cabac_fast_pool_k8", "stream_ingest_k8"):
+            out[name] = run_path(
+                torch, mods, rounds_mod, f"path O {name}",
+                lambda name=name: first_round(name), want, 8, 2, rounds_out,
+                up=first_up)
+    finally:
+        fl.FederatedEngine.__init__ = init0
+        rounds_mod.SyncScheduler._fold_streaming = fold0
+    pool = engines[0].uplink
+    if pool.pool_tasks != 2:
+        fail(f"path O: cabac_fast_pool_k8 made {pool.pool_tasks} pool "
+             f"tasks in a round, expected 2 (one a worker)")
+    if len(folds) != 1 or len(folds[0][1]) != 8:
+        fail(f"path O: stream_ingest_k8 folded {len(folds)} rounds")
+    eng = engines[1]
+    server0, contribs, agg = folds[0]
+    decoded = eng.uplink.codec.decode_batch([c.payload for c in contribs],
+                                            eng.uplink.spec)
+    gather = rounds_mod.Aggregate(eng.device)([rounds_mod.Contribution(
+        client=c.client, delta_params=d.params, delta_scales=d.scales,
+        bn_state=c.bn_state) for c, d in zip(contribs, decoded)])
+    # the gather's float32 mean of k terms errs by at most (k - 1) u
+    # sum|x_i| / k, and its last rounding u |mean| (u = 2^-24); the
+    # float64 fold is exact to one rounding
+    u, k = 2.0 ** -24, len(decoded)
+    report = {"share_of_gather_bound": 0.0, "elements_apart_from_gather": 0}
+    for part, trees in (("params", [d.params for d in decoded]),
+                        ("scales", [d.scales for d in decoded])):
+        a = dict(sorted_items(getattr(agg, f"delta_{part}")))
+        b = dict(sorted_items(getattr(gather, f"delta_{part}")))
+        for path, w in b.items():
+            v = a[path]
+            mass = sum(torch.as_tensor(dict(sorted_items(t))[path]).abs()
+                       for t in trees).to(w.device)
+            bound = (k - 1) * u * mass / k + u * w.abs()
+            report["elements_apart_from_gather"] += int((v != w).sum())
+            share = float(((v - w).abs() / bound.clamp_min(1e-45)).max())
+            report["share_of_gather_bound"] = max(
+                report["share_of_gather_bound"], share)
+    for path, v in sorted_items(agg.bn_state):
+        if not bits_equal(torch, v, dict(sorted_items(gather.bn_state))[path]):
+            fail(f"path O: the streaming round's v1 BN mean of {path} is not "
+                 f"the gather's")
+    if report["share_of_gather_bound"] > 1.0:
+        fail(f"path O: the streaming aggregate is "
+             f"{report['share_of_gather_bound']:.3g} of the float32 error "
+             f"bound off the gather's")
+    host = {k: TreeAccumulator("cpu") for k in ("params", "scales")}
+    for d in decoded:
+        host["params"].add(d.params)
+        host["scales"].add(d.scales)
+    for part, acc in host.items():
+        want_tree = dict(sorted_items(acc.mean()))
+        for path, v in sorted_items(getattr(agg, f"delta_{part}")):
+            if not bits_equal(torch, v.cpu(), want_tree[path]):
+                fail(f"path O: the card's streaming fold of {part}/{path} "
+                     f"is not the CPU's float64 fold of the same payloads")
+    print(f"  path O: the cohort's nnc payloads in 2 forkserver tasks; the "
+          f"streaming aggregate bitwise the CPU's float64 fold, "
+          f"{report['elements_apart_from_gather']} elements apart from "
+          f"the float32 gather mean, within "
+          f"{report['share_of_gather_bound']:.3g} of its error bound; the "
+          f"v1 BN mean bitwise")
+    out["stream_vs_gather"] = report
+    out["pool_tasks"] = pool.pool_tasks
+    return out
+
+
+def conv_route(torch, model, splits) -> dict:
+    """The device kernels of one training step of ``model`` (forward and
+    backward on 32 images, the port's cuDNN settings), from a
+    ``torch.profiler`` trace: which route its convolutions took, the
+    depthwise ones included.  Returns {kernel name: launches} of the
+    kernels whose name mentions a convolution."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import resolve_device
+    from repro_torch.tree import tree_map
+    resolve_device("cuda")
+    params, state = model.init(torch.Generator().manual_seed(0), "cuda")
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    x = splits.client_x[0][:32].cuda()
+    y = splits.client_y[0][:32].cuda()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, _ = model.apply(params, state, x, train=True)
+        F.cross_entropy(logits, y).backward()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                w in e.key.lower() for w in ("conv", "depthwise", "dgrad",
+                                             "wgrad", "implicit")):
+            names[e.key[:120]] = e.count
+    return names
+
+
+def small_mobilenet_setting(torch, data, models):
+    """The reduced MobileNet ``make_mobilenet("mobilenet_t", 20, 3,
+    blocks=((16, 1), (24, 2)), expand=1)`` (a residual block, a stride-2
+    depthwise block, a residual block), the one of
+    tests/test_torch_mobilenet.py, on ``small_resnet_setting``'s 1,280
+    VOC-like images."""
+    _, splits = small_resnet_setting(torch, data, models)
+    return models.make_mobilenet("mobilenet_t", 20, 3,
+                                 blocks=((16, 1), (24, 2)), expand=1), splits
+
+
+def refuse(reason: str) -> int:
+    """No result: the reason on stderr, and a last line ``{"ok": false}``
+    that names it."""
+    print(f"chip_smoke: {reason}", file=sys.stderr)
+    print(json.dumps({"ok": False, "error": reason}))
+    return 1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
+        return refuse("no CUDA device is visible")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        return refuse(f"no src/repro_torch beside {Path(__file__).name}: "
+                      f"run it from the root of a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import comms, data, fl, models
     from repro_torch.comms import codecs as codecs_mod
@@ -3346,7 +3776,9 @@ def main() -> int:
               + sm_kernel_phase(torch, sm))
     s10_checks, s10_timings = slice10_kernel_phase(torch, dc, la, da, rs, sm,
                                                    models)
-    checks += s10_checks
+    s11_checks, s11_timings = slice11_kernel_phase(torch, dc, la, da, rs,
+                                                   models)
+    checks += s10_checks + s11_checks
     t1 = phase("kernel phase", t1)
     splits = full_width_splits(torch, data)
     rounds_out = []
@@ -3418,6 +3850,11 @@ def main() -> int:
                         rounds_out)
     t1 = phase("paths I to L (resnet18_small, vgg16_tiny)", t1)
 
+    # slice 11: MobileNetV2 (paths M, N) and the host uplink (path O)
+    s11 = slice11_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod, comms,
+                        data, models, splits, rounds_out)
+    t1 = phase("paths M to O (mobilenetv2_small, the host uplink)", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
@@ -3429,11 +3866,20 @@ def main() -> int:
              for name in SMALL_SCENARIOS}
     model_t, splits_t = small_resnet_setting(torch, data, models)
     resnet_t = {
-        "model": resnet_model_check(torch, model_t, splits_t),
-        "engine": resnet_engine_check(torch, fl, rounds_mod, model_t,
-                                      splits_t),
-        "own_training": resnet_own_training(torch, fl, rounds_mod, model_t,
-                                            splits_t)}
+        "model": small_model_check(torch, model_t, splits_t),
+        "engine": small_engine_check(torch, fl, rounds_mod, model_t,
+                                     splits_t),
+        "own_training": small_own_training(torch, fl, rounds_mod, model_t,
+                                           splits_t)}
+    model_m, splits_m = small_mobilenet_setting(torch, data, models)
+    mobilenet_t = {
+        "model": small_model_check(torch, model_m, splits_m, "mobilenet_t",
+                                   floor_share=1e-5),
+        "engine": small_engine_check(torch, fl, rounds_mod, model_m,
+                                     splits_m, "mobilenet_t",
+                                     bn_mean_bound=True),
+        "own_training": small_own_training(torch, fl, rounds_mod, model_m,
+                                           splits_m, "mobilenet_t")}
     t1 = phase("small-input checks", t1)
     repeat = {}
     for name in REPEATED:
@@ -3442,13 +3888,27 @@ def main() -> int:
         print(f"repeatability {name}: two card runs, {repeat[name]}")
         if failures:
             fail("; ".join(failures))
-    label = "resnet_t sync_full_fedavg_fsfl"
-    repeat[label], failures = repeat_small_runs(
-        torch, fl, rounds_mod, "sync_full_fedavg_fsfl", model_t, splits_t)
-    print(f"repeatability {label}: two card runs, {repeat[label]}")
-    if failures:
-        fail("; ".join(failures))
+    for label, model_r, splits_r in (("resnet_t", model_t, splits_t),
+                                     ("mobilenet_t", model_m, splits_m)):
+        label = f"{label} sync_full_fedavg_fsfl"
+        repeat[label], failures = repeat_small_runs(
+            torch, fl, rounds_mod, "sync_full_fedavg_fsfl", model_r, splits_r)
+        print(f"repeatability {label}: two card runs, {repeat[label]}")
+        if failures:
+            fail("; ".join(failures))
+    routes = conv_route(torch, model_m, splits_m)
+    depthwise = [k for k in routes if "depthwise" in k.lower()]
+    route = "ATen's own kernels" if depthwise else "cuDNN"
+    print(f"  mobilenet_t's convolutions on the card (one training step): "
+          f"{len(routes)} kernels, the depthwise ones on {route}")
+    for k, v in sorted(routes.items()):
+        print(f"    {v:4d} x {k}")
+    mobilenet_t["conv_kernels"] = routes
     t1 = phase("repeatability", t1)
+    # one profiled round (path C: 4 clients, host and device activity, the
+    # coder's spans): the profiler's processing took 69-97 s a round, and
+    # paths A's and B's device-only profiles are dropped to keep
+    # the run's time
     bidi_int8 = fl.Scenario("bidi_int8_k4", cohort_size=4,
                             codec="int8-blockscale", bidirectional=True)
     prof = {
@@ -3456,20 +3916,7 @@ def main() -> int:
             torch, lambda: fl.run_scenario(
                 bidi_int8, rounds=1, model=models.vgg11_thinned(),
                 splits=splits, device="cuda"),
-            "bidi_int8_k4 (path C)", ("delta_apply", "int8_encode")),
-        "bidi_sync_full": profile_round(
-            torch, lambda: fl.run_scenario(
-                "bidi_sync_full", rounds=1, model=models.vgg11_thinned(),
-                splits=splits, device="cuda"),
-            "bidi_sync_full (path A, device activity only)",
-            ("level_assign",),
-            host=False),
-        "fsfl_dyn_bidirectional": profile_round(
-            torch, lambda: fsfl.run_federated(
-                models.vgg11_thinned(), fsfl_dyn_config(protocol_mod, 1),
-                splits, 1, bidirectional=True, device="cuda"),
-            "fsfl_dyn bidirectional (path B, device activity only)",
-            ("row_stats",), host=False)}
+            "bidi_int8_k4 (path C)", ("delta_apply", "int8_encode"))}
     phase("profiled rounds", t1)
 
     replaces = {"delta_compress": "src/repro/kernels/delta_compress.py:47",
@@ -3499,11 +3946,18 @@ def main() -> int:
     def s10_launches(path, key):
         return path_total(s10[path], key)
 
+    def s11_launches(path, key):
+        return path_total(s11[path], key)
+
     for k, part in zip(kernels, ("cohort", "message")):
-        k.update({"launches_path_k": s10_launches(
-            "K", "delta_compress_batch" if part == "cohort"
-            else "delta_compress"),
-            "resnet18_small": s10_timings[f"int8_encode_{part}"]})
+        kernel = ("delta_compress_batch" if part == "cohort"
+                  else "delta_compress")
+        k.update({"launches_path_k": s10_launches("K", kernel),
+                  "launches_path_n": s11_launches("N", kernel),
+                  "resnet18_small": s10_timings[f"int8_encode_{part}"],
+                  "mobilenetv2_small": s11_timings[f"int8_encode_{part}"]})
+    kernels[1]["mobilenetv2_small_proj_only"] = s11_timings[
+        "int8_encode_message_proj_only"]
     e_kernel = e_out["kernel"]
     kernels[0].update({
         "launches_path_e": e_out["launches"]["delta_compress_batch"],
@@ -3534,7 +3988,13 @@ def main() -> int:
         "launches_path_h": h_out["level_assign"],
         **{f"launches_path_{p.lower()}": s10_launches(p, "level_assign")
            for p in ("I", "J", "K")},
-        "resnet18_small": s10_timings["level_assign"]})
+        **{f"launches_path_{p.lower()}": s11_launches(p, "level_assign")
+           for p in ("M", "N")},
+        "launches_path_o": {n: path_total(s11["O"][n], "level_assign")
+                            for n in ("cabac_fast_pool_k8",
+                                      "stream_ingest_k8")},
+        "resnet18_small": s10_timings["level_assign"],
+        "mobilenetv2_small": s11_timings["level_assign"]})
     if la_launches["sync_full_fedavg_fsfl"] < 1:
         fail("level_assign was not launched on the main path")
     kernels.append({
@@ -3549,7 +4009,9 @@ def main() -> int:
         "per_leaf_launches_ms": da_timing["per_leaf_ms"],
         "per_leaf_launches_call_ms": da_timing["per_leaf_call_ms"],
         "launches_path_k": s10_launches("K", "delta_apply"),
-        "resnet18_small": s10_timings["delta_apply"]})
+        "launches_path_n": s11_launches("N", "delta_apply"),
+        "resnet18_small": s10_timings["delta_apply"],
+        "mobilenetv2_small": s11_timings["delta_apply"]})
     kernels.append({
         "name": "row_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/row_stats.cu",
@@ -3565,7 +4027,8 @@ def main() -> int:
         "per_leaf_launches_call_ms": rs_timing["per_leaf_call_ms"],
         "keep_mask_near_tie_flips": rs_timing["flips"],
         "launches_path_l": s10_launches("L", "row_stats"),
-        "resnet18_small": s10_timings["row_stats"]})
+        "resnet18_small": s10_timings["row_stats"],
+        "mobilenetv2_small": s11_timings["row_stats"]})
     main_sm = SM_RUNS["sync_full_fedavg_fsfl"]
     runs = {label: dict(r) for label, r in SM_RUNS.items()}
     # the main path's most frequent shape: the train step's (32, 128) x
@@ -3634,6 +4097,7 @@ def main() -> int:
         "path_g_noniid_dir1_k4_fedyogi": g_out,
         "path_h_async_windowed_b4": h_out,
         "paths_i_to_l": s10, "resnet_t_small_input": resnet_t,
+        "paths_m_to_o": s11, "mobilenet_t_small_input": mobilenet_t,
         "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))

@@ -55,7 +55,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.coding.errors import CorruptPayloadError
-from repro_torch.runtime import span
+from repro_torch.obs.trace import span
 
 _TOP = 1 << 24
 _BOT = 1 << 11  # probability scale (2048)

@@ -59,7 +59,7 @@ from repro_torch.coding.bitstream import BitReader, BitWriter
 from repro_torch.coding.cabac import (ContextSet, Decoder, Encoder,
                                       encode_context_bins)
 from repro_torch.coding.errors import CorruptPayloadError
-from repro_torch.runtime import span
+from repro_torch.obs.trace import span
 from repro_torch.tree import LeafSpec, items, rebuild, sorted_items, tree_map
 
 # context ids

@@ -231,6 +231,19 @@ class Codec:
     name: str = "?"
     # what encode reads: the reconstructions, or the int32 levels
     needs: tuple[str, ...] = ("recon",)
+    # True for codecs that code host numpy arrays: the uplink takes the
+    # cohort's trees to the host in one copy (and may code them in worker
+    # processes); False for one that launches a kernel on the device's
+    # tensors (device rows, no process pool)
+    host_coder: bool = True
+
+    def with_decode_engine(self, engine: str) -> "Codec":
+        """This codec decoding with ``engine``; one without engine choices
+        takes only the default and returns itself."""
+        if engine != "vectorized":
+            raise ValueError(
+                f"codec {self.name!r} has no {engine!r} decode engine")
+        return self
 
     def _frame(self, body: bytes, upd: ClientUpdate, spec: WireSpec) -> bytes:
         if spec.version == 1:
@@ -293,6 +306,58 @@ class Codec:
 
     def __repr__(self) -> str:
         return f"<Codec {self.name}>"
+
+
+# ---------------------------------------------------------------- flat transport
+
+class FlatDecoded(NamedTuple):
+    """A :class:`Decoded` as flat float32 arrays in wire order: what a
+    process worker returns (three arrays to pickle instead of a tree of
+    leaves); the parent rebuilds it against its own spec with
+    :func:`unflatten_decoded`."""
+    params: np.ndarray
+    scales: np.ndarray | None
+    bn: np.ndarray | None
+
+
+def _concat_items(tree: Any, items: list[tuple[str, Any]]) -> np.ndarray:
+    if not items:
+        return np.zeros(0, np.float32)
+    by = dict(sorted_items(tree))
+    return np.concatenate([np.asarray(by[p], np.float32).reshape(-1)
+                           for p, _ in items])
+
+
+def _split_items(arr: np.ndarray, items: list[tuple[str, Any]],
+                 template: Any) -> Any:
+    by: dict[str, np.ndarray] = {}
+    off = 0
+    for p, leaf in items:
+        n = _numel(leaf)
+        by[p] = np.asarray(arr[off:off + n], np.float32).reshape(leaf.shape)
+        off += n
+    return rebuild_tree(template, by)
+
+
+def flatten_decoded(dec: Decoded, spec: WireSpec) -> FlatDecoded:
+    """Decoded trees -> flat float32 arrays (exact)."""
+    return FlatDecoded(
+        params=_concat_items(dec.params, spec.param_items()),
+        scales=(None if spec.scales is None
+                else _concat_items(dec.scales, spec.scale_items())),
+        bn=(None if spec.bn is None or dec.bn is None
+            else _concat_items(dec.bn, spec.bn_items())))
+
+
+def unflatten_decoded(flat: FlatDecoded, spec: WireSpec) -> Decoded:
+    """Inverse of :func:`flatten_decoded` (unsent leaves decode to 0)."""
+    return Decoded(
+        params=_split_items(flat.params, spec.param_items(), spec.params),
+        scales=(None if spec.scales is None or flat.scales is None
+                else _split_items(flat.scales, spec.scale_items(),
+                                  spec.scales)),
+        bn=(None if spec.bn is None or flat.bn is None
+            else _split_items(flat.bn, spec.bn_items(), spec.bn)))
 
 
 # ---------------------------------------------------------------- registry

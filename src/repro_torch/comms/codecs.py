@@ -35,7 +35,7 @@ from repro_torch.comms.codec import (ClientUpdate, Codec, Decoded, LeafSpec,
                                      WireSpec, check_batch_clients,
                                      decode_bn, rebuild_tree, register_codec,
                                      sorted_items)
-from repro_torch.runtime import span
+from repro_torch.obs.trace import span
 
 
 def _np32(x) -> np.ndarray:
@@ -109,6 +109,8 @@ class Int8BlockScaleCodec(Codec):
 
     name = "int8-blockscale"
     block = 128
+    # the encode launches its kernel on the device's leaves
+    host_coder = False
 
     def _encode_body(self, upd: ClientUpdate, spec: WireSpec) -> bytes:
         p = [comms_device.as_tensor(leaf)[None]

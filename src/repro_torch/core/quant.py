@@ -49,14 +49,25 @@ def f32(value: float, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def step_like(value: float, x: torch.Tensor) -> torch.Tensor:
+    """The step a division of ``x`` by ``value`` uses: float32 for a
+    float32 ``x`` (``f32``), ``value`` in ``x``'s own type for a wider one,
+    as the reference's Python-float step divides a float64 array under
+    ``jax.enable_x64``."""
+    if x.dtype == torch.float32:
+        return f32(value, x)
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
 def quantize(x: torch.Tensor, step_size: float,
              max_level: int = 2**23) -> torch.Tensor:
     """Float tensor -> int32 quantization levels (round half to even)."""
-    q = torch.round(x / f32(step_size, x))
+    q = torch.round(x / step_like(step_size, x))
     return torch.clamp(q, -max_level, max_level).to(torch.int32)
 
 
 def dequantize(q: torch.Tensor, step_size: float) -> torch.Tensor:
+    """float32 whatever the levels came from, as the reference's."""
     return q.to(torch.float32) * f32(step_size, q)
 
 

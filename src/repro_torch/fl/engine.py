@@ -14,7 +14,13 @@ on the wire before it is applied (§5.2), and ``down_bytes`` counts it.
 ``EngineConfig.channel`` turns payload lengths into simulated seconds
 (``RoundRecord.sim_time_s``) and drops uploads; ``up_predicate`` keeps
 the leaves it rejects off the wire (partial updates); ``wire_schema=2``
-puts the clients' BN statistics inside every payload.
+puts the clients' BN statistics inside every payload.  The host uplink
+may code the cohort on a thread or forkserver pool (``uplink_workers``,
+``uplink_executor``, ``uplink_batch``), and ``ingest="streaming"`` folds
+the decoded payloads into running accumulators (``fl.ingest``) instead
+of gathering them.  ``telemetry`` (``"off" | "metrics" | "trace"``, the
+port's ``obs``) records spans and per-round counters into
+``RoundRecord.telemetry`` without changing a record.
 
 Randomness: standalone runs draw the initial state, cohorts, latencies
 and batch orders from one ``torch.Generator`` seeded with ``seed``.  Runs
@@ -32,6 +38,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.coding import nnc
 from repro_torch.comms.channel import ChannelConfig, ChannelModel
 from repro_torch.core import quant as quant_lib
@@ -39,12 +46,14 @@ from repro_torch.core.protocol import ProtocolConfig, make_protocol
 from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.executors import EXECUTORS, make_executor
+from repro_torch.fl.ingest import IngestConfig, StreamingIngest
 from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
                                    Downlink, Evaluate, LocalTrain,
                                    RoundIntake, ServerStep, Uplink,
                                    raw_bytes_per_client)
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import not_ported, resolve_device
 from repro_torch.tree import leaves, row, tree_map
 
@@ -62,6 +71,9 @@ class RoundRecord:
     wall_s: float
     participants: tuple[int, ...] = ()
     sim_time_s: float = 0.0   # simulated clock (with a channel; else 0)
+    # the round's metrics snapshot (obs.MetricsRegistry.snapshot_round),
+    # None with telemetry off; never part of a parity comparison
+    telemetry: dict | None = None
 
 
 @dataclasses.dataclass
@@ -69,6 +81,7 @@ class RunResult:
     config_name: str
     records: list[RoundRecord]
     server: Any = None   # final ServerState
+    telemetry: Any = None  # the run's obs.Telemetry (trace export)
 
     @property
     def final_acc(self) -> float:
@@ -114,11 +127,8 @@ class RunResult:
 # fields of the reference's EngineConfig that the port does not run yet,
 # with their defaults and the port-queue item that will bring them
 _NOT_PORTED_FIELDS = {
-    "uplink_workers": (0, "streaming ingest, population, telemetry"),
-    "uplink_batch": (False, "streaming ingest, population, telemetry"),
-    "ingest": ("gather", "streaming ingest, population, telemetry"),
     "population": (None, "streaming ingest, population, telemetry"),
-    "telemetry": ("off", "streaming ingest, population, telemetry"),
+    "metrics_out": (None, "streaming ingest, population, telemetry"),
     "mesh_shape": (None, "executors: vmap, sharded, dist"),
 }
 
@@ -140,12 +150,18 @@ class EngineConfig:
     executor: str = "serial"
     channel: ChannelConfig | None = None
     up_predicate: Callable | None = None  # wire leaf predicate (partial)
-    # accepted only at the reference's defaults (not ported yet)
-    uplink_workers: int = 0
-    uplink_batch: bool = False
+    uplink_workers: int = 0              # > 1: a pool of wire round trips
+    uplink_executor: str = "thread"      # "thread" | "process"
+    uplink_batch: bool = False           # batch API: <= workers pool tasks
+    # "gather" decodes every payload and averages the list; "streaming"
+    # folds each decoded payload into running accumulators (fl.ingest)
     ingest: str = "gather"
+    ingest_opts: IngestConfig = dataclasses.field(
+        default_factory=IngestConfig)
+    telemetry: str = "off"               # "off" | "metrics" | "trace"
+    # accepted only at the reference's defaults (not ported yet)
     population: int | None = None
-    telemetry: str = "off"
+    metrics_out: str | None = None
     mesh_shape: tuple[int, ...] | None = None
 
     def validate(self, num_clients: int | None = None) -> None:
@@ -193,6 +209,43 @@ class EngineConfig:
         if self.device_encode and not self.measure_bytes:
             raise ValueError("device_encode builds real payloads on device: "
                              "set measure_bytes=True")
+        if (self.mode == "async" and self.uplink_workers > 1
+                and self.async_cfg.dispatch_window <= 0.0):
+            raise ValueError(
+                "uplink_workers parallelises a batch of wire round trips; "
+                "with dispatch_window=0 the async scheduler transmits one "
+                "completion at a time, so a pool would do nothing: set "
+                "AsyncConfig.dispatch_window > 0 or leave uplink_workers "
+                "unset")
+        if self.uplink_executor not in ("thread", "process"):
+            raise ValueError("uplink_executor must be 'thread' or 'process', "
+                             f"got {self.uplink_executor!r}")
+        if self.uplink_workers < 0:
+            raise ValueError("uplink_workers must be >= 0")
+        if self.ingest not in ("gather", "streaming"):
+            raise ValueError(f"unknown ingest mode: {self.ingest!r} "
+                             "(known: gather, streaming)")
+        if self.ingest == "streaming":
+            if not self.measure_bytes:
+                raise ValueError(
+                    "streaming ingest decodes real payloads; set "
+                    "measure_bytes=True or use ingest='gather'")
+            if self.uplink_workers > 1:
+                raise ValueError(
+                    "uplink_workers pools the gather encode+decode round "
+                    "trip; with ingest='streaming' decode parallelism lives "
+                    "in IngestConfig.workers: drop uplink_workers or use "
+                    "ingest='gather'")
+            self.ingest_opts.validate()
+        elif self.ingest_opts != IngestConfig():
+            raise ValueError(
+                "ingest_opts configures the streaming ingest stage; it has "
+                f"no meaning for ingest={self.ingest!r}: drop it or set "
+                "ingest='streaming'")
+        if self.telemetry not in obs.TELEMETRY_MODES:
+            known = ", ".join(obs.TELEMETRY_MODES)
+            raise ValueError(f"unknown telemetry mode: {self.telemetry!r} "
+                             f"(known: {known})")
 
 
 # ------------------------------------------------------------- byte helpers
@@ -249,6 +302,10 @@ class FederatedEngine:
         self.server = server
         self.version = 0    # aggregations with survivors (async staleness)
         self.async_cfg = engine_cfg.async_cfg
+        self.engine_cfg = engine_cfg
+        # the run's span recorder and metrics registry, ambient for the
+        # duration of run() (off: the shared no-op bundle)
+        self.telemetry = obs.make_telemetry(engine_cfg.telemetry)
 
         self.cohort = CohortPlan(engine_cfg.sampling, self.num_clients)
         self.local_train = LocalTrain(
@@ -266,8 +323,20 @@ class FederatedEngine:
         self.channel = (ChannelModel(engine_cfg.channel, self.num_clients)
                         if engine_cfg.channel is not None else None)
         self._raw_model_bytes = raw_bytes_per_client(server.params)
+        self.streaming_ingest = engine_cfg.ingest == "streaming"
+        if self.streaming_ingest:
+            # an unsupported codec and decode engine fail here, not
+            # mid-round
+            self._ingest_codec = self.uplink.codec.with_decode_engine(
+                engine_cfg.ingest_opts.decode_engine)
         self.scheduler = SCHEDULERS[engine_cfg.mode]()
         self.scheduler.bind(self, gen, plan)
+
+    def make_ingest(self) -> StreamingIngest:
+        """A fresh single-use streaming ingest on the uplink's wire spec,
+        its sums on the engine's device (one an aggregation)."""
+        return StreamingIngest(self._ingest_codec, self.uplink.spec,
+                               self.engine_cfg.ingest_opts, self.device)
 
     def broadcast_ref_bytes(self) -> int:
         """Bytes a client downloads before its round: the last compressed
@@ -283,41 +352,73 @@ class FederatedEngine:
                 if c.metrics is not None and name in c.metrics]
         return float(np.mean(vals)) if vals else float("nan")
 
+    def _record_round_metrics(self, rec: RoundRecord, intake: RoundIntake,
+                              run_t0: float) -> None:
+        """The round's registry updates, from the values of its record:
+        the snapshot's byte counters equal ``up_bytes``/``down_bytes``."""
+        m = self.telemetry.metrics
+        m.count("uplink.bytes", rec.up_bytes)
+        m.count("downlink.bytes", rec.down_bytes)
+        m.count("rounds", 1)
+        m.gauge("round.wall_s", rec.wall_s)
+        m.gauge("round.sim_time_s", rec.sim_time_s)
+        # how far the simulated clock runs ahead of the wall clock
+        m.gauge("clock.skew_s", rec.sim_time_s - (time.time() - run_t0))
+        m.gauge("round.cohort", len(intake.contributions))
+        m.gauge("round.survivors", len(intake.survivors))
+        m.gauge("uplink.pool_tasks", self.uplink.pool_tasks)
+
     def run(self, rounds: int, *, verbose: bool = False) -> RunResult:
         records: list[RoundRecord] = []
         cum = 0
-        with torch.no_grad():
-            while len(records) < rounds:
-                t0 = time.time()
-                intake = self.scheduler.next_round()
-                survivors = [intake.contributions[i]
-                             for i in intake.survivors]
-                up_bytes = sum(c.payload_bytes for c in intake.contributions)
-                down_bytes = 0
-                if survivors:
-                    self.server, down_bytes = self.server_step(
-                        self.server, self.aggregate(survivors,
-                                                    intake.weights),
-                        self.downlink, intake.receivers,
-                        self.uplink.transmit)
-                    self.version += 1
-                cum += up_bytes + down_bytes
-                acc = self.evaluate(self.server)
-                rec = RoundRecord(
-                    round=len(records) + 1, test_acc=acc, up_bytes=up_bytes,
-                    down_bytes=down_bytes, cum_bytes=cum,
-                    mean_val_acc=self._mean_metric(intake, "val_acc"),
-                    update_sparsity=self._mean_metric(intake,
-                                                      "update_sparsity"),
-                    train_loss=self._mean_metric(intake, "train_loss"),
-                    wall_s=time.time() - t0,
-                    participants=tuple(c.client for c in survivors),
-                    sim_time_s=intake.sim_time)
-                records.append(rec)
-                if verbose:
-                    print(f"[{self.config_name}] "
-                          + self.scheduler.log_line(rec, intake))
-        return RunResult(self.config_name, records, server=self.server)
+        tel = self.telemetry
+        run_t0 = time.time()
+        try:
+            with torch.no_grad(), tel.activate():
+                while len(records) < rounds:
+                    t0 = time.time()
+                    with obs_trace.span("round", n=len(records) + 1):
+                        intake = self.scheduler.next_round()
+                        survivors = [intake.contributions[i]
+                                     for i in intake.survivors]
+                        up_bytes = sum(c.payload_bytes
+                                       for c in intake.contributions)
+                        down_bytes = 0
+                        if survivors:
+                            # streaming ingest hands over the aggregate it
+                            # folded; gather aggregates the decoded trees
+                            agg = (intake.preagg
+                                   if intake.preagg is not None
+                                   else self.aggregate(survivors,
+                                                       intake.weights))
+                            self.server, down_bytes = self.server_step(
+                                self.server, agg, self.downlink,
+                                intake.receivers, self.uplink.transmit)
+                            self.version += 1
+                        cum += up_bytes + down_bytes
+                        acc = self.evaluate(self.server)
+                    rec = RoundRecord(
+                        round=len(records) + 1, test_acc=acc,
+                        up_bytes=up_bytes, down_bytes=down_bytes,
+                        cum_bytes=cum,
+                        mean_val_acc=self._mean_metric(intake, "val_acc"),
+                        update_sparsity=self._mean_metric(intake,
+                                                          "update_sparsity"),
+                        train_loss=self._mean_metric(intake, "train_loss"),
+                        wall_s=time.time() - t0,
+                        participants=tuple(c.client for c in survivors),
+                        sim_time_s=intake.sim_time)
+                    if tel.on:
+                        self._record_round_metrics(rec, intake, run_t0)
+                        rec.telemetry = tel.round_snapshot(rec.round)
+                    records.append(rec)
+                    if verbose:
+                        print(f"[{self.config_name}] "
+                              + self.scheduler.log_line(rec, intake))
+        finally:
+            self.uplink.close()
+        return RunResult(self.config_name, records, server=self.server,
+                         telemetry=tel)
 
 
 def run_simulation(model, cfg: ProtocolConfig, splits: FederatedSplits,

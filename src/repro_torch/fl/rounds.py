@@ -34,6 +34,8 @@ levels and block scales, one kernel launch per broadcast each.
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -41,8 +43,8 @@ import torch
 
 from repro_torch import comms
 from repro_torch.comms import device as comms_device
+from repro_torch.comms import pool as comms_pool
 from repro_torch.comms import stages as stages_lib
-from repro_torch.comms.codec import bn_tree
 from repro_torch.comms.codecs import Int8BlockScaleCodec
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import quant as quant_lib
@@ -57,8 +59,9 @@ from repro_torch.fl.sampling import (EmptyCohortError, SamplingConfig,
                                      sample_available, sample_cohort)
 from repro_torch.fl.server_opt import server_update
 from repro_torch.kernels.delta_apply import delta_apply_leaves
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import span
 from repro_torch.optim import apply_updates
-from repro_torch.runtime import span
 from repro_torch.tree import items, rebuild, row, sorted_items, tree_map
 
 # ---------------------------------------------------------------- tree utils
@@ -97,6 +100,10 @@ class Contribution:
     staleness: int = 0           # server versions elapsed while training
     arrival_time: float = 0.0    # simulated seconds (async)
     metrics: dict[str, float] | None = None
+    # streaming ingest: the wire bytes, not yet decoded (``delta_params``
+    # and, under v1, ``bn_state`` are then the device rows, for Eq. 5
+    # re-injection and the v1 BN mean)
+    payload: bytes | None = None
 
 
 @dataclasses.dataclass
@@ -113,12 +120,15 @@ class RoundIntake:
     without refunding their bytes), how many clients receive the following
     broadcast, the simulated clock after the round, and the aggregation
     weights (None: the plain mean; async: the normalised FedBuff
-    staleness weights)."""
+    staleness weights).  ``preagg`` is streaming ingest's hand-off: the
+    survivors already folded (``fl.ingest``), so the engine skips
+    ``Aggregate``."""
     contributions: list[Contribution]
     survivors: list[int]
     receivers: int = 0
     sim_time: float = 0.0
     weights: np.ndarray | None = None
+    preagg: AggregatedRound | None = None
 
 
 # ---------------------------------------------------------------- cohort plan
@@ -187,14 +197,32 @@ class LocalTrain:
             return full
 
         self.state = tree_map(scatter, self.state, out.persistent)
+        self._record_update_metrics(out)
         return out
+
+    def _record_update_metrics(self, out) -> None:
+        """Per-leaf sparsity of the cohort's reconstructed update and the
+        mean Eq. 5 residual norm, as gauges; nothing (and no device read)
+        without a metrics registry."""
+        m = obs_metrics.get_registry()
+        if not m.enabled:
+            return
+        with span("local_train.metrics"):
+            for path, leaf in sorted_items(out.recon_delta_params):
+                m.gauge(f"update.sparsity.{path}",
+                        float((leaf == 0).double().mean()))
+            for path, leaf in sorted_items(out.persistent.residual):
+                flat = leaf.reshape(leaf.shape[0], -1).double()
+                m.gauge(f"residual.norm.{path}",
+                        float(torch.linalg.vector_norm(flat, dim=1).mean()))
 
     def train_cohort(self, idx: np.ndarray, batch_idx: torch.Tensor,
                      server: ServerState):
         """One barrier round over the cohort ``idx`` -> stacked RoundOutput."""
         if len(idx) == 0:
             raise EmptyCohortError("train_cohort received an empty cohort")
-        return self._run(idx, batch_idx, [server])
+        with span("local_train.cohort", n=len(idx)):
+            return self._run(idx, batch_idx, [server])
 
     def train_window(self, batch_idx: torch.Tensor, clients: list[int],
                      servers: list[ServerState]):
@@ -203,7 +231,8 @@ class LocalTrain:
         the server snapshot ``servers[i]`` it was dispatched with."""
         if len(clients) == 0:
             raise EmptyCohortError("train_window received an empty window")
-        return self._run(clients, batch_idx, servers)
+        with span("local_train.window", n=len(clients)):
+            return self._run(clients, batch_idx, servers)
 
     def reinject_residual(self, client: int, delta: Any) -> None:
         """A dropped upload must not break Eq. 5: put the lost (decoded)
@@ -211,8 +240,9 @@ class LocalTrain:
         its mass goes out again (the scale-delta section has no residual
         and stays lost)."""
         def add(r, d):
-            r[client] = r[client] + torch.tensor(np.asarray(d, np.float32),
-                                                 device=r.device)
+            if not isinstance(d, torch.Tensor):   # a decoded numpy leaf
+                d = torch.tensor(np.asarray(d, np.float32), device=r.device)
+            r[client] = r[client] + d
             return r
 
         tree_map(add, self.state.residual, delta)
@@ -220,10 +250,73 @@ class LocalTrain:
 
 # ---------------------------------------------------------------- uplink
 
+def host_rows(trees: list[Any], k: int) -> list[list[Any]]:
+    """Client rows of stacked trees (leading axis ``k``) as numpy, in ONE
+    device-to-host copy: every leaf's rows, viewed as 32-bit words, go
+    into one buffer that crosses once, and each client's leaves are numpy
+    views of it (the tensors' own bits).  ``None`` trees stay ``None``.
+    Returns, per tree, one tree of numpy leaves per client."""
+    leaves_by_tree = [None if t is None else sorted_items(t) for t in trees]
+    flat = [leaf for ls in leaves_by_tree if ls is not None
+            for _, leaf in ls]
+    if not flat:
+        return [None if t is None else [t] * k for t in trees]
+    words = [leaf.reshape(k, -1).contiguous().view(torch.int32)
+             for leaf in flat]
+    block = (torch.cat(words, dim=1) if len(words) > 1 else words[0]).cpu()
+    block = block.numpy()
+    out, col, width = [], 0, iter(w.shape[1] for w in words)
+    for tree, ls in zip(trees, leaves_by_tree):
+        if ls is None:
+            out.append(None)
+            continue
+        views = {}
+        for path, leaf in ls:
+            n = next(width)
+            np_dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
+            views[path] = (block[:, col:col + n].view(np_dtype)
+                           .reshape((k,) + tuple(leaf.shape[1:])))
+            col += n
+        out.append([rebuild(tree, {p: v[i] for p, v in views.items()})
+                    for i in range(k)])
+    return out
+
+
+def account_sections(prefix: str, codec, spec, payload: bytes) -> None:
+    """One payload's counters: ``<prefix>.payloads`` and the per-section
+    bytes ``<prefix>.section.<name>.bytes`` (``Codec.payload_sections``);
+    nothing without a registry."""
+    m = obs_metrics.get_registry()
+    if not m.enabled:
+        return
+    m.count(f"{prefix}.payloads", 1)
+    for sec, n in codec.payload_sections(payload, spec).items():
+        m.count(f"{prefix}.section.{sec}.bytes", n)
+
+
 class Uplink:
     """Stage 3: the wire.  Encode each participant's update, decode it back;
     the engine aggregates the DECODED reconstructions, so ``payload_bytes``
-    are lengths of payloads that provably decode."""
+    are lengths of payloads that provably decode.
+
+    Host coders (``Codec.host_coder``) read the cohort's trees as numpy:
+    they reach the host in one copy (``host_rows``); a device coder reads
+    the device rows.  Per-client round trips share no codec state, so
+    ``uplink_workers > 1`` fans them out over a pool, ``"thread"`` (numpy
+    releases the GIL; any codec) or ``"process"`` (host coders only: a
+    ``forkserver`` pool that preloads ``repro_torch.comms``; never
+    ``fork``, since the parent may hold a CUDA context).  Process workers
+    take and return numpy, never tensors.  ``uplink_batch=True`` splits the
+    cohort into at most ``workers`` contiguous chunks, one pool task each
+    through ``Codec.encode_batch``/``decode_batch`` (process workers
+    return ``comms.FlatDecoded``).  Results come back in submission order,
+    so payloads are byte-identical to the serial route.  ``pool_tasks``
+    counts the submissions.
+
+    Under ``EngineConfig.device_encode`` the cohort is encoded by
+    ``Codec.encode_cohort`` on the device.  Under streaming ingest the
+    intake only encodes: contributions carry their payloads, and the
+    scheduler folds the survivors through ``fl.ingest``."""
 
     def __init__(self, cfg: ProtocolConfig, engine_cfg, server: ServerState):
         self.transmit = engine_cfg.measure_bytes
@@ -244,6 +337,145 @@ class Uplink:
                 if engine_cfg.wire_schema == 2 else None),
             version=engine_cfg.wire_schema)
         self.device_encode = engine_cfg.device_encode
+        self.workers = engine_cfg.uplink_workers
+        self.executor_kind = engine_cfg.uplink_executor
+        self.batch = engine_cfg.uplink_batch
+        self.streaming = engine_cfg.ingest == "streaming"
+        if (self.workers > 1 and self.executor_kind == "process"
+                and not self.codec.host_coder):
+            raise ValueError(
+                f"codec {self.codec.name!r} encodes on the device; process "
+                "workers code host numpy arrays: use uplink_executor="
+                "'thread' or a host codec")
+        self._ex = None
+        self.pool_tasks = 0
+
+    # -- device -> host ----------------------------------------------------
+
+    def fetch(self, out, k: int) -> list[comms.ClientUpdate]:
+        """One ``ClientUpdate`` a client: numpy rows in one copy for a host
+        coder (only the trees it reads; BN under schema v2), or device
+        rows for a device coder."""
+        need_levels = "levels" in self.codec.needs
+        need_recon = "recon" in self.codec.needs or self.spec.ternary
+        trees = [out.levels_params if need_levels else None,
+                 out.levels_scales if need_levels else None,
+                 out.recon_delta_params if need_recon else None,
+                 out.recon_delta_scales if need_recon else None,
+                 out.bn_state if self.spec.version == 2 else None]
+        with span("uplink.fetch"):
+            if self.codec.host_coder:
+                rows = host_rows(trees, k)
+            else:
+                rows = [None if t is None else [row(t, i) for i in range(k)]
+                        for t in trees]
+        return [comms.ClientUpdate(*(None if r is None else r[i]
+                                     for r in rows[:4]),
+                                   bn=None if rows[4] is None else rows[4][i])
+                for i in range(k)]
+
+    # -- wire round trips --------------------------------------------------
+
+    def _account_payload(self, payload: bytes) -> None:
+        account_sections("uplink", self.codec, self.spec, payload)
+
+    def _account_opaque(self, sizes: list[int]) -> None:
+        """Process-pool results: the workers never see the parent's
+        registry, so only the payload totals are counted."""
+        m = obs_metrics.get_registry()
+        if not m.enabled:
+            return
+        m.count("uplink.payloads", len(sizes))
+        m.count("uplink.section.opaque.bytes", sum(sizes))
+
+    def _roundtrip(self, upd: comms.ClientUpdate):
+        with span("uplink.roundtrip"):
+            payload = self.codec.encode(upd, self.spec)
+            self._account_payload(payload)
+            return len(payload), self.codec.decode(payload, self.spec)
+
+    def _roundtrip_batch(self, chunk: list[comms.ClientUpdate],
+                         clients: list[int] | None):
+        with span("uplink.roundtrip_batch", n=len(chunk)):
+            payloads = self.codec.encode_batch(chunk, self.spec,
+                                               clients=clients)
+            for p in payloads:
+                self._account_payload(p)
+            decs = self.codec.decode_batch(payloads, self.spec,
+                                           clients=clients)
+            return [(len(p), d) for p, d in zip(payloads, decs)]
+
+    def _executor(self):
+        if self._ex is None:
+            if self.executor_kind == "thread":
+                self._ex = ThreadPoolExecutor(self.workers)
+            else:
+                ctx = multiprocessing.get_context("forkserver")
+                ctx.set_forkserver_preload(["repro_torch.comms"])
+                self._ex = ProcessPoolExecutor(
+                    self.workers, mp_context=ctx,
+                    initializer=comms_pool.init,
+                    initargs=(self.codec, self.spec))
+        return self._ex
+
+    def roundtrip_all(self, upds: list[comms.ClientUpdate],
+                      clients: list[int] | None = None):
+        """Encode and decode every update -> ``(payload bytes, Decoded)``
+        pairs in submission order.  Without a pool, one batch call over
+        the cohort; with ``workers > 1``, one task a client, or, with
+        ``uplink_batch``, one a contiguous chunk."""
+        comms.check_batch_clients(clients, len(upds), "updates")
+        if self.workers <= 1 or len(upds) <= 1:
+            return self._roundtrip_batch(upds, clients)
+        ex = self._executor()
+        thread = self.executor_kind == "thread"
+        if not self.batch:
+            self.pool_tasks += len(upds)
+            results = list(ex.map(self._roundtrip if thread
+                                  else comms_pool.roundtrip, upds))
+            if not thread:
+                self._account_opaque([n for n, _ in results])
+            return results
+        bounds = np.array_split(np.arange(len(upds)),
+                                min(self.workers, len(upds)))
+        chunks = [([upds[i] for i in b],
+                   None if clients is None else [clients[i] for i in b])
+                  for b in bounds if len(b)]
+        self.pool_tasks += len(chunks)
+        if thread:
+            futs = [ex.submit(self._roundtrip_batch, ch, cl)
+                    for ch, cl in chunks]
+            return [r for f in futs for r in f.result()]
+        futs = [ex.submit(comms_pool.roundtrip_chunk, ch, cl)
+                for ch, cl in chunks]
+        results = [(n, comms.unflatten_decoded(flat, self.spec))
+                   for f in futs for n, flat in f.result()]
+        self._account_opaque([n for n, _ in results])
+        return results
+
+    def close(self) -> None:
+        if self._ex is not None:
+            self._ex.shutdown()
+            self._ex = None
+
+    # -- device cohort encode ----------------------------------------------
+
+    def _device_payloads(self, out, clients: list[int]):
+        """The cohort's payloads from ``Codec.encode_cohort``, or None where
+        the codec has no device route; ``uplink.kernel_dispatches`` counts
+        the device programs it took."""
+        before = comms_device.dispatch_count()
+        with span("uplink.device_encode", n=len(clients),
+                  codec=self.codec.name):
+            payloads = self.codec.encode_cohort(out, self.spec,
+                                                clients=clients)
+        m = obs_metrics.get_registry()
+        if m.enabled:
+            m.count("uplink.kernel_dispatches",
+                    comms_device.dispatch_count() - before)
+        return payloads
+
+    # -- RoundOutput -> Contributions --------------------------------------
 
     def _metric_rows(self, out, k: int) -> list[dict[str, float]]:
         host = {name: v.detach().cpu().numpy() for name, v in
@@ -253,6 +485,10 @@ class Uplink:
 
     def intake(self, out, clients: list[int]) -> list[Contribution]:
         """Stacked cohort RoundOutput -> one Contribution per client."""
+        with span("uplink.intake", n=len(clients), transmit=self.transmit):
+            return self._intake(out, clients)
+
+    def _intake(self, out, clients: list[int]) -> list[Contribution]:
         k = len(clients)
         metrics = self._metric_rows(out, k)
         if not self.transmit:
@@ -261,28 +497,50 @@ class Uplink:
                 delta_scales=row(out.recon_delta_scales, i),
                 bn_state=row(out.bn_state, i), metrics=metrics[i])
                 for i, c in enumerate(clients)]
-        payloads = None
+        if self.streaming:
+            return self._intake_streaming(out, clients, metrics)
+        results = None
         if self.device_encode:
-            payloads = self.codec.encode_cohort(out, self.spec,
-                                                clients=clients)
-        if payloads is None:
-            lv_p, lv_s = out.levels_params, out.levels_scales
-            if "levels" in self.codec.needs:   # host coders read numpy
-                lv_p, lv_s = tree_map(torch.Tensor.cpu, (lv_p, lv_s))
-            bn = comms_device.bn_rows(out.bn_state, self.spec, k)
-            payloads = self.codec.encode_batch([comms.ClientUpdate(
-                row(lv_p, i), row(lv_s, i), row(out.recon_delta_params, i),
-                row(out.recon_delta_scales, i),
-                bn=None if bn is None else bn_tree(bn[i], self.spec))
-                for i in range(k)], self.spec, clients=clients)
-        decs = self.codec.decode_batch(payloads, self.spec, clients=clients)
+            payloads = self._device_payloads(out, clients)
+            if payloads is not None:
+                for p in payloads:
+                    self._account_payload(p)
+                results = [(len(p), d) for p, d in zip(
+                    payloads, self.codec.decode_batch(payloads, self.spec,
+                                                      clients=clients))]
+        if results is None:
+            results = self.roundtrip_all(self.fetch(out, k), clients)
         # under v2 the BN statistics are what the payload carried
         return [Contribution(
             client=c, delta_params=dec.params, delta_scales=dec.scales,
             bn_state=(dec.bn if self.spec.version == 2
                       else row(out.bn_state, i)),
-            payload_bytes=len(p), metrics=metrics[i])
-            for i, (c, p, dec) in enumerate(zip(clients, payloads, decs))]
+            payload_bytes=nbytes, metrics=metrics[i])
+            for i, (c, (nbytes, dec)) in enumerate(zip(clients, results))]
+
+    def _intake_streaming(self, out, clients: list[int],
+                          metrics) -> list[Contribution]:
+        """Encode-only intake for streaming ingest: each contribution
+        carries its payload and, for Eq. 5 re-injection after a drop or a
+        quarantine, its device reconstruction row (bitwise the decoded
+        tree for the level codecs); under v1 also its device BN row."""
+        payloads = None
+        if self.device_encode:
+            payloads = self._device_payloads(out, clients)
+        if payloads is None:
+            with span("uplink.encode_batch", n=len(clients)):
+                payloads = self.codec.encode_batch(
+                    self.fetch(out, len(clients)), self.spec,
+                    clients=clients)
+        for p in payloads:
+            self._account_payload(p)
+        return [Contribution(
+            client=c, delta_params=row(out.recon_delta_params, i),
+            delta_scales=None,
+            bn_state=(None if self.spec.version == 2
+                      else row(out.bn_state, i)),
+            payload_bytes=len(p), payload=p, metrics=metrics[i])
+            for i, (c, p) in enumerate(zip(clients, payloads))]
 
 
 # ---------------------------------------------------------------- aggregate
@@ -309,6 +567,12 @@ class Aggregate:
                  weights: np.ndarray | None = None) -> AggregatedRound:
         if not contribs:
             raise ValueError("cannot aggregate zero contributions")
+        with span("aggregate", n=len(contribs),
+                  weighted=weights is not None):
+            return self._mean(contribs, weights)
+
+    def _mean(self, contribs: list[Contribution],
+              weights: np.ndarray | None) -> AggregatedRound:
         if weights is None:
             def mean(trees, host):
                 return tree_mean0(stack_trees(trees, self.device))
@@ -344,10 +608,14 @@ class ServerStep:
     def __call__(self, server: ServerState, agg: AggregatedRound,
                  downlink: "Downlink", receivers: int,
                  transmit: bool) -> tuple[ServerState, int]:
+        with span("server_step"):
+            return self._step(server, agg, downlink, receivers, transmit)
+
+    def _step(self, server, agg, downlink, receivers, transmit):
         updates, self.state = server_update(self.opt, self.state,
                                             agg.delta_params, server.params)
         down_bytes = 0
-        with span("downlink"):
+        with span("downlink", active=downlink.active):
             if downlink.active:
                 broadcast, down_bytes = downlink.compress(updates, receivers,
                                                           transmit)
@@ -461,6 +729,8 @@ class Downlink:
                 recon_scales=None), self.spec)
             self.last_payload_bytes = len(payload)
             down = receivers * len(payload)
+            # the one payload, before the fan-out ``downlink.bytes`` counts
+            account_sections("downlink", self.codec, self.spec, payload)
             dev = items(updates)[0][1].device
             if isinstance(self.codec, Int8BlockScaleCodec):
                 sections = self.codec.device_sections(payload, self.spec,
@@ -489,7 +759,8 @@ class Evaluate:
         self.test_x, self.test_y = test_x, test_y
 
     def __call__(self, server: ServerState) -> float:
-        return float(self._eval(server, self.test_x, self.test_y))
+        with span("evaluate"):
+            return float(self._eval(server, self.test_x, self.test_y))
 
 
 # ---------------------------------------------------------------- scheduler
@@ -555,9 +826,42 @@ class SyncScheduler:
             for i in lost:
                 eng.local_train.reinject_residual(clients[i],
                                                   contribs[i].delta_params)
-        return RoundIntake(contribs,
-                           [i for i in range(cohort) if i not in lost],
-                           receivers=cohort, sim_time=self.sim_clock)
+        survivors = [i for i in range(cohort) if i not in lost]
+        preagg = None
+        if eng.streaming_ingest:
+            preagg, survivors = self._fold_streaming(contribs, survivors,
+                                                     clients)
+        return RoundIntake(contribs, survivors, receivers=cohort,
+                           sim_time=self.sim_clock, preagg=preagg)
+
+    def _fold_streaming(self, contribs: list[Contribution],
+                        survivors: list[int], clients: list[int]):
+        """Decode and fold the survivors' payloads in cohort order
+        (``fl.ingest``).  A corrupt payload is quarantined: out of the
+        survivors (its bytes stay charged, as a drop's) and, under error
+        feedback, its client's device reconstruction goes back into its
+        residual (Eq. 5).  Under v1 the BN state is the same device mean
+        as ``Aggregate``'s.  -> (AggregatedRound or None, survivors)."""
+        eng = self.eng
+        ing = eng.make_ingest()
+        for i in survivors:
+            ing.submit(contribs[i].client, contribs[i].payload)
+        res = ing.finish()
+        if res.rejected:
+            rej = {survivors[r.seq] for r in res.rejected}
+            survivors = [i for i in survivors if i not in rej]
+            if eng.protocol_cfg.error_feedback:
+                for i in sorted(rej):
+                    eng.local_train.reinject_residual(
+                        clients[i], contribs[i].delta_params)
+        if not survivors:
+            return None, survivors
+        bn = (res.bn if eng.uplink.spec.version == 2 else tree_mean0(
+            stack_trees([contribs[i].bn_state for i in survivors],
+                        eng.device)))
+        return AggregatedRound(delta_params=res.delta_params,
+                               delta_scales=res.delta_scales,
+                               bn_state=bn), survivors
 
     def log_line(self, rec, intake: RoundIntake) -> str:
         line = (f"round {rec.round:3d} acc={rec.test_acc:.3f} "
@@ -707,6 +1011,7 @@ class BufferedAsyncScheduler:
                 self._batch_rows(len(window)), clients,
                 [e.server for e in window])
             self.batch_sizes.append(len(window))
+            obs_metrics.observe("async.batch_size", len(window))
             contribs = eng.uplink.intake(out, clients)
             for e, c in zip(window, contribs):
                 c.staleness = eng.version - e.start_version
@@ -721,12 +1026,48 @@ class BufferedAsyncScheduler:
             buffer.extend(contribs)
             self.pending_dispatch += len(window)
             if len(buffer) >= self.acfg.buffer_size:
+                if eng.streaming_ingest:
+                    return self._flush_streaming(buffer)
                 w = normalized_staleness_weights(
                     [b.staleness for b in buffer],
                     self.acfg.staleness_exponent)
                 return RoundIntake(buffer, list(range(len(buffer))),
                                    receivers=self.concurrency,
                                    sim_time=self.now, weights=w)
+
+    def _flush_streaming(self, buffer: list[Contribution]) -> RoundIntake:
+        """Decode at flush: fold the buffered payloads in buffer order with
+        the FedBuff staleness weights: the weights, trees and fold order
+        of the gather path's ``weighted_mean_trees``, so the aggregate is
+        bitwise the gather's when every payload decodes.  A corrupt
+        payload drops its entry (async has no residual to re-inject; its
+        bytes stay charged), the weights renormalise over the rest and
+        the fold runs again.  Under v1 the BN state is the gather's
+        device fold of the rows."""
+        eng = self.eng
+        keep = list(range(len(buffer)))
+        while keep:
+            w = normalized_staleness_weights(
+                [buffer[i].staleness for i in keep],
+                self.acfg.staleness_exponent)
+            ing = eng.make_ingest()
+            for j, i in enumerate(keep):
+                ing.submit(buffer[i].client, buffer[i].payload, weight=w[j])
+            res = ing.finish()
+            if not res.rejected:
+                break
+            rej = {keep[r.seq] for r in res.rejected}
+            keep = [i for i in keep if i not in rej]
+        if not keep:
+            return RoundIntake(buffer, [], receivers=self.concurrency,
+                               sim_time=self.now)
+        bn = (res.bn if eng.uplink.spec.version == 2 else weighted_mean_trees(
+            [buffer[i].bn_state for i in keep], w, host=False,
+            device=eng.device))
+        preagg = AggregatedRound(delta_params=res.delta_params,
+                                 delta_scales=res.delta_scales, bn_state=bn)
+        return RoundIntake(buffer, keep, receivers=self.concurrency,
+                           sim_time=self.now, weights=w, preagg=preagg)
 
     def log_line(self, rec, intake: RoundIntake) -> str:
         return (f"agg {rec.round:3d} acc={rec.test_acc:.3f} "

@@ -1,9 +1,9 @@
 """Scenario registry: named, reproducible federated settings.
 
-Port of ``repro.fl.scenarios``: 24 of the reference's 35 scenarios, all
+Port of ``repro.fl.scenarios``: 30 of the reference's 35 scenarios, all
 but ``sync_full_fedavg_raw`` on the FSFL protocol (Table-2 row ``fsfl``,
 whose client runs the ``level_assign`` kernel once per client, over all
-its leaves).  The other 11 raise ``runtime.not_ported`` naming the port
+its leaves).  The other 5 raise ``runtime.not_ported`` naming the port
 queue item they wait on (``NOT_PORTED``).
 
 * ``sync_full_fedavg_fsfl``: the paper's setting, all 8 clients, FedAvg,
@@ -36,7 +36,15 @@ queue item they wait on (``NOT_PORTED``).
   ``async_b2_m4_fedadam`` (buffer 2, FedAdam), ``bnwire_v2_async``
   (buffer 2, 3 concurrent, schema v2) and ``async_windowed_b4``
   (clients finishing within 0.5 s of each other train in one executor
-  call, ``SerialExecutor.run_stacked``).
+  call, ``SerialExecutor.run_stacked``);
+* the host uplink: ``uplink_pool_k8`` (fp16 round trips on a thread
+  pool), ``cabac_fast_batch_k8`` and ``cabac_fast_pool_k8`` (nnc-cabac
+  through the batch API in at most 2 tasks a cohort, on a thread or a
+  forkserver pool), each payload byte-identical to the serial uplink's;
+* streaming ingest: ``stream_ingest_k8`` (each payload decoded and folded
+  into running accumulators), ``stream_ingest_spec_k8`` (the speculative
+  CABAC decoder) and ``stream_ingest_async_b4`` (FedBuff decoding its
+  buffer at the flush).
 
     from repro_torch.fl import run_scenario
     result = run_scenario("sync_full_fedavg_fsfl", rounds=2)   # on CUDA
@@ -53,6 +61,7 @@ from repro_torch.core.protocol import ProtocolConfig, baseline_configs
 from repro_torch.data import federated, synthetic
 from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.engine import EngineConfig, RunResult, run_simulation
+from repro_torch.fl.ingest import IngestConfig
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig
 from repro_torch.models import cnn
@@ -86,6 +95,12 @@ class Scenario:
     device_encode: bool = False
     channel: ChannelConfig | None = None
     dirichlet_alpha: float | None = None
+    uplink_workers: int = 0           # > 1: a pool of wire round trips
+    uplink_executor: str = "thread"   # "thread" | "process"
+    uplink_batch: bool = False        # batch API: <= workers tasks a cohort
+    ingest: str = "gather"            # "gather" | "streaming"
+    ingest_engine: str = "vectorized"  # streaming decode engine
+    telemetry: str = "off"            # "off" | "metrics" | "trace"
 
 
 def _fc_only(path: str, leaf) -> bool:
@@ -122,6 +137,12 @@ def build_engine(s: Scenario) -> EngineConfig:
         channel=s.channel,
         wire_schema=s.wire_schema,
         device_encode=s.device_encode,
+        uplink_workers=s.uplink_workers,
+        uplink_executor=s.uplink_executor,
+        uplink_batch=s.uplink_batch,
+        ingest=s.ingest,
+        ingest_opts=IngestConfig(decode_engine=s.ingest_engine),
+        telemetry=s.telemetry,
         # partial updates have no deltas outside the classifier, so the
         # wire leaves those leaves out entirely
         up_predicate=_fc_only if s.partial_updates else None)
@@ -171,10 +192,7 @@ def register(s: Scenario) -> Scenario:
 # item each waits on
 NOT_PORTED = {
     **{name: "streaming ingest, population, telemetry" for name in (
-        "uplink_pool_k8", "cabac_fast_batch_k8", "cabac_fast_pool_k8",
-        "stream_ingest_k8", "stream_ingest_spec_k8",
-        "stream_ingest_async_b4", "pop_100k_diurnal", "pop_1m_lazy_k32",
-        "churn_midround_async")},
+        "pop_100k_diurnal", "pop_1m_lazy_k32", "churn_midround_async")},
     **{name: "executors: vmap, sharded, dist" for name in (
         "sharded_cohort_full", "dist_cohort_full")},
 }
@@ -290,6 +308,35 @@ register(Scenario("async_windowed_b4",
                   "call",
                   mode="async", buffer_size=4, concurrency=4,
                   dispatch_window=0.5))
+
+register(Scenario("uplink_pool_k8",
+                  "thread-pooled per-client wire round trips (fp16 payloads "
+                  "release the GIL)",
+                  codec="fp16", uplink_workers=2))
+register(Scenario("cabac_fast_batch_k8",
+                  "batched uplink intake: the cohort's DeepCABAC messages "
+                  "code through the codec batch API in <= W thread-pool "
+                  "tasks (byte-identical payloads)",
+                  uplink_workers=2, uplink_batch=True))
+register(Scenario("cabac_fast_pool_k8",
+                  "batched uplink over the forkserver pool: workers return "
+                  "flat arrays instead of pickled trees",
+                  uplink_workers=2, uplink_executor="process",
+                  uplink_batch=True))
+register(Scenario("stream_ingest_k8",
+                  "decode-and-accumulate ingest: every payload folds into "
+                  "the running accumulators on arrival, O(1) server memory "
+                  "in the cohort size",
+                  ingest="streaming"))
+register(Scenario("stream_ingest_spec_k8",
+                  "streaming ingest decoding through the speculative "
+                  "multi-symbol CABAC engine",
+                  ingest="streaming", ingest_engine="speculative"))
+register(Scenario("stream_ingest_async_b4",
+                  "buffered-async decode at flush: the FedBuff buffer holds "
+                  "payload bytes, staleness-weighted folding at aggregation",
+                  mode="async", buffer_size=4, concurrency=4,
+                  ingest="streaming"))
 
 
 def run_scenario(scenario: str | Scenario, *, rounds: int | None = None,

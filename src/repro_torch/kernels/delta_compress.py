@@ -20,12 +20,14 @@ gets the scale-1 sentinel.  Row i of a batch result is bit-equal to
 ``LAUNCHES`` counts kernel launches (only where the CUDA kernel is
 launched), ``CALLS`` wrapper calls on any device: under
 ``"delta_compress"`` one a message, under ``"delta_compress_batch"`` one
-a cohort.
+a cohort.  The counts take a lock: a thread-pooled uplink encodes
+messages concurrently.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +42,12 @@ CTAS_PER_SM = 8                # resident 256-thread CTAs an SM (2048 threads)
 
 LAUNCHES = {"delta_compress": 0, "delta_compress_batch": 0}
 CALLS = {"delta_compress": 0, "delta_compress_batch": 0}
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count(counts: dict, name: str) -> None:
+    with _COUNTS_LOCK:
+        counts[name] += 1
 
 
 def reset_counters() -> None:
@@ -233,7 +241,7 @@ def _launch(leaves, n_params: int, theta: float, block: int,
             if err:
                 raise RuntimeError(f"delta_compress kernel launch failed: "
                                    f"CUDA error {err}")
-            LAUNCHES[name] += 1
+            _count(LAUNCHES, name)
     return body
 
 
@@ -268,7 +276,7 @@ def int8_encode_leaves(p_leaves, s_leaves, theta: float, block: int = 128,
     k = (p_leaves or s_leaves)[0].shape[0]
     if not batched and k != 1:
         raise ValueError(f"a single message is one row, got {k}")
-    CALLS[name] += 1
+    _count(CALLS, name)
     dev = (p_leaves or s_leaves)[0].device
     if dev.type == "cpu":
         return int8_encode_leaves_plain(p_leaves, s_leaves, theta, block)
@@ -283,7 +291,7 @@ def _dispatch(deltas: torch.Tensor, theta: float, block: int, name: str):
     if deltas.dtype != torch.float32:
         raise TypeError(f"{name} takes float32 deltas, got {deltas.dtype}")
     _check_block(block)
-    CALLS[name] += 1
+    _count(CALLS, name)
     if deltas.device.type == "cpu":
         return delta_compress_batch_plain(deltas, theta, block)
     if deltas.device.type != "cuda":

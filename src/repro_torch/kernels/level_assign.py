@@ -47,14 +47,29 @@ def reset_counters() -> None:
             counts[k] = 0
 
 
-def _scalar(x, device: torch.device) -> torch.Tensor:
-    """``x`` (a float or a one-element tensor) as a float32 (1,) tensor on
-    ``device``."""
-    t = torch.as_tensor(x, dtype=torch.float32, device=device)
+def _scalar(x, device: torch.device,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` (a float or a one-element tensor) as a (1,) tensor of
+    ``dtype`` on ``device``."""
+    t = torch.as_tensor(x, dtype=dtype, device=device)
     if t.numel() != 1:
         raise ValueError(f"theta and step are scalars, got shape "
                          f"{tuple(t.shape)}")
     return t.reshape(1)
+
+
+def _check_dtypes(name: str, tensors, device: torch.device) -> None:
+    """float32 for the kernel; on the CPU the plain version takes any one
+    floating type (float64 where the port is held against the reference
+    under ``jax.enable_x64``)."""
+    dtypes = {t.dtype for t in tensors}
+    if device.type == "cpu" and len(dtypes) == 1 and (
+            next(iter(dtypes)).is_floating_point):
+        return
+    if dtypes != {torch.float32}:
+        raise TypeError(f"{name} takes float32 tensors (on the CPU, tensors "
+                        f"of one floating type), got "
+                        f"{sorted(str(d) for d in dtypes)}")
 
 
 def _empty(k: int, n: int, dev: torch.device):
@@ -75,11 +90,16 @@ def level_assign_plain(deltas: torch.Tensor, residuals: torch.Tensor,
     dev = deltas.device
     if k == 0 or n == 0:
         return _empty(k, n, dev)
-    th, st = _scalar(theta, dev), _scalar(step, dev)
     carried = deltas + residuals
+    # float32 as the kernel; a wider carry (the reference under x64) keeps
+    # its own type for theta and the step, and float32 for the levels'
+    # reconstruction, as ``quant.dequantize``
+    wide = carried.dtype
+    th = _scalar(theta, dev, wide)
+    st, st32 = _scalar(step, dev, wide), _scalar(step, dev)
     kept = torch.where(torch.abs(carried) >= th, carried, 0.0)
     lv = torch.clamp(torch.round(kept / st), -max_level, max_level)
-    return lv.to(torch.int32), carried - lv * st
+    return lv.to(torch.int32), carried - lv.to(torch.float32) * st32
 
 
 def level_assign_leaves_plain(deltas, residuals, thetas: torch.Tensor,
@@ -151,9 +171,7 @@ def level_assign(deltas: torch.Tensor, residuals: torch.Tensor, theta, step,
         raise ValueError(f"level_assign takes two (K, n) tensors of one "
                          f"shape, got {tuple(deltas.shape)} and "
                          f"{tuple(residuals.shape)}")
-    if deltas.dtype != torch.float32 or residuals.dtype != torch.float32:
-        raise TypeError(f"level_assign takes float32 tensors, got "
-                        f"{deltas.dtype} and {residuals.dtype}")
+    _check_dtypes("level_assign", [deltas, residuals], deltas.device)
     if residuals.device != deltas.device:
         raise ValueError(f"deltas on {deltas.device}, residuals on "
                          f"{residuals.device}")
@@ -218,9 +236,7 @@ def level_assign_leaves(deltas, residuals, thetas: torch.Tensor, steps, *,
         raise ValueError(f"thetas must have shape ({len(deltas)},), got "
                          f"{tuple(thetas.shape)}")
     tensors = deltas + residuals + [thetas]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"level_assign_leaves takes float32 tensors, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
+    _check_dtypes("level_assign_leaves", tensors, thetas.device)
     if any(t.device != thetas.device for t in tensors):
         raise ValueError(f"level_assign_leaves takes tensors on one device, "
                          f"got {sorted({str(t.device) for t in tensors})}")

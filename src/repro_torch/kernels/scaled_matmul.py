@@ -142,9 +142,12 @@ def backward(dy: torch.Tensor, x, w, s, need_x: bool, need_w: bool,
     for d, need in asked.items():
         CALLS[d] += int(need)
     if _on_cpu(dy.device):
+        # a float32 s beside float64 x and W (the reference's pinned
+        # scales under x64): its gradient in float32, as autograd's
         return (dx_plain(dy, w, s) if need_x else None,
                 dw_plain(dy, x, s) if need_w else None,
-                ds_plain(dy, x, w) if need_s else None)
+                ds_plain(dy, x, w).to(dy.dtype if s is None else s.dtype)
+                if need_s else None)
     (m, n), k = dy.shape, (w if w is not None else x).shape[1]
     shapes = {"dx": (m, k), "dw": (n, k), "ds": (n,)}
     out = {d: torch.empty(shapes[d], dtype=torch.float32, device=dy.device)
@@ -204,9 +207,13 @@ def scaled_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"scaled_matmul takes x (M, K), w (N, K) and s "
                          f"(N,), got {tuple(x.shape)}, {tuple(w.shape)} and "
                          f"{tuple(s.shape)}")
-    if not x.dtype == w.dtype == s.dtype == torch.float32:
-        raise TypeError(f"scaled_matmul takes float32, got {x.dtype}, "
-                        f"{w.dtype}, {s.dtype}")
+    cpu_wide = (x.device.type == "cpu" and x.dtype == w.dtype
+                and x.dtype.is_floating_point
+                and s.dtype in (torch.float32, x.dtype))
+    if not (cpu_wide or x.dtype == w.dtype == s.dtype == torch.float32):
+        raise TypeError(f"scaled_matmul takes float32 (on the CPU, x and w "
+                        f"of one floating type with s of it or float32), "
+                        f"got {x.dtype}, {w.dtype}, {s.dtype}")
     if not x.device == w.device == s.device:
         raise ValueError(f"x on {x.device}, w on {w.device}, s on "
                          f"{s.device}")

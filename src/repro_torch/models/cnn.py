@@ -1,6 +1,6 @@
-"""CNN models used by the paper: the VGG and ResNet families.
+"""CNN models used by the paper: the VGG, ResNet and MobileNetV2 families.
 
-Port of ``repro.models.cnn`` (VGG and ResNet; MobileNetV2 not yet).
+Port of ``repro.models.cnn``.
 Conventions as in the reference:
 
 * conv weights (O, I, Kh, Kw), dense weights (O, I): dim 0 is the filter /
@@ -53,16 +53,27 @@ def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv_apply(p: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv_apply(p: dict, x: torch.Tensor, stride: int = 1,
+               groups: int = 1) -> torch.Tensor:
     """SAME convolution on NCHW activations; the input is padded apart
-    only where SAME pads one side more than the other."""
+    only where SAME pads one side more than the other.  ``groups`` is
+    JAX's ``feature_group_count``: a depthwise convolution of C channels
+    has weights (C, 1, k, k) and ``groups=C``, in the same OIHW layout."""
     k = p["w"].shape[-1]
     (top, bottom), (left, right) = (same_padding(n, k, stride)
                                     for n in x.shape[2:])
     if top == bottom and left == right:
-        return F.conv2d(x, p["w"], stride=stride, padding=(top, left))
+        return F.conv2d(x, p["w"], stride=stride, padding=(top, left),
+                        groups=groups)
     return F.conv2d(F.pad(x, (left, right, top, bottom)), p["w"],
-                    stride=stride)
+                    stride=stride, groups=groups)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``min(max(x, 0), 6)`` with ``jax.nn.relu6``'s gradient: 1 strictly
+    inside (0, 6) and 0 at both bounds, as ``F.relu6`` has it
+    (``torch.clamp`` passes the gradient at the bounds)."""
+    return F.relu6(x)
 
 
 def dense_init(gen, out_d: int, in_d: int, device) -> dict:
@@ -232,3 +243,88 @@ def resnet18_small(num_classes: int = 20, in_channels: int = 3) -> CNNModel:
     """The paper's ResNet18 thinned to widths [32, 64, 128, 128]."""
     return make_resnet("resnet18_small", [32, 64, 128, 128], 2, num_classes,
                        in_channels)
+
+
+# ------------------------------------------------------------------ MobileNetV2
+
+def make_mobilenet(name: str, num_classes: int, in_channels: int = 3,
+                   blocks=((16, 1), (24, 2), (32, 2), (64, 1)),
+                   expand: int = 4) -> CNNModel:
+    """Inverted-residual blocks: expand 1x1 -> depthwise 3x3 -> project
+    1x1, each with BN and (but the projection) ``relu6``.  The first block
+    of every stage but the first has stride 2 (in its depthwise
+    convolution); a block adds its input where it keeps stride 1 and
+    width.  The paper's "S only on the output convolutions of each
+    inverted residual block" variant is the scale predicate
+    ``mobilenet_proj_only_predicate``."""
+
+    def init(gen: torch.Generator, device="cpu"):
+        device = torch.device(device)
+        params, state = {}, {}
+        stem_w = 16
+        params["stem"] = conv_init(gen, stem_w, in_channels, 3, device)
+        params["stem_bn"], state["stem_bn"] = bn_init(stem_w, device)
+        in_c = stem_w
+        for si, (w, n) in enumerate(blocks):
+            for bi in range(n):
+                pre = f"ir{si}_{bi}"
+                mid = in_c * expand
+                params[f"{pre}_expand"] = conv_init(gen, mid, in_c, 1, device)
+                params[f"{pre}_bn1"], state[f"{pre}_bn1"] = bn_init(mid,
+                                                                    device)
+                params[f"{pre}_dw"] = conv_init(gen, mid, 1, 3, device)
+                params[f"{pre}_bn2"], state[f"{pre}_bn2"] = bn_init(mid,
+                                                                    device)
+                params[f"{pre}_proj"] = conv_init(gen, w, mid, 1, device)
+                params[f"{pre}_bn3"], state[f"{pre}_bn3"] = bn_init(w, device)
+                in_c = w
+        params["head"] = conv_init(gen, 128, in_c, 1, device)
+        params["head_bn"], state["head_bn"] = bn_init(128, device)
+        params["fc"] = dense_init(gen, num_classes, 128, device)
+        return params, state
+
+    def apply(params, state, x, train=False, scales=None):
+        """As ``make_vgg``'s apply: with ``scales``, ``fc`` applies its
+        per-row scale inside its product."""
+        new_state = dict(state)
+
+        def bn(name, x):
+            y, new_state[name] = bn_apply(params[name], state[name], x, train)
+            return y
+
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = relu6(bn("stem_bn", conv_apply(params["stem"], x)))
+        in_c = 16
+        for si, (w, n) in enumerate(blocks):
+            for bi in range(n):
+                pre = f"ir{si}_{bi}"
+                stride = 2 if (bi == 0 and si > 0) else 1
+                mid = in_c * expand
+                h = relu6(bn(f"{pre}_bn1",
+                             conv_apply(params[f"{pre}_expand"], x)))
+                h = relu6(bn(f"{pre}_bn2",
+                             conv_apply(params[f"{pre}_dw"], h, stride,
+                                        groups=mid)))
+                h = bn(f"{pre}_bn3", conv_apply(params[f"{pre}_proj"], h))
+                x = (x + h) if (stride == 1 and in_c == w) else h
+                in_c = w
+        x = relu6(bn("head_bn", conv_apply(params["head"], x)))
+        x = torch.mean(x, dim=(2, 3))  # global average pool
+        s = None if scales is None else scales["fc"]["w"]
+        return dense_apply(params["fc"], x, s), new_state
+
+    return CNNModel(name, init, apply)
+
+
+def mobilenetv2_small(num_classes: int = 20,
+                      in_channels: int = 3) -> CNNModel:
+    """The paper's MobileNetV2, thinned (widths 16-64, head 128)."""
+    return make_mobilenet("mobilenetv2_small", num_classes, in_channels)
+
+
+def mobilenet_proj_only_predicate(path: str, leaf) -> bool:
+    """The paper's reduced-S MobileNetV2 variant: scales only on the output
+    (projection) convolutions of each inverted-residual block, the head
+    and the classifier."""
+    return leaf.ndim >= 2 and ("_proj" in path
+                               or path.startswith(("head", "fc")))

@@ -1,13 +1,8 @@
-"""Device selection for the port's entry points, and its trace spans."""
+"""Device selection for the port's entry points, and the error of an
+option not ported yet."""
 from __future__ import annotations
 
 import torch
-
-
-def span(name: str, **attrs):
-    """A named host span in ``torch.profiler`` traces (the reference's
-    ``repro.obs.trace.span``); ``attrs`` are accepted and not recorded."""
-    return torch.profiler.record_function(name)
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

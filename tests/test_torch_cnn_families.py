@@ -41,16 +41,19 @@ draws at data seed 1 and key 42 (tests/test_torch_fsfl.py).
   the reference's, test accuracy within one test image.  Then the same
   runs with the port's clients training for themselves, each round from
   the reference's server and clients' state
-  (``chip_smoke.forced_round_check``): every client that parts carries a
-  discrete cause found in its record and the rest of each round's server
-  keeps ``compare_small_runs``'s bounds.  Its cap of one client a round
-  does not hold, and its test fails for both models: on these deeper
-  networks a ReLU or max-pool input within float noise of zero routes the
-  backward another way, a layer's gradient then moves by up to several
-  percent, and Adam turns the noise-level gradient signs that follow into
-  whole steps (ROADMAP.md §3.3); the reference's own float32 gradients are
-  that far off its float64 ones on the run data
-  (``test_train_step_gradients_vs_reference_float64`` prints them).
+  (``chip_smoke.forced_round_check``), in float64 on both sides (the
+  reference under its global x64 switch, its float32 pins kept): every
+  client that parts carries a discrete cause found in its record, the
+  rest of each round's server keeps ``compare_small_runs``'s bounds, and
+  at most one client a round parts.  In float32 a ReLU or max-pool input
+  within float noise of zero routes the backward another way and Adam
+  turns the noise-level gradient signs that follow into whole steps, in
+  most clients (ROADMAP.md §3.3; the reference's own float32 gradients
+  are that far off its float64 ones,
+  ``test_train_step_gradients_vs_reference_float64``): those counts are
+  printed as readings.  A faulty port (a dense layer scaling twice) fails
+  the float64 cap.  The reduced VGG16 parts in float64 too, at exact ties
+  of its two-class head, and its cap test fails (ROADMAP.md §3.3).
 * The Table-1 scale counts (``num_scale_params``), the trees' shapes and
   the tasks.
 
@@ -61,6 +64,7 @@ and 20 and ``level_assign_leaves`` on 55 leaves.  They skip where no CUDA
 device is visible.  The reference is imported inside a fixture, so the
 ``gpu`` tests also run where JAX is not installed.
 """
+import dataclasses
 import importlib.util
 import types
 from pathlib import Path
@@ -300,12 +304,12 @@ N_SAMPLES = 1280
 ROUNDS = 2
 
 
-def _ref_data(ref, task):
+def _ref_data(ref, task, n_samples: int = N_SAMPLES, clients: int = 8):
     jax = ref.jax
     x, y = ref.synthetic.make_image_dataset(jax.random.PRNGKey(DATA_SEED),
-                                            task, N_SAMPLES)
+                                            task, n_samples)
     return ref.federated.split_federated(jax.random.PRNGKey(DATA_SEED + 1),
-                                         x, y, 8)
+                                         x, y, clients)
 
 
 def test_train_step_gradients_vs_reference_float64(ref):
@@ -467,30 +471,77 @@ def smoke():
     return module
 
 
-def _record_ref_run(ref, name):
+def _as64(ref, tree):
+    """Every float32 leaf of ``tree`` as float64 (under x64)."""
+    return ref.jax.tree.map(
+        lambda a: ref.jnp.asarray(np.asarray(a, np.float64))
+        if np.asarray(a).dtype == np.float32 else a, tree)
+
+
+def _model64(ref, model):
+    """``model`` whose init gives float64 params and BN state."""
+    return ref.cnn.CNNModel(model.name,
+                            lambda key: _as64(ref, model.init(key)),
+                            model.apply)
+
+
+def _record_ref_run(ref, name, x64: bool = False, setting=None,
+                    over=None, clients: int = 8, n_samples: int = N_SAMPLES):
     """2 rounds of the reference's ``run_federated``: its client outputs
     and server state after each round, and the gradient and update of
     every weight and scale step of every client (a ``jax.debug.callback``
     in its Adam steps; under ``vmap`` the callback runs once a client, in
-    client order, at every step)."""
+    client order, at every step).  With ``x64`` the whole run, data and
+    draws included, runs under ``jax.enable_x64`` with the model's params,
+    its BN state and the images in float64; the reference's own float32
+    pins stay (the scales' init, ``quant.dequantize``, the learning rates
+    and Adam's bias corrections).  ``setting`` is ``(make, task)`` in place
+    of ``RUNS[name]``; ``over`` overrides the reference's protocol fields
+    (a scale predicate, the batch size); ``clients`` and ``n_samples`` size
+    the data."""
+    setting = RUNS[name] if setting is None else setting
+    size = (clients, n_samples)
+    if not x64:
+        return _record_ref_run_in(ref, name, False, setting, over, size)
+    # the global switch, not the ``enable_x64`` context: the context is
+    # thread-local, and ``jax.debug.callback`` runs the recording on
+    # another thread, where it would see float32
+    jax = ref.jax
+    before = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        return _record_ref_run_in(ref, name, True, setting, over, size)
+    finally:
+        jax.config.update("jax_enable_x64", before)
+
+
+def _record_ref_run_in(ref, name, x64: bool, setting, over, size):
     import repro.core.protocol as ref_protocol
     from repro.optim.optim import Optimizer
     jax = ref.jax
-    make, task = RUNS[name]
-    splits = _ref_data(ref, getattr(ref.synthetic, task))
-    ref_cfg = ref.protocol.baseline_configs(**COMMON)["fsfl"]
+    make, task = setting
+    clients, n_samples = size
+    splits = _ref_data(ref, getattr(ref.synthetic, task), n_samples, clients)
+    model = make(ref.cnn)
+    if x64:
+        splits = dataclasses.replace(splits, **{
+            f: _as64(ref, getattr(splits, f))
+            for f in ("client_x", "client_val_x", "test_x")})
+        model = _model64(ref, model)
+    ref_cfg = dataclasses.replace(
+        ref.protocol.baseline_configs(**COMMON)["fsfl"], **(over or {}))
     n_train = splits.client_x.shape[1]
-    assert n_train // ref_cfg.batch_size == 3
+    local_steps = n_train // ref_cfg.batch_size
 
     key = jax.random.PRNGKey(KEY)
     k_init, k = jax.random.split(key)
     plan = []
     for _ in range(ROUNDS):
         k, kb = jax.random.split(k)
-        plan.append((np.arange(8), np.asarray(
-            ref.federated.client_epoch_batches(kb, 8, n_train,
+        plan.append((np.arange(clients), np.asarray(
+            ref.federated.client_epoch_batches(kb, clients, n_train,
                                                ref_cfg.batch_size))))
-    init, _, _ = ref.protocol.make_protocol(make(ref.cnn), ref_cfg, 3)
+    init, _, _ = ref.protocol.make_protocol(model, ref_cfg, local_steps)
     server0, pers0 = jax.device_get(init(k_init))
 
     outs, servers, steps, made = [], [], [], []
@@ -524,48 +575,56 @@ def _record_ref_run(ref, name):
     ref.rounds.Uplink.intake = ref_intake
     ref.rounds.ServerStep.__call__ = ref_step
     try:
-        res = ref.fsfl.run_federated(make(ref.cnn), ref_cfg, splits, ROUNDS,
-                                     key)
+        res = ref.fsfl.run_federated(model, ref_cfg, splits, ROUNDS, key)
     finally:
         ref_protocol.adam = adam0
         ref.rounds.Uplink.intake = intake0
         ref.rounds.ServerStep.__call__ = step0
     return types.SimpleNamespace(
         name=name, splits=splits, plan=plan, server0=server0, pers0=pers0,
-        outs=outs, servers=servers, steps=steps, res=res)
+        outs=outs, servers=servers, steps=steps, res=res, clients=clients,
+        local_steps=local_steps)
 
 
 @pytest.fixture(scope="module")
 def ref_runs(ref):
-    """``_record_ref_run`` once a model for the tests of this module."""
+    """``_record_ref_run`` once a model and type for the tests of this
+    module."""
     runs = {}
 
-    def get(name):
-        if name not in runs:
-            runs[name] = _record_ref_run(ref, name)
-        return runs[name]
+    def get(name, x64: bool = False):
+        if (name, x64) not in runs:
+            runs[name, x64] = _record_ref_run(ref, name, x64)
+        return runs[name, x64]
     return get
 
 
 def _port_splits(ref, run):
+    """The run's splits in the port, images in the run's float type."""
     s = run.splits
-    return FederatedSplits.from_numpy(*ref.jax.device_get(
-        (s.client_x, s.client_y, s.client_val_x, s.client_val_y, s.test_x,
-         s.test_y)))
+    arrays = ref.jax.device_get((s.client_x, s.client_y, s.client_val_x,
+                                 s.client_val_y, s.test_x, s.test_y))
+    port = FederatedSplits.from_numpy(*arrays)
+    if np.asarray(arrays[0]).dtype != np.float64:
+        return port
+    return dataclasses.replace(port, **{
+        f: torch.from_numpy(np.array(getattr(s, f)))
+        for f in ("client_x", "client_val_x", "test_x")})
 
 
 def _host(tree) -> dict:
     return {p: v for p, v in items(convert.to_tensors(tree))}
 
 
-def _stacked_steps(steps, kind: str, per_client: int) -> list[list[dict]]:
+def _stacked_steps(steps, kind: str, per_client: int,
+                   clients: int = 8) -> list[list[dict]]:
     """One round's callback records of ``kind`` as per-client step lists
-    (the records come a step at a time, 8 clients each): each step's
+    (the records come a step at a time, ``clients`` each): each step's
     gradient, update and the tree it updates."""
     mine = [(g, u, p) for k, g, u, p in steps if k == kind]
-    assert len(mine) == 8 * per_client
+    assert len(mine) == clients * per_client
     return [[{"grad": _host(g), "update": _host(u), "before": _host(p)}
-             for g, u, p in mine[c::8]] for c in range(8)]
+             for g, u, p in mine[c::clients]] for c in range(clients)]
 
 
 def _ref_log(ref, run, cfg) -> list[dict]:
@@ -581,14 +640,15 @@ def _ref_log(ref, run, cfg) -> list[dict]:
     for r in range(ROUNDS):
         out = run.outs[r]
         steps = run.steps[r * per_round:(r + 1) * per_round]
-        weight = _stacked_steps(steps, "weight", 3)
-        scale = _stacked_steps(steps, "scale", 3 * sub)
+        n, k = run.local_steps, run.clients
+        weight = _stacked_steps(steps, "weight", n, k)
+        scale = _stacked_steps(steps, "scale", n * sub, k)
         scales0 = _host((run.servers[r - 1] if r else run.server0).scales)
         levels = _host(out.levels_scales)
         epochs = []
-        for c in range(8):
+        for c in range(k):
             first, _ = stages.quantize_scales_delta(
-                {p: v - scales0[p] for p, v in scale[c][3]["before"].items()},
+                {p: v - scales0[p] for p, v in scale[c][n]["before"].items()},
                 cfg.fine_step_size)
             mine = {p: v[c] for p, v in levels.items()}
             epochs.append(
@@ -597,7 +657,7 @@ def _ref_log(ref, run, cfg) -> list[dict]:
                 else 2.0)
         server = convert.server_state(run.servers[r])
         log.append({
-            "clients": list(range(8)), "params": _host(out.levels_params),
+            "clients": list(range(k)), "params": _host(out.levels_params),
             "scales": levels, "scale_epoch": torch.tensor(epochs),
             "scale_delta": _host(out.recon_delta_scales),
             "params_delta": _host(out.recon_delta_params),
@@ -609,37 +669,62 @@ def _ref_log(ref, run, cfg) -> list[dict]:
     return log
 
 
+def _dense_scaled_twice(dense):
+    """A faulty dense layer: its per-row scale applied twice."""
+    def twice(p, x, s=None):
+        if s is None or s.ndim != 1:
+            return dense(p, x, s)
+        return dense({"w": p["w"] * s[:, None], "b": p["b"]}, x, s)
+    return twice
+
+
 @pytest.fixture(scope="module")
 def own_training(ref, ref_runs, smoke):
-    """Per model: the port's own client training, each round started from
-    the reference's server and clients' state after the round before,
-    held against the reference's by ``chip_smoke.forced_round_check``."""
+    """Per model and float type: the port's own client training, each round
+    started from the reference's server and clients' state after the round
+    before, held against the reference's by
+    ``chip_smoke.forced_round_check``; with ``x64`` both sides in float64
+    (``_record_ref_run``), and with ``faulty`` the port's dense layers
+    scale twice."""
     checked = {}
 
-    def get(name):
-        if name not in checked:
-            run = ref_runs(name)
+    def get(name, x64: bool = True, faulty: bool = False):
+        key = (name, x64, faulty)
+        if key not in checked:
+            run = ref_runs(name, x64)
             cfg = fl.build_protocol(fl.get_scenario(SCENARIO), ROUNDS)
             log = _ref_log(ref, run, cfg)
-            port = smoke.record_small_run(
-                torch, fl, rounds, SCENARIO, "cpu", RUNS[name][0](cnn),
-                _port_splits(ref, run), forced=log,
-                init_state=convert.initial_state(run.server0, run.pers0),
-                plan=run.plan)
-            checked[name] = smoke.forced_round_check(torch, cfg, log,
-                                                     port[1])
-            smoke.print_forced(f"{name} port against reference",
-                               checked[name][0])
-        return checked[name]
+            dense = cnn.dense_apply
+            if faulty:
+                cnn.dense_apply = _dense_scaled_twice(dense)
+            try:
+                port = smoke.record_small_run(
+                    torch, fl, rounds, SCENARIO, "cpu", RUNS[name][0](cnn),
+                    _port_splits(ref, run), forced=log,
+                    init_state=convert.initial_state(run.server0, run.pers0),
+                    plan=run.plan)
+            finally:
+                cnn.dense_apply = dense
+            checked[key] = (*smoke.forced_round_check(torch, cfg, log,
+                                                      port[1]), log, port[1])
+            smoke.print_forced(
+                f"{name} port against reference in "
+                f"{'float64' if x64 else 'float32'}"
+                f"{' (dense layers scaling twice)' if faulty else ''}",
+                checked[key][0])
+        return checked[key][:2]
+
+    get.logs = lambda *key: checked[key][2:]
     return get
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_own_training_each_round_from_reference_state(own_training, name):
-    """The port's clients train for themselves, each round from the
-    reference's state: every client that parts from the reference's
-    carries a discrete cause found in its record, and the rest of each
-    round's server lies within the bounds of ``compare_small_runs``."""
+    """The port's clients train for themselves in float64, each round from
+    the reference's float64 state: every client that parts from the
+    reference's carries a discrete cause found in its record, and the rest
+    of each round's server lies within the bounds of
+    ``compare_small_runs``."""
     rounds_, failures = own_training(name)
     assert len(rounds_) == ROUNDS
     assert not failures, failures
@@ -648,13 +733,78 @@ def test_own_training_each_round_from_reference_state(own_training, name):
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_own_training_counts_at_most_one_client_apart_a_round(
         smoke, own_training, name):
-    """``compare_small_runs``'s cap: at most one client a round counted
-    apart.  The reduced ResNet's float32 training parts in more clients
-    than that between any two summation orders, the CPU's own with its
-    convolutions summed in float64 included (PERF.md §2), so this test
-    fails for it: the cap is an open decision (ROADMAP.md §3.3)."""
+    """``compare_small_runs``'s cap, at most one client a round counted
+    apart, held in float64 on both sides.  A routing event (a ReLU or
+    max-pool input within summation noise of zero) is about 10^9 times
+    rarer there than in float32, where these networks part in most
+    clients between any two summation orders (the float32 reading below),
+    so a client that parts in float64 points at a fault."""
     counted = [len(r["counted"]) for r in own_training(name)[0]]
     assert max(counted) <= smoke.MAX_COUNTED, counted
+
+
+def test_float64_parting_on_the_two_class_head_is_a_tie(smoke,
+                                                        own_training):
+    """What parts the reduced VGG16 in float64 (its cap test fails): in a
+    two-class softmax the two rows of ``fc1`` get gradients that are exact
+    negatives of each other in real arithmetic, so after Adam their deltas
+    tie in magnitude, and top-k (1 of ``fc1/b``'s 2 elements kept) decides
+    the tie by the last float64 bit, differently in each implementation.
+    Every client counted apart has top-k flips in ``fc1`` only, and no
+    weight step whose gradients part by a routing event; the port's own
+    ``fc1/b`` gradients sum to zero within 1e-12 of their size (float64
+    rounding of a 32-image sum; float32's would be about 1e-7)."""
+    name = "vgg16_t"
+    rounds_, _ = own_training(name)
+    ref_log, port_log = own_training.logs(name, True, False)
+    for r, rnd in enumerate(rounds_):
+        for c in rnd["counted"]:
+            i = ref_log[r]["clients"].index(c["client"])
+            flipped = {p for p, v in ref_log[r]["params"].items()
+                       if bool(((v[i] == 0) != (port_log[r]["params"][p][i]
+                                                == 0)).any())}
+            assert flipped and flipped <= {"fc1/w", "fc1/b"}, flipped
+            assert max(c["weight_ratios"], default=0.0) < smoke.GRAD_EVENT
+    for entry in port_log:
+        for steps in entry["weight_steps"]:
+            for step in steps:
+                g = step["grad"]["fc1/b"]
+                assert float((g[0] + g[1]).abs()) <= 1e-12 * float(
+                    g.abs().max())
+
+
+def test_own_training_cap_fails_a_faulty_model(smoke, own_training):
+    """The same float64 check on a faulty port (its dense layer scaling
+    twice) counts more clients apart than the cap allows: the check can
+    fail for the right reason."""
+    counted = [len(r["counted"]) for r in
+               own_training("resnet_t", faulty=True)[0]]
+    assert max(counted) > smoke.MAX_COUNTED, counted
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_own_training_float32_reading(own_training, name):
+    """The same check in float32 on both sides, a reading: the clients
+    counted apart a round are printed (``-s``) and not held to the cap,
+    which float32 noise breaks on these networks; every other bound is
+    held, as in float64."""
+    rounds_, failures = own_training(name, x64=False)
+    print(f"{name} float32 reading: clients counted apart "
+          f"{[len(r['counted']) for r in rounds_]} a round")
+    assert len(rounds_) == ROUNDS
+    assert not failures, failures
+
+
+def round_output(out, persistent) -> RoundOutput:
+    """The reference's stacked client outputs ``out`` as the port's
+    ``RoundOutput``, with ``persistent`` (already converted)."""
+    return RoundOutput(
+        levels_params=convert.to_tensors(out.levels_params),
+        levels_scales=convert.to_tensors(out.levels_scales),
+        recon_delta_params=convert.to_tensors(out.recon_delta_params),
+        recon_delta_scales=convert.to_tensors(out.recon_delta_scales),
+        bn_state=convert.to_tensors(out.bn_state),
+        persistent=persistent, metrics=convert.to_tensors(out.metrics))
 
 
 def _server_close(port, ref_server) -> None:
@@ -687,13 +837,7 @@ def test_run_federated_teacher_forced_clients_match_reference(ref, ref_runs,
         trained.append(r)
         persistent = convert.client_persistent(out.persistent)
         self.state = persistent
-        return RoundOutput(
-            levels_params=convert.to_tensors(out.levels_params),
-            levels_scales=convert.to_tensors(out.levels_scales),
-            recon_delta_params=convert.to_tensors(out.recon_delta_params),
-            recon_delta_scales=convert.to_tensors(out.recon_delta_scales),
-            bn_state=convert.to_tensors(out.bn_state),
-            persistent=persistent, metrics=convert.to_tensors(out.metrics))
+        return round_output(out, persistent)
 
     monkeypatch.setattr(rounds.LocalTrain, "train_cohort", train_cohort)
     res_port = fsfl.run_federated(

@@ -37,7 +37,8 @@ def test_port_has_modules():
     "kernels/level_assign.py", "kernels/delta_apply.py",
     "kernels/row_stats.py", "kernels/scaled_matmul.py", "core/prand.py",
     "comms/channel.py", "comms/codec.py", "comms/device.py",
-    "fl/rounds.py"])
+    "comms/pool.py", "fl/rounds.py", "obs/__init__.py", "obs/trace.py",
+    "obs/metrics.py", "fl/ingest/__init__.py", "fl/ingest/stream.py"])
 def test_walk_covers_the_main_path_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 

@@ -135,9 +135,16 @@ def test_empty_shapes_return_without_a_launch():
 
 
 def test_wrapper_rejects_bad_inputs():
+    """Bad shapes, devices and types raise; on the CPU the plain version
+    takes tensors of one floating type (float64 where the port is held
+    against the reference under x64), mixed or integer types raise."""
     x = torch.zeros((2, 3))
     with pytest.raises(TypeError):
-        la.level_assign(x.double(), x.double(), 0.0, 1.0)
+        la.level_assign(x, x.double(), 0.0, 1.0)
+    with pytest.raises(TypeError):
+        la.level_assign(x.int(), x.int(), 0.0, 1.0)
+    assert la.level_assign(x.double(), x.double(), 0.0, 1.0)[1].dtype == (
+        torch.float64)
     with pytest.raises(ValueError):
         la.level_assign(x, torch.zeros((2, 4)), 0.0, 1.0)
     with pytest.raises(ValueError):

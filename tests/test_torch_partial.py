@@ -248,6 +248,92 @@ def test_partial_fc_k4_two_rounds_match_reference():
                                        err_msg=f"round {rnd} scales {k}")
 
 
+def test_partial_updates_under_bidirectional_compression(monkeypatch):
+    """Partial updates with the server's broadcast compressed too (all 8
+    clients, 2 rounds), each round's client outputs teacher-forced from
+    the reference's: the up and down bytes equal the reference's, and
+    after each downlink every server params leaf outside ``fc*`` is
+    bitwise its initial value on both sides (the broadcast carries zero
+    levels there), the classifier within 2 ulps of the reference's."""
+    from repro.fl import rounds as ref_rounds
+    from repro_torch.fl import rounds
+    from test_torch_cnn_families import round_output
+    s = dataclasses.replace(ref_scenarios.get_scenario("partial_fc_k4"),
+                            name="partial_bidi", cohort_size=None,
+                            bidirectional=True)
+    port_s = dataclasses.replace(scenarios.get_scenario("partial_fc_k4"),
+                                 name="partial_bidi", cohort_size=None,
+                                 bidirectional=True)
+    port_model, port_splits = scenarios.default_setting(
+        s.num_clients, n_samples=N_SAMPLES)
+    splits = RefSplits(*(
+        jnp.asarray(a.astype(np.int32) if a.dtype == np.int64 else a)
+        for a in (getattr(port_splits, f).numpy() for f in (
+            "client_x", "client_y", "client_val_x", "client_val_y",
+            "test_x", "test_y"))))
+    ref = RefEngine(_model(ref_cnn), ref_scenarios.build_protocol(s, ROUNDS),
+                    splits, jax.random.PRNGKey(42),
+                    ref_scenarios.build_engine(s))
+    server0 = jax.device_get(ref.server)
+    pers0 = jax.device_get(jax.tree.map(lambda x: x[0],
+                                        ref.local_train.persistent))
+    outs, plan, ref_servers = [], [], []
+    train0 = ref.local_train.train_cohort
+    batches0 = ref_rounds.client_epoch_batches
+
+    def train_cohort(key, idx, server, **kw):
+        out = train0(key, idx, server, **kw)
+        outs.append(jax.device_get(out))
+        return out
+
+    def batches(*a):
+        b = batches0(*a)
+        plan.append((np.arange(s.num_clients), np.asarray(b)))
+        return b
+
+    ref.local_train.train_cohort = train_cohort
+    monkeypatch.setattr(ref_rounds, "client_epoch_batches", batches)
+    ref_recs = []
+    for _ in range(ROUNDS):
+        ref_recs += ref.run(1).records
+        ref_servers.append(jax.device_get(ref.server))
+    monkeypatch.undo()
+
+    def forced(self, idx, batch_idx, server):
+        out = outs[len(port_servers)]
+        persistent = convert.client_persistent(out.persistent)
+        self.state = persistent
+        return round_output(out, persistent)
+
+    monkeypatch.setattr(rounds.LocalTrain, "train_cohort", forced)
+    port = engine.FederatedEngine(
+        port_model, scenarios.build_protocol(port_s, ROUNDS), port_splits,
+        engine_cfg=scenarios.build_engine(port_s),
+        init_state=convert.initial_state(server0, pers0), plan=plan,
+        device="cpu")
+    port_recs, port_servers = [], []
+    for _ in range(ROUNDS):
+        port_recs += port.run(1).records
+        port_servers.append(port.server)
+    for r, p in zip(ref_recs, port_recs):
+        assert p.down_bytes > 0
+        assert (p.up_bytes, p.down_bytes) == (r.up_bytes, r.down_bytes)
+    params0 = _flat(server0.params)
+    for rnd, (ref_srv, port_srv) in enumerate(zip(ref_servers, port_servers),
+                                              1):
+        ref_p, port_p = _flat(ref_srv.params), _flat_port(port_srv.params)
+        for k, v0 in params0.items():
+            if not _fc(k):
+                assert np.array_equal(ref_p[k].view(np.int32),
+                                      v0.view(np.int32)), (rnd, k)
+                assert np.array_equal(port_p[k].view(np.int32),
+                                      v0.view(np.int32)), (rnd, k)
+            else:
+                ulps = np.abs(port_p[k] - ref_p[k]) / np.spacing(np.maximum(
+                    np.abs(ref_p[k]), np.abs(v0)))
+                assert float(ulps.max()) <= 2.0, (rnd, k)
+
+
 NEW = ["partial_fc_k4", "bnwire_v2_full", "chan_slow_cabac", "chan_slow_raw",
        "chan_lossy_k4"]
 

@@ -151,7 +151,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         scenarios.run_scenario(s, rounds=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.EngineConfig(ingest="streaming").validate()
+        engine.EngineConfig(population=100).validate()
 
 
 def test_no_wire_round_applies_the_mean_reconstruction():
