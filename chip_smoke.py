@@ -42,19 +42,28 @@ Phases (any failure exits non-zero):
    entries in two launches (a message under the default and the
    projection-only scale predicate, a cohort of 4), ``level_assign_leaves``
    and ``delta_apply_leaves`` on 62 leaves, ``row_stats_leaves`` on its 21
-   views (six depthwise ones, rows of 9);
+   views (six depthwise ones, rows of 9); and the two kernels that take a
+   cohort in one launch: ``scaled_matmul`` at K = 8 rows of (32, 128,
+   128), (32, 10, 128), (32, 20, 128) and (120, 128, 128), every direction
+   and backward subset within the error bound, ``level_assign_leaves`` on
+   8 rows of the 28, 55 and 62 leaves of the three models, bitwise; each
+   row bitwise its own launch, each timed beside its plain version, the
+   bound and (``scaled_matmul``) ``torch.bmm`` and a multiply;
 4. slice phase at full width: the paper's ``vgg11_thinned`` on 6,400
    synthetic CIFAR-like images over 8 clients, FSFL (fixed sparsity 0.9),
    batch 32 (17 local steps).  The launch counters are set to 0 before
    and read after each path, and a path whose kernel was not launched
-   the expected number of times fails.  Every path runs the dense layers
-   on ``scaled_matmul``: 866 forward and 816 backward launches a round
-   over 8 clients (434 and 408 over cohorts of 4), the backward computing
-   dx, dw, ds 816, 272, 544 times:
+   the expected number of times fails.  Every path runs the engine's
+   default executor, the batched one, which trains a cohort (or an async
+   window) in one call: its dense layers take one ``scaled_matmul``
+   launch a step for the cohort, 110 forward and 102 backward launches a
+   round whatever its size (55 and 51 with one dense layer), the backward
+   computing dx, dw, ds 816, 272, 544 times over 8 clients, and its
+   stage chain one ``level_assign`` launch over every client's leaves:
 
    * the paper's main path: 2 rounds of ``sync_full_fedavg_fsfl`` through
      ``run_federated`` (all 8 clients, FedAvg, nnc-cabac; ``level_assign``
-     once per client over its 28 leaves, 8 launches a round), then 1
+     once a round over the 8 clients' 28 leaves), then 1
      round of
      ``device_encode_cabac``, whose device-encoded payloads are held byte
      for byte against the host encode of the same levels;
@@ -62,7 +71,7 @@ Phases (any failure exits non-zero):
      ``codec_int8_k4`` (cohorts of 4) through ``run_scenario``;
    * bidirectional compression (§5.2).  Path A: 2 rounds of
      ``run_federated(bidirectional=True)`` and 1 of ``bidi_sync_full``
-     (nnc-cabac both legs, ``level_assign`` on both: 9 a round).  Path
+     (nnc-cabac both legs, ``level_assign`` on both: 2 a round).  Path
      B: 2 rounds of the adaptive Eqs. 2+3 setting ``fsfl_dyn``,
      bidirectional (``row_stats`` once per client and once on the
      downlink, each launch over the 10 weight views: 9 a round).  Path C:
@@ -73,7 +82,7 @@ Phases (any failure exits non-zero):
      the old params;
    * partial updates, wire schema v2 and the channel.  Path D: 2 rounds
      of ``partial_fc_k4`` (nnc-cabac, cohorts of 4, only ``fc*`` trains
-     and goes on the wire; 4 ``level_assign`` a round), the frozen server
+     and goes on the wire; 1 ``level_assign`` a round), the frozen server
      leaves bitwise unchanged after each round, the decoded payloads zero
      there, each payload shorter than its levels sent unmasked.  Path E:
      an ad-hoc ``partial_int8_v2_lossy_k4`` (D's partial updates with
@@ -90,19 +99,20 @@ Phases (any failure exits non-zero):
    * the FedOpt engine and buffered async.  Path F: 2 aggregations of
      ``async_b4_fsfl`` (FedBuff, buffer 4, 4 concurrent clients, one
      completion a window: 4 ``level_assign`` and 434/408
-     ``scaled_matmul`` launches an aggregation), the buffer's clients the
+     ``scaled_matmul`` launches an aggregation, one call of the batched
+     round a window), the buffer's clients the
      participants, arrivals and ``sim_time_s`` never going backwards,
      staleness within the aggregations before it, the FedBuff weights.
      Path G: 2 rounds of ``noniid_dir1_k4_fedyogi`` (a dirichlet(1.0)
-     label partition of the 6,400 images, cohorts of 4, FedYogi; 4
-     ``level_assign`` and 434/408 ``scaled_matmul`` a round), the server
+     label partition of the 6,400 images, cohorts of 4, FedYogi; 1
+     ``level_assign`` and 110/102 ``scaled_matmul`` a round), the server
      and FedYogi's moments finite.  Path H: 1 aggregation of
      ``async_windowed_b4`` (clients finishing within 0.5 s train in one
      executor call), the counts those of the recorded window sizes;
    * the paper's ResNet and VGG16 settings, each round's launches read at
      its evaluation and held to the prediction.  Path I:
      ``resnet18_small(20, 3)`` on VOC-like data, 2 rounds of
-     ``run_federated`` (8 ``level_assign`` and 433/408 ``scaled_matmul``
+     ``run_federated`` (1 ``level_assign`` and 55/51 ``scaled_matmul``
      a round: one dense layer).  Path J: ``vgg16_tiny(2, 1)`` on X-ray-like
      data (one channel), 2 rounds.  Path K: the ResNet with
      int8-blockscale on both legs, cohorts of 4, the device cohort encode,
@@ -112,8 +122,8 @@ Phases (any failure exits non-zero):
      ``fsfl_dyn``, bidirectional, 1 round (9 ``row_stats`` launches of 20
      views);
    * MobileNetV2 and the host uplink.  Path M: ``mobilenetv2_small(20,
-     3)`` on VOC-like data, 2 rounds of ``run_federated`` (8
-     ``level_assign`` and 433/408 ``scaled_matmul`` a round).  Path N: the
+     3)`` on VOC-like data, 2 rounds of ``run_federated`` (1
+     ``level_assign`` and 55/51 ``scaled_matmul`` a round).  Path N: the
      MobileNet with the paper's projection-only scales, int8-blockscale on
      both legs, cohorts of 4, the device encode, 1 round (the cohort's 124
      entries in 2 launches, the broadcast's 62 in 1, the codec's payload
@@ -124,6 +134,19 @@ Phases (any failure exits non-zero):
      pool's 2 tasks, the streaming aggregate bitwise the CPU's float64
      fold of the same payloads and within the float32 error bound of the
      gather's mean of them;
+   * the executors, 1 round each: held to the reference's executor
+     contract (decoded deltas within 1.5 steps, scales within 1.5 fine
+     steps, BN within rtol 1e-5, bytes within 2%, accuracy within 0.02)
+     on the reference's tiny setting (serial, vmap, and sharded over a
+     two-entry mesh of the card) and ``exec_serial_k4`` on the scenario
+     VGG with 1,280 images (serial and vmap); read, beside the control
+     of the serial round with its params one ulp up, ``exec_serial_k4``
+     at full width (one client at a time: 4 ``level_assign`` and 434/408
+     ``scaled_matmul``; batched 1 and 110/102; bytes within 2%) and on
+     640 images; ``sharded_cohort_full`` on the mesh of every visible
+     device, one block of the cohort a device, beside
+     ``sync_full_fedavg_fsfl`` through the batched executor: bit for bit
+     on one card;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -134,8 +157,8 @@ Phases (any failure exits non-zero):
    with that route on the device, its one-entry launch alone, the whole
    ``int8_rows`` call of both routes on the host's clock, and the device operations of one encode of each, from a
    ``torch.profiler`` trace, one kernel and one copy required of the
-   grouped route; ``level_assign``: the first client's 28 leaves, in one
-   grouped launch and in the 28 one-leaf launches it replaces;
+   grouped route; ``level_assign``: the first cohort's 8 x 28 leaves, in
+   one launch and in the 8 one-client launches it replaces;
    ``delta_apply``: the first downlink's residual (coef -1) and the
    server's apply (+1), each over the 28 leaves in one grouped launch and
    in the 28 one-leaf launches it replaces; ``row_stats``: the first
@@ -145,21 +168,25 @@ Phases (any failure exits non-zero):
    failing, and ``torch.linalg.vector_norm`` (the row sum of ``|w|``) as
    its library yardstick; ``scaled_matmul``: the forward at each shape
    and the backward at each shape and subset of gradients the main path
-   gave it, each run twice to the same bits) and timed there with CUDA
+   gave it, the cohort's (8, M, K) and the server evaluation's (960,
+   K), each run twice to the same bits) and timed there with CUDA
    events (median of 50 launches after warm-up, L2 flushed before each, a
    spin kernel ahead) beside the plain version, the bound and, for
-   ``scaled_matmul``, ``torch.mm`` and a multiply (the backward: the sum
-   of those of its gradients, and each gradient alone).  Then a
+   ``scaled_matmul``, ``torch.bmm`` (``torch.mm`` for the server's) and a
+   multiply (the backward: the sum of those of its gradients, and each
+   gradient alone).  Then a
    small-input check per uplink and for ``bidi_sync_full``: the tiny
    scenario VGG, 2 rounds with 3 local
    steps per client, with cuDNN's deterministic algorithms, gives the
    same bytes and nearly the same model on the card as the plain path on
    the CPU, with the clients' discrete decisions counted apart
-   (``compare_small_runs``; ``async_b4_fsfl`` and ``sync_k4_fedadam``
+   (``compare_small_runs``, which records each client's steps through the
+   serial executor; ``async_b4_fsfl`` and ``sync_k4_fedadam``
    too, the params' step scaled by the server optimizer's gain); and two
    card runs each of ``bidi_sync_full``, ``async_b4_fsfl`` and
-   ``sync_k4_fedadam`` with the port's own cuDNN selection give the same
-   payloads and server state, bit for bit (``repeat_small_runs``).  The
+   ``sync_k4_fedadam`` through the batched executor with the port's own
+   cuDNN selection give the same payloads and server state, bit for bit
+   (``repeat_small_runs``).  The
    reduced ResNet (``[8, 16, 32, 32]``, 1,280 VOC-like images): its
    forward and gradients on the card against the CPU
    (``resnet_model_check``), its engine on the card fed the CPU's client
@@ -190,6 +217,7 @@ is ``{"ok": false, "error": ...}`` naming what is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -731,7 +759,7 @@ def int8_slice_phase(torch, mods, rounds_mod, fl, models, splits,
             lambda: fl.run_scenario(scenario, rounds=1,
                                     model=models.vgg11_thinned(),
                                     splits=splits, device="cuda"),
-            {kernel: per_round, "level_assign": 4, **sm_per_round(4)}, 4,
+            {kernel: per_round, "level_assign": 1, **sm_per_round(4)}, 4,
             2, rounds_out, up=4 * PAYLOAD_BYTES)
         launches[kernel] = path_total(out, kernel)
     return launches
@@ -768,10 +796,10 @@ def nnc_slice_phase(torch, mods, rounds_mod, fl, fsfl, models, splits,
                     rounds_out, checked: list):
     """The paper's main path: 2 rounds of sync_full_fedavg_fsfl through
     run_federated, then 1 round of device_encode_cabac; one
-    ``level_assign`` launch a client."""
+    ``level_assign`` launch a round for the whole cohort."""
     n = splits.num_clients
     cfg = fl.build_protocol(fl.get_scenario("sync_full_fedavg_fsfl"), 2)
-    want = {"level_assign": n, **sm_per_round(n)}
+    want = {"level_assign": 1, **sm_per_round(n)}
     launches = {}
     for scenario, run in (
             ("sync_full_fedavg_fsfl",
@@ -793,45 +821,48 @@ def nnc_slice_phase(torch, mods, rounds_mod, fl, fsfl, models, splits,
 
 def la_main_path(torch, la, captured) -> dict:
     """level_assign against its plain version on the buffers the main path
-    gave it (the first client's 28 leaves), bitwise, then timed: the one
-    grouped launch of this design, and the 28 launches of one (1, n) call a
-    leaf that it replaces."""
+    gave it (the first cohort's 8 clients over their 28 leaves), bitwise,
+    then timed: the one launch of this design for the cohort, and the 8
+    grouped launches, one a client, that it replaces."""
     if len(captured) != 1 or len(captured[0][0]) != VGG_LEAVES:
         fail(f"the main path gave level_assign_leaves {len(captured)} "
              f"calls, expected one of {VGG_LEAVES} leaves")
     d, r, th, steps = captured[0]
+    if th.shape != (COHORT, VGG_LEAVES):
+        fail(f"the main path gave level_assign_leaves thetas "
+             f"{tuple(th.shape)}, expected a cohort's ({COHORT}, "
+             f"{VGG_LEAVES})")
     la_group_compare(torch, la, d, r, th, steps)
     kept = ties = 0
-    for dd, rr, theta, step in zip(d, r, th, steps):
+    for i, (dd, rr, step) in enumerate(zip(d, r, steps)):
         carried = dd + rr
+        theta = th[:, i].reshape((-1,) + (1,) * (dd.ndim - 1))
         x = torch.where(carried.abs() >= theta, carried, 0.0) / step
         kept += int((x != 0).sum())
         ties += int((x - x.floor() == 0.5).sum())
     n = sum(x.numel() for x in d)
-    # the design before: one launch a leaf, theta and step as device
-    # scalars (the step tensors made once, as quant.f32 did)
-    per_leaf = [(dd.reshape(1, -1), rr.reshape(1, -1), th[i],
-                 torch.tensor(steps[i], dtype=torch.float32, device="cuda"))
-                for i, (dd, rr) in enumerate(zip(d, r))]
+    # the design before: one grouped launch a client
+    per_client = [([x[k] for x in d], [x[k] for x in r], th[k].contiguous())
+                  for k in range(COHORT)]
 
     def chain():
-        return [la.level_assign(*c) for c in per_leaf]
+        return [la.level_assign_leaves(a, b, c, steps)
+                for a, b, c in per_client]
 
-    # the chain enqueues 28 wrapper calls (about 2 ms of host time): a
-    # 20 ms spin keeps the card waiting until all are queued
     out = dict(**kernel_times(torch,
                               lambda: la.level_assign_leaves(d, r, th, steps),
                               lambda: la.level_assign_leaves_plain(
                                   d, r, th, steps)),
                bound=la_bound_ms(n), elements=n, kept=kept, ties=ties,
-               per_leaf_ms=time_ms(torch, chain, spin=40_000_000),
-               per_leaf_call_ms=time_ms(torch, chain, host_ahead=False))
-    print(f"  level_assign on the main path's 28 leaves ({n} elements): "
-          f"bitwise, {kept} kept elements with a nonzero quotient, {ties} "
-          f"exact half-way ties; one grouped launch {out['ms']:.4f} ms "
-          f"(whole wrapper call {out['call_ms']:.4f} ms), 28 launches as "
-          f"before {out['per_leaf_ms']:.4f} ms (wrapper calls "
-          f"{out['per_leaf_call_ms']:.4f} ms), plain {out['plain_ms']:.4f} "
+               per_client_ms=time_ms(torch, chain, spin=20_000_000),
+               per_client_call_ms=time_ms(torch, chain, host_ahead=False))
+    print(f"  level_assign on the main path's cohort, {COHORT} x "
+          f"{VGG_LEAVES} leaves ({n} elements): bitwise, {kept} kept "
+          f"elements with a nonzero quotient, {ties} exact half-way ties; "
+          f"one launch {out['ms']:.4f} ms (whole wrapper call "
+          f"{out['call_ms']:.4f} ms), {COHORT} launches as before "
+          f"{out['per_client_ms']:.4f} ms (wrapper calls "
+          f"{out['per_client_call_ms']:.4f} ms), plain {out['plain_ms']:.4f} "
           f"ms, bound {out['bound'][0]:.5f} ms ({out['bound'][1]})")
     return out
 
@@ -867,7 +898,8 @@ def deterministic_cudnn(torch):
 def record_small_run(torch, fl, rounds_mod, name: str, device: str,
                      model=None, splits=None, forced=None, init_state=None,
                      plan=None):
-    """One run of scenario ``name`` on the tiny scenario VGG with 1,280
+    """One run of scenario ``name`` through the serial executor on the
+    tiny scenario VGG with 1,280
     samples (3 local steps per client), or on ``model`` and ``splits``,
     for 2 rounds on ``device``, with
     each round's discrete decisions kept on the host: per client its params
@@ -1015,7 +1047,13 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str,
     for owner, attr, new, _ in patches:
         setattr(owner, attr, new)
     try:
-        res = fl.run_scenario(name, rounds=SMALL_ROUNDS, model=model,
+        # the serial executor: its bind is where a client's steps are
+        # recorded, one client at a time
+        scenario = (fl.get_scenario(name) if isinstance(name, str)
+                    else name)
+        res = fl.run_scenario(dataclasses.replace(scenario,
+                                                  executor="serial"),
+                              rounds=SMALL_ROUNDS, model=model,
                               splits=splits, init_state=init_state,
                               plan=plan, device=device)
     finally:
@@ -1253,6 +1291,44 @@ def client_causes(lb, lr, i: int) -> dict:
             "weight_ratios": found["weight"], "scale_ratios": found["scale"]}
 
 
+TIE_ULPS = 4             # "equal" magnitudes at a top-k boundary: ulps
+
+
+def boundary_tie(torch, cfg, lb, lr, i: int) -> bool:
+    """Whether every top-k flip of client ``i`` between two runs' logs of
+    one round is a tie at the top-k boundary of ``lb``'s own record: in
+    each leaf with a flip, the k-th and (k+1)-th largest carried
+    magnitudes (decoded delta plus new residual, the Eq. 5 sum that top-k
+    ranks) are equal within ``TIE_ULPS`` ulps of the record's float type,
+    and so is every flipped element's magnitude with the k-th.  Only a
+    fixed-rate top-k has such a boundary; a client with no flip has no
+    tie.  Nothing here reads a leaf's name."""
+    from repro_torch.tree import items
+
+    if cfg.fixed_sparsity is None:
+        return False
+    residual = dict(items(lb["persistent"].residual))
+    flips = 0
+    for path, v in lb["params"].items():
+        flipped = ((v[i] == 0) != (lr["params"][path][i] == 0)).reshape(-1)
+        if not bool(flipped.any()):
+            continue
+        flips += int(flipped.sum())
+        res = residual[path][i]
+        m = (lb["params_delta"][path][i].to(res.dtype) + res).abs().reshape(-1)
+        n = m.numel()
+        k = max(1, int(round(n * (1.0 - cfg.fixed_sparsity))))
+        if k >= n:
+            return False
+        ranked = torch.sort(m, descending=True).values
+        theta = ranked[k - 1]
+        tol = TIE_ULPS * torch.finfo(m.dtype).eps * theta
+        if not (bool(theta - ranked[k] <= tol)
+                and bool(((m[flipped] - theta).abs() <= tol).all())):
+            return False
+    return flips > 0
+
+
 def forced_round_check(torch, cfg, base_log, run_log
                        ) -> tuple[list[dict], list[str]]:
     """Two runs' logs (``record_small_run``), each round of the second
@@ -1268,14 +1344,22 @@ def forced_round_check(torch, cfg, base_log, run_log
       client's scale delta may
       move no more than its scale steps can from its first cause on
       (``scale_cap``, plus one fine step);
-    * with the counted clients' decoded deltas taken out (times 1 over
-      the cohort size), the round's server params lie within one
+    * a client that parts only at ties is listed apart from the counted
+      ones (``ties``), not counted: its params part by top-k flips, each
+      a tie at the top-k boundary of the base run's own record
+      (``boundary_tie``), with no weight step whose gradients part by
+      ``GRAD_EVENT`` of their norm.  A two-class head gives the two rows
+      of its last layer gradients that are exact negatives, so which of
+      two equal magnitudes top-k keeps is decided by the last bit of each
+      implementation's sums; its scale delta is held as a counted one's;
+    * with the counted and tied clients' decoded deltas taken out (times
+      1 over the cohort size), the round's server params lie within one
       quantization step but for at most ``MAX_FLIPS`` and within 1e-6 but
       for at most ``MAX_OFF``, and its scales within one fine step: a
       client that parts without a cause must fit in these.
 
-    Returns (per round: the counted clients and the rest's worst, the
-    failures)."""
+    Returns (per round: the counted clients, the tied ones and the rest's
+    worst, the failures)."""
     failures, rounds = [], []
     fine = cfg.fine_step_size
     for r, (lb, lr) in enumerate(zip(base_log, run_log, strict=True), 1):
@@ -1288,12 +1372,14 @@ def forced_round_check(torch, cfg, base_log, run_log
               for p, v in lb["server_params"].items()}
         ds = {p: lr["server_scales"][p] - v
               for p, v in lb["server_scales"].items()}
-        counted = []
+        counted, ties = [], []
         for i, c in enumerate(lb["clients"]):
             found = client_causes(lb, lr, i)
             if not (found["params_apart"] or found["scales_apart"]):
                 continue
-            counted.append({"client": c, **found})
+            tie = (max(found["weight_ratios"], default=0.0) < GRAD_EVENT
+                   and boundary_tie(torch, cfg, lb, lr, i))
+            (ties if tie else counted).append({"client": c, **found})
             for p in dp:
                 dp[p] = dp[p] - (lr["params_delta"][p][i]
                                  - lb["params_delta"][p][i]) / k
@@ -1315,8 +1401,9 @@ def forced_round_check(torch, cfg, base_log, run_log
         flips = int((flat > cfg.step_size * 1.01).sum())
         off = int((flat > 1e-6).sum())
         rest = max(float(d.abs().max()) for d in ds.values())
-        rounds.append({"round": r, "counted": counted, "flips": flips,
-                       "params_off": off, "max_scale_diff_others": rest})
+        rounds.append({"round": r, "counted": counted, "ties": ties,
+                       "flips": flips, "params_off": off,
+                       "max_scale_diff_others": rest})
         if flips > MAX_FLIPS or off > MAX_OFF:
             failures.append(f"round {r}: without the counted clients, "
                             f"{flips} server params off by more than one "
@@ -1332,12 +1419,15 @@ def forced_round_check(torch, cfg, base_log, run_log
 def print_forced(label: str, rounds: list[dict]) -> None:
     for rnd in rounds:
         print(f"  {label} round {rnd['round']}: {len(rnd['counted'])} "
-              f"clients counted apart; without them {rnd['flips']} server "
+              f"clients counted apart, {len(rnd['ties'])} apart at top-k "
+              f"ties; without them {rnd['flips']} server "
               f"params off by more than one quantization step, "
               f"{rnd['params_off']} by more than 1e-6, scales "
               f"{rnd['max_scale_diff_others']:.3g} apart")
-        for c in rnd["counted"]:
-            print(f"    client {c['client']}: {c['topk_flips']} top-k flips, "
+        for c, tied in ([(c, "") for c in rnd["counted"]]
+                        + [(c, " (ties)") for c in rnd["ties"]]):
+            print(f"    client {c['client']}{tied}: {c['topk_flips']} top-k "
+                  f"flips, "
                   f"{c['rounding']} rounding crossings, scale levels up to "
                   f"{c['max_scale_level_diff']} apart, kept sub-epochs "
                   f"{c['scale_epoch']}; gradients apart by at most "
@@ -1458,39 +1548,44 @@ def profile_round(torch, run, label: str, mine: tuple,
 # ------------------------------------------------------------ slice 4
 
 def sm_expected(clients: int, rounds: int, steps: int = STEPS,
-                sub: int = SCALE_SUBEPOCHS, dense: int = 2
-                ) -> tuple[dict, dict]:
+                sub: int = SCALE_SUBEPOCHS, dense: int = 2,
+                calls: int | None = None) -> tuple[dict, dict]:
     """``scaled_matmul`` launches (forward, backward) and products per
     direction of ``rounds`` FSFL rounds over ``clients`` clients: each of
     the ``dense`` dense layers (2 in the VGGs, 1 in the ResNet) runs
     forward in every weight step, scale step and validation pass (``sub``
     + 1) and in the server's evaluation, and one backward launch in every
     step computing dx, with dw in the weight steps and ds in the scale
-    steps."""
+    steps.  The products count every client; the launches count every
+    call of the batched round (``calls``, by default one a round: the
+    cohort's rows in one launch a step) and the server's evaluations."""
     per = {"forward": dense * (steps + sub * steps + sub + 1),
            "dx": dense * (steps + sub * steps), "dw": dense * steps,
            "ds": dense * sub * steps}
-    calls = {d: rounds * (clients * n + (dense if d == "forward" else 0))
-             for d, n in per.items()}
-    return {"forward": calls["forward"], "backward": calls["dx"]}, calls
+    products = {d: rounds * (clients * n + (dense if d == "forward" else 0))
+                for d, n in per.items()}
+    calls = rounds if calls is None else calls
+    return {"forward": calls * per["forward"] + rounds * dense,
+            "backward": calls * per["dx"]}, products
 
 
 SM_RUNS: dict[str, dict] = {}    # scaled_matmul launches per path run
 
 
 def check_sm(sm, label: str, clients: int, rounds: int,
-             dense: int = 2) -> dict:
+             dense: int = 2, calls: int | None = None) -> dict:
     """The path's ``scaled_matmul`` launches and products per direction,
     read after it ran, against ``sm_expected``; kept in ``SM_RUNS``."""
-    got, calls = dict(sm.LAUNCHES), dict(sm.CALLS)
-    want, want_calls = sm_expected(clients, rounds, dense=dense)
+    got, products = dict(sm.LAUNCHES), dict(sm.CALLS)
+    want, want_products = sm_expected(clients, rounds, dense=dense,
+                                      calls=calls)
     SM_RUNS[label] = got
     print(f"  {label} launches: scaled_matmul {got} "
           f"({ {d: n // rounds for d, n in got.items()} } a round), "
-          f"products {calls}")
-    if got != want or calls != want_calls:
-        fail(f"{label}: scaled_matmul launched {got} computing {calls}, "
-             f"expected {want} computing {want_calls}")
+          f"products {products}")
+    if got != want or products != want_products:
+        fail(f"{label}: scaled_matmul launched {got} computing {products}, "
+             f"expected {want} computing {want_products}")
     return got
 
 
@@ -1511,15 +1606,19 @@ def launch_counts(la, rs, da, dc, sm) -> dict:
 
 def run_path(torch, mods, rounds_mod, label: str, run, want: dict,
              clients: int, dense: int, rounds_out, up=None, down=None,
-             bidirectional: bool = False):
+             bidirectional: bool = False, calls: int = 1,
+             trained: int | None = None):
     """Run one path (``run()`` returns its RunResult) with every launch
     counter set to 0, read the counters at the end of each round (its
     evaluation), and fail unless each round's launches are ``want``
     (absent keys: none), its ``clients`` participants, its
     ``scaled_matmul`` products those of ``dense`` dense layers, its bytes
     up and down ``up`` and ``down`` where given, and its bytes down more
-    than 0 where ``bidirectional``.  Prints each round's wall, bytes and
-    launches; returns them a round."""
+    than 0 where ``bidirectional``.  ``calls``: the executor's calls of
+    the client round a round (1: the batched round; the serial executor's
+    one a client), ``trained``: the rows they train a round (the sharded
+    executor's padded ones too; by default ``clients``).  Prints each
+    round's wall, bytes and launches; returns them a round."""
     la, rs, da, dc, sm = mods
     per_round = []
     evaluate0 = rounds_mod.Evaluate.__call__
@@ -1539,7 +1638,8 @@ def run_path(torch, mods, rounds_mod, label: str, run, want: dict,
         rounds_mod.Evaluate.__call__ = evaluate0
     torch.cuda.synchronize()
     rounds = len(res.records)
-    check_sm(sm, label, clients, rounds, dense)
+    check_sm(sm, label, clients if trained is None else trained, rounds,
+             dense, calls * rounds)
     if len(per_round) != rounds:
         fail(f"{label}: {len(per_round)} evaluations in {rounds} rounds")
     expect = {k: want.get(k, 0) for k in LAUNCH_KEYS}
@@ -1575,9 +1675,10 @@ def run_path(torch, mods, rounds_mod, label: str, run, want: dict,
     return out
 
 
-def sm_per_round(clients: int, dense: int = 2) -> dict:
-    """``run_path``'s ``want`` of ``scaled_matmul`` for one round."""
-    want = sm_expected(clients, 1, dense=dense)[0]
+def sm_per_round(clients: int, dense: int = 2, calls: int = 1) -> dict:
+    """``run_path``'s ``want`` of ``scaled_matmul`` for one round of
+    ``calls`` executor calls (1: the batched round)."""
+    want = sm_expected(clients, 1, dense=dense, calls=calls)[0]
     return {"scaled_matmul forward": want["forward"],
             "scaled_matmul backward": want["backward"]}
 
@@ -1592,28 +1693,36 @@ SM_READS = {"forward": ("x", "w", "s"), "dx": ("dy", "w", "s"),
             "dw": ("dy", "x", "s"), "ds": ("dy", "x", "w")}
 
 
-def sm_bound_ms(directions, m: int, n: int, k: int) -> tuple[float, str]:
-    """Least time of one ``scaled_matmul`` launch computing ``directions``:
-    the operands they read, each once, and their outputs written once
-    (float32), against 2 M N K multiply-adds a direction and its scaling,
-    over the card's float32 rate outside the tensor cores."""
+def sm_bound_ms(directions, m: int, n: int, k: int,
+                batch: int = 1) -> tuple[float, str]:
+    """Least time of one ``scaled_matmul`` launch computing ``directions``
+    for ``batch`` cohort rows: the operands they read, each once, and
+    their outputs written once (float32), against 2 M N K multiply-adds a
+    direction and its scaling a row, over the card's float32 rate outside
+    the tensor cores."""
     sizes = {"x": m * k, "w": n * k, "s": n, "dy": m * n}
     outputs = {"forward": m * n, "dx": m * k, "dw": n * k, "ds": n}
     extra = {"forward": m * n, "dx": m * n, "dw": n * k, "ds": 2 * m * n}
     reads = set().union(*(SM_READS[d] for d in directions))
-    t_bytes = 4 * (sum(sizes[r] for r in reads) + sum(
+    t_bytes = 4 * batch * (sum(sizes[r] for r in reads) + sum(
         outputs[d] for d in directions)) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(2 * m * n * k + extra[d] for d in directions) / (
+    t_ops = batch * sum(2 * m * n * k + extra[d] for d in directions) / (
         F32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sm_dims(direction: str, a, b) -> tuple[int, int, int]:
     """(M, N, K) of a direction's first two operands: x (M, K) and w (N, K)
-    for the forward, else dy (M, N) and w (N, K) or x (M, K)."""
+    for the forward, else dy (M, N) and w (N, K) or x (M, K); a cohort's
+    lead with its rows (``sm_batch``)."""
     if direction == "forward":
-        return a.shape[0], b.shape[0], a.shape[1]
-    return a.shape[0], a.shape[1], b.shape[1]
+        return a.shape[-2], b.shape[-2], a.shape[-1]
+    return a.shape[-2], a.shape[-1], b.shape[-1]
+
+
+def sm_batch(a) -> int:
+    """Cohort rows of a ``scaled_matmul`` operand: 1 for a 2-D one."""
+    return a.shape[0] if a.ndim == 3 else 1
 
 
 SM_PLAIN = {"forward": "scaled_matmul_plain", "dx": "dx_plain",
@@ -1627,14 +1736,18 @@ def sm_err_bound(torch, direction: str, a, b, c):
     times a sum over K."""
     a, b, c = (t.double().abs() for t in (a, b, c))
     u = 2.0 ** -24
+
+    def t(v):
+        return v.transpose(-1, -2)
+
     if direction == "forward":       # x, w, s
-        return 2 * (a.shape[1] + 2) * u * (a @ (b * c[:, None]).T)
+        return 2 * (a.shape[-1] + 2) * u * (a @ t(b * c[..., None]))
     if direction == "dx":            # dy, w, s
-        return 2 * (a.shape[1] + 2) * u * ((a * c) @ b)
+        return 2 * (a.shape[-1] + 2) * u * ((a * c[..., None, :]) @ b)
     if direction == "dw":            # dy, x, s
-        return 2 * (a.shape[0] + 2) * u * ((a * c).T @ b)
-    return 2 * (a.shape[0] + b.shape[1] + 2) * u * torch.sum(
-        a * (b @ c.T), dim=0)        # dy, x, w
+        return 2 * (a.shape[-2] + 2) * u * (t(a * c[..., None, :]) @ b)
+    return 2 * (a.shape[-2] + b.shape[-1] + 2) * u * torch.sum(
+        a * (b @ t(c)), dim=-2)      # dy, x, w
 
 
 def sm_compare(torch, sm, direction: str, a, b, c,
@@ -1688,15 +1801,18 @@ def sm_backward_check(torch, sm, dy, x, w, s, flags) -> tuple[float, float]:
     return err, share
 
 
-def sm_check_shape(torch, sm, gen, m: int, n: int, k: int, worst: dict):
+def sm_check_shape(torch, sm, gen, m: int, n: int, k: int, worst: dict,
+                   batch: int | None = None):
     """Every direction and backward subset of ``scaled_matmul`` against its
-    plain version at (M, N, K) on random inputs, the backward twice;
-    ``worst`` keeps the largest share of the error bound per direction.
-    Returns (the checks, the inputs x, w, s, dy)."""
-    x = torch.randn((m, k), generator=gen).cuda()
-    w = (torch.randn((n, k), generator=gen) / math.sqrt(k)).cuda()
-    s = (0.8 + 0.4 * torch.rand(n, generator=gen)).cuda()
-    dy = torch.randn((m, n), generator=gen).cuda()
+    plain version at (M, N, K) on random inputs, the backward twice, for
+    one product or a cohort of ``batch``; ``worst`` keeps the largest
+    share of the error bound per direction.  Returns (the checks, the
+    inputs x, w, s, dy)."""
+    lead = () if batch is None else (batch,)
+    x = torch.randn(lead + (m, k), generator=gen).cuda()
+    w = (torch.randn(lead + (n, k), generator=gen) / math.sqrt(k)).cuda()
+    s = (0.8 + 0.4 * torch.rand(lead + (n,), generator=gen)).cuda()
+    dy = torch.randn(lead + (m, n), generator=gen).cuda()
     for d, args in (("forward", (x, w, s)), ("dx", (dy, w, s)),
                     ("dw", (dy, x, s)), ("ds", (dy, x, w))):
         worst[d] = max(worst[d], sm_compare(torch, sm, d, *args)[1])
@@ -1726,6 +1842,490 @@ def sm_kernel_phase(torch, sm) -> int:
     return checks
 
 
+# ------------------------------------------------------------ slice 12
+
+COHORT = 8                       # clients a full-width round trains at once
+COHORT_SM_SHAPES = ((32, 128, 128), (32, 10, 128), (32, 20, 128),
+                    (120, 128, 128))
+COHORT_LA_MODELS = (("vgg11_thinned", 28), ("resnet18_small", 55),
+                    ("mobilenetv2_small", 62))
+
+
+def cohort_kernel_phase(torch, sm, la, models) -> tuple[int, dict]:
+    """The two kernels that take a cohort in one launch, against their
+    plain versions on random inputs: ``scaled_matmul`` at K = 8 rows of
+    the main paths' dense shapes, every direction and backward subset
+    within the float32 error bound (the backward twice to the same bits),
+    each row bitwise the launch over that row alone; ``level_assign_leaves``
+    over 8 rows of every leaf of VGG11, the ResNet and the MobileNet, in
+    one launch, bitwise the plain version and each row's own launch.  Each
+    timed beside its plain version, the bound and, for ``scaled_matmul``,
+    ``torch.bmm`` and a multiply.  Returns (checks, timings)."""
+    gen = torch.Generator().manual_seed(12)
+    worst = dict.fromkeys(sm.DIRECTIONS + ("backward",), 0.0)
+    checks, sm_t = 0, []
+    for m, n, k in COHORT_SM_SHAPES:
+        c, (x, w, s, dy) = sm_check_shape(torch, sm, gen, m, n, k, worst,
+                                          COHORT)
+        checks += c
+        rows = sm.backward(dy, x, w, s, True, True, True)
+        y = sm.forward(x, w, s)
+        for i in range(COHORT):
+            one = sm.backward(dy[i], x[i], w[i], s[i], True, True, True)
+            if not (torch.equal(y[i], sm.forward(x[i], w[i], s[i]))
+                    and all(torch.equal(a[i], b) for a, b in zip(rows, one))):
+                fail(f"scaled_matmul at K = {COHORT}, ({m}, {n}, {k}): row "
+                     f"{i} differs from its own launch")
+        checks += 1
+        before = dict(sm.LAUNCHES)
+        sm.forward(x, w, s)
+        sm.backward(dy, x, w, s, True, True, False)
+        if (sm.LAUNCHES["forward"] - before["forward"],
+                sm.LAUNCHES["backward"] - before["backward"]) != (1, 1):
+            fail("scaled_matmul took a cohort in more than one launch")
+        fwd = dict(kernel_times(torch, lambda: sm.forward(x, w, s),
+                                lambda: sm.scaled_matmul_plain(x, w, s)),
+                   library_ms=time_ms(torch, lambda: SM_LIBRARY["forward"](
+                       torch, x, w, s)),
+                   bound=sm_bound_ms(("forward",), m, n, k, COHORT))
+        bwd = dict(kernel_times(
+            torch, lambda: sm.backward(dy, x, w, s, True, True, False),
+            lambda: (sm.dx_plain(dy, w, s), sm.dw_plain(dy, x, s))),
+            library_ms=time_ms(torch, lambda: [
+                SM_LIBRARY[d](torch, dy, x, w, s) for d in ("dx", "dw")]),
+            bound=sm_bound_ms(("dx", "dw"), m, n, k, COHORT))
+        sm_t.append({"k_mnk": [COHORT, m, n, k], "forward": fwd,
+                     "backward_dx_dw": bwd})
+        print(f"  cohort scaled_matmul K={COHORT} ({m}, {n}, {k}): forward "
+              f"{fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, torch.bmm "
+              f"and a multiply {fwd['library_ms']:.4f}, bound "
+              f"{fwd['bound'][0]:.6f} {fwd['bound'][1]}); backward dx + dw "
+              f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, torch.bmm "
+              f"{bwd['library_ms']:.4f}, bound {bwd['bound'][0]:.6f})")
+    la_t = {}
+    for name, leaves in COHORT_LA_MODELS:
+        params, _ = getattr(models, name)().init(
+            torch.Generator().manual_seed(0))
+        shapes = [tuple(v.shape) for d in params.values()
+                  for v in d.values()]
+        if len(shapes) != leaves:
+            fail(f"{name} has {len(shapes)} leaves, not {leaves}")
+        rows = [la_leaf_inputs(torch, gen, shapes) for _ in range(COHORT)]
+        d = [torch.stack([r[0][i] for r in rows]) for i in range(leaves)]
+        r = [torch.stack([r[1][i] for r in rows]) for i in range(leaves)]
+        th = torch.stack([r_[2] for r_ in rows])
+        steps = rows[0][3]
+        la_group_compare(torch, la, d, r, th, steps)
+        lvs, cs = la.level_assign_leaves(d, r, th, steps)
+        for i in range(COHORT):
+            one_l, one_c = la.level_assign_leaves(
+                [t[i] for t in d], [t[i] for t in r], th[i].contiguous(),
+                steps)
+            if not all(torch.equal(a[i], b) for a, b in zip(lvs, one_l)) or \
+                    not all(torch.equal(a[i].view(torch.int32),
+                                        b.view(torch.int32))
+                            for a, b in zip(cs, one_c)):
+                fail(f"level_assign_leaves on {name}'s cohort: row {i} "
+                     f"differs from its own launch")
+        checks += 2
+        n = sum(t.numel() for t in d)
+        per_client = [([t[i] for t in d], [t[i] for t in r],
+                       th[i].contiguous()) for i in range(COHORT)]
+        la_t[name] = dict(
+            kernel_times(torch, lambda: la.level_assign_leaves(d, r, th,
+                                                               steps),
+                         lambda: la.level_assign_leaves_plain(d, r, th,
+                                                              steps)),
+            per_client_launches_ms=time_ms(torch, lambda: [
+                la.level_assign_leaves(a, b, c, steps)
+                for a, b, c in per_client], spin=20_000_000),
+            bound=la_bound_ms(n), elements=n, leaves=leaves, rows=COHORT)
+        t = la_t[name]
+        print(f"  cohort level_assign {COHORT} x {leaves} leaves of {name} "
+              f"({n} elements): bitwise, one launch {t['ms']:.4f} ms "
+              f"(whole call {t['call_ms']:.4f} ms), {COHORT} per-client "
+              f"launches {t['per_client_launches_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
+              f"({t['bound'][1]})")
+    print(f"kernel phase: {checks} cohort comparisons (scaled_matmul at K = "
+          f"{COHORT} within the float32 error bound, largest share "
+          f"{ {d: round(v, 4) for d, v in worst.items()} }; level_assign "
+          f"bitwise), each row bitwise its own launch")
+    return checks, {"scaled_matmul": sm_t, "level_assign": la_t,
+                    "sm_bound_share": worst}
+
+
+STEP_UNI, STEP_FINE = 4.88e-4, 2.38e-6     # the uniform and fine steps
+
+
+def spy_contributions(eng) -> list:
+    """The engine's aggregated contributions, in order."""
+    seen = []
+    agg0 = eng.aggregate
+
+    def aggregate(contribs, weights=None):
+        seen.extend(contribs)
+        return agg0(contribs, weights)
+
+    eng.aggregate = aggregate
+    return seen
+
+
+def executor_contract(torch, label: str, seen, rec, base, base_rec,
+                      exact: bool = False) -> dict:
+    """Two backends' contributions of one round under the reference's
+    executor contract (``tests/test_executors.py``): the same clients,
+    decoded params deltas within 1.5 uniform steps, scale deltas within
+    1.5 fine steps, BN within rtol 1e-5 (atol 1e-6), bytes within 2% and
+    test accuracy within 0.02 (``executor_gaps``); with ``exact``, every
+    decoded tree and the bytes equal bit for bit.  Returns the gaps."""
+    if [c.client for c in seen] != [c.client for c in base]:
+        fail(f"{label}: clients {[c.client for c in seen]} against "
+             f"{[c.client for c in base]}")
+    gaps = executor_gaps(torch, seen, rec, base, base_rec)
+    parts = ("delta_params", "delta_scales", "bn_state")
+    if any(gaps[p]["beyond_contract"] for p in parts):
+        fail(f"{label}: outside the executor contract: {gaps}")
+    if abs(rec.up_bytes - base_rec.up_bytes) > 0.02 * base_rec.up_bytes:
+        fail(f"{label}: up_bytes {rec.up_bytes} against {base_rec.up_bytes}")
+    if abs(rec.test_acc - base_rec.test_acc) > 0.02:
+        fail(f"{label}: test_acc {rec.test_acc} against {base_rec.test_acc}")
+    gaps["bitwise"] = (rec.up_bytes == base_rec.up_bytes
+                       and all(gaps[p]["max_abs"] == 0 for p in parts))
+    if exact and not gaps["bitwise"]:
+        fail(f"{label}: not bit for bit its batched twin ({gaps})")
+    return gaps
+
+
+GRAD_FLOOR = 1e-4     # a gradient leaf is held against at least this share of the largest
+
+
+def cohort_model_check(torch, models, splits) -> dict:
+    """The card's cohort route (grouped cuDNN convolutions, one BatchNorm
+    call a layer, batched dense products) against each client's own
+    forward and gradients on the card: ``vgg11_thinned`` and
+    ``mobilenetv2_small``, 8 clients with their own weights and scales, 32
+    of their own images each, in training and in evaluation.  In float32
+    (the dense layers through ``scaled_matmul``) the logits within 1e-5 of
+    the client's largest, the gradients read and printed: a ReLU or
+    max-pool input within float32 noise of zero routes the backward
+    another way and parts a leaf by 1e-5 to 1e-2 (PERF.md §2), whichever
+    route is right.  In float64 (every scale folded into its leaf, the
+    dense layers as plain batched products, since the kernel takes float32
+    only) no input lies that close to a tie, so the route is held there:
+    logits within 1e-12 of the largest, each gradient leaf within 1e-10 of
+    its norm or of ``GRAD_FLOOR`` times the client's largest leaf norm,
+    whichever is larger (a BatchNorm shift whose output the next
+    BatchNorm centres has a gradient that is zero but for rounding).
+    Returns the worst of each."""
+    from repro_torch.core import scaling
+    from repro_torch.tree import items, row, tree_map
+    import torch.nn.functional as F
+
+    bounds = {"float64 logits": 1e-12, "float64 grads": 1e-10,
+              "float32 logits": 1e-5}
+    out = {}
+    for name in ("vgg11_thinned", "mobilenetv2_small"):
+        model = getattr(models, name)()
+        clients = [model.init(torch.Generator().manual_seed(c))
+                   for c in range(COHORT)]
+        params, state = (tree_map(lambda *v: torch.stack(v).cuda(), *trees)
+                         for trees in zip(*clients))
+        gen = torch.Generator().manual_seed(9)
+        base = scaling.init_scales(clients[0][0])
+        scales = tree_map(lambda *v: torch.stack(v).cuda(), *[
+            tree_map(lambda s: s + 0.05 * torch.randn(s.shape, generator=gen),
+                     base) for _ in range(COHORT)])
+        images = splits.client_x.cuda()[:, :32]   # the engine's layout
+        y = splits.client_y[:, :32].cuda()
+        worst = {k: 0.0 for k in ("float32 logits", "float32 grads",
+                                  "float64 logits", "float64 grads")}
+        for dtype, train in itertools.product(("float32", "float64"),
+                                              (True, False)):
+            wide = getattr(torch, dtype)
+
+            def grads(p, s, st, xb, yb, cohort):
+                p = tree_map(lambda t: t.detach().to(wide).requires_grad_(
+                    True), p)
+                st = tree_map(lambda t: t.to(wide), st)
+                if dtype == "float32":
+                    logits, _ = model.apply(
+                        scaling.apply_scales_tree(p, s, cohort), st, xb,
+                        train=train, scales=s)
+                else:
+                    logits, _ = model.apply(
+                        tree_map(scaling.apply_scale, p, s), st, xb,
+                        train=train)
+                lp = F.log_softmax(logits, -1)
+                loss = torch.mean(-lp.gather(-1, yb[..., None])[..., 0],
+                                  dim=-1)
+                leaves = [v for _, v in items(p)]
+                g = torch.autograd.grad(torch.sum(loss), leaves)
+                return logits.detach(), dict(zip(
+                    [k for k, _ in items(p)], g))
+
+            x = images.to(wide)
+            lc, gc = grads(params, scales, state, x, y, True)
+            for k in range(COHORT):
+                lk, gk = grads(row(params, k), row(scales, k), row(state, k),
+                               x[k], y[k], False)
+                worst[f"{dtype} logits"] = max(
+                    worst[f"{dtype} logits"],
+                    float((lc[k] - lk).abs().max() / lk.abs().max()))
+                floor = GRAD_FLOOR * max(float(g.norm()) for g in gk.values())
+                worst[f"{dtype} grads"] = max(worst[f"{dtype} grads"], max(
+                    float((gc[p][k] - g).norm()) / max(float(g.norm()), floor)
+                    for p, g in gk.items()))
+        out[name] = worst
+        print(f"  cohort route against each client's own on the card, "
+              f"{name}, {COHORT} clients: " + ", ".join(
+                  f"{k} within {v:.3g}" for k, v in worst.items())
+              + " (logits of the largest, gradients of their norm)")
+        over = {k: worst[k] for k, b in bounds.items() if worst[k] > b}
+        if over:
+            fail(f"{name}: the cohort route is off each client's own by "
+                 f"{over} (bounds {bounds})")
+    return out
+
+
+def grouped_layout_times(torch, models, splits) -> dict:
+    """Each grouped convolution of a ``vgg11_thinned`` cohort (8 clients,
+    32 images each; the shapes of one cohort forward), forward and
+    backward under deterministic cuDNN, with its input channels-first and
+    channels-last in memory: the sums of their median times (CUDA
+    events), the reading behind ``cnn.to_nchw``'s channels-last layout."""
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_map
+
+    model = models.vgg11_thinned()
+    params, state = (tree_map(lambda *v: torch.stack(v).cuda(), *trees)
+                     for trees in zip(*[model.init(
+                         torch.Generator().manual_seed(c))
+                         for c in range(COHORT)]))
+    shapes = []
+    conv0 = cnn.conv_apply
+
+    def spy(p, x, stride=1, groups=1):
+        shapes.append((tuple(x.shape), tuple(p["w"].shape), stride, groups))
+        return conv0(p, x, stride, groups)
+
+    cnn.conv_apply = spy
+    try:
+        with torch.no_grad():
+            model.apply(params, state, splits.client_x.cuda()[:, :32])
+    finally:
+        cnn.conv_apply = conv0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    with deterministic_cudnn(torch):
+        for fmt in ("channels_first", "channels_last"):
+            memory = (torch.channels_last if fmt == "channels_last"
+                      else torch.contiguous_format)
+            total = 0.0
+            for xs, ws, stride, groups in shapes:
+                x = torch.randn(xs, device="cuda", generator=gen).contiguous(
+                    memory_format=memory).requires_grad_(True)
+                w = torch.randn(ws, device="cuda", generator=gen,
+                                requires_grad=True)
+                dy = torch.randn_like(conv0({"w": w}, x, stride, groups))
+
+                def step():
+                    y = conv0({"w": w}, x, stride, groups)
+                    torch.autograd.grad(y, (x, w), dy)
+
+                total += time_ms(torch, step, iters=20)
+            out[fmt] = total
+    print(f"  grouped convolutions of a vgg11_thinned cohort ({len(shapes)} "
+          f"layers, forward and backward): channels-first "
+          f"{out['channels_first']:.4f} ms, channels-last "
+          f"{out['channels_last']:.4f} ms")
+    return out
+
+
+def executor_gaps(torch, seen, rec, base, base_rec) -> dict:
+    """How far two backends' contributions of one round lie apart: per
+    part, the elements beyond the executor contract's bound and the
+    largest gap; the bytes and accuracies."""
+    from repro_torch.tree import sorted_items
+
+    out = {"up_bytes": [rec.up_bytes, base_rec.up_bytes],
+           "test_acc": [rec.test_acc, base_rec.test_acc]}
+    for part, tol in (("delta_params", 1.5 * STEP_UNI),
+                      ("delta_scales", 1.5 * STEP_FINE), ("bn_state", None)):
+        over = total = 0
+        worst = 0.0
+        for a, b in zip(seen, base):
+            fa = dict(sorted_items(getattr(a, part)))
+            for p, v in sorted_items(getattr(b, part)):
+                v = torch.as_tensor(v).double().cpu()
+                d = (torch.as_tensor(fa[p]).double().cpu() - v).abs()
+                bound = (1e-6 + 1e-5 * v.abs()) if tol is None else tol
+                over += int((d > bound).sum())
+                total += d.numel()
+                worst = max(worst, float(d.max()))
+        out[part] = {"beyond_contract": over, "elements": total,
+                     "max_abs": worst}
+    return out
+
+
+def nudged(torch, eng):
+    """``eng`` with every server param one ulp up (toward +inf): run
+    beside the same engine unnudged, a control of how far a round moves
+    when only its float32 rounding changes."""
+    from repro_torch.tree import tree_map
+
+    eng.server = eng.server._replace(params=tree_map(
+        lambda t: torch.nextafter(t, torch.full_like(t, math.inf)),
+        eng.server.params))
+    return eng
+
+
+def reference_tiny(torch):
+    """``tests/test_executors.py``'s tiny setting, drawn with torch
+    generators: a 2-conv VGG (widths 8, 16, dense 16, 4 classes) on 480
+    images over 4 clients (2 local steps a client), and its protocol."""
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data import federated, synthetic
+    from repro_torch.models import cnn
+
+    task = synthetic.ImageTask("t", num_classes=4, channels=3, size=32,
+                               prototypes_per_class=2, noise=0.25)
+    x, y = synthetic.make_image_dataset(torch.Generator().manual_seed(0),
+                                        task, 480)
+    splits = federated.split_federated(torch.Generator().manual_seed(1), x,
+                                       y, num_clients=4)
+    model = cnn.make_vgg("vgg_tiny_exec", [8, 16], 4, 3, dense_width=16,
+                         pool_after=(0, 1))
+    cfg = ProtocolConfig(name="exec", method="sparse", fixed_sparsity=0.9,
+                         batch_size=32, local_lr=2e-3)
+    return model, splits, cfg
+
+
+def slice12_paths(torch, mods, rounds_mod, fl, models, splits,
+                  rounds_out) -> dict:
+    """The executors, one round each from one seed, serial beside batched:
+
+    * held to the reference's executor contract: its own tiny setting
+      (``reference_tiny``, cohorts of 3 of 4) through serial, vmap and
+      sharded over a two-entry mesh of the card (the ragged cohort padded
+      to 4, blocks of 2), and ``exec_serial_k4`` on the scenario VGG with
+      1,280 images (3 local steps) through serial and vmap;
+    * read, not held: ``exec_serial_k4`` at full width (``vgg11_thinned``,
+      17 local steps; 4 ``level_assign`` and 434/408 ``scaled_matmul``
+      launches serial, 1 and 110/102 batched) and on the scenario VGG with
+      640 images (1 local step), each beside the control of the serial
+      round against itself with its server params one ulp up
+      (``nudged``); at full width bytes within 2%.  There float32
+      rounding alone parts the round: at 1 step the top-k boundary lies
+      in a plateau of equal Adam first steps, and at 17 the two part as
+      far as the control does (PERF.md §6); in float64 the batched round
+      is the serial one bit for bit
+      (``tests/test_torch_executors.py::test_backends_bitwise_in_float64``);
+    * ``sharded_cohort_full`` on the mesh of every visible device (one
+      block a device, each one call of the batched round) beside
+      ``sync_full_fedavg_fsfl`` through the batched executor, bit for bit
+      on one device (the same computation) and under the contract on
+      more."""
+    from repro_torch.fl.executors import ShardedExecutor
+
+    out = {"cohort_route": cohort_model_check(torch, models, splits),
+           "grouped_layout_ms": grouped_layout_times(torch, models, splits)}
+    mesh = torch.cuda.device_count()
+    per = -(-splits.num_clients // mesh)
+
+    def engine(name, model=None, data=None, **over):
+        s = dataclasses.replace(fl.get_scenario(name), **over)
+        return fl.FederatedEngine(
+            model or models.vgg11_thinned(), fl.build_protocol(s, 1),
+            data or splits, engine_cfg=fl.build_engine(s), device="cuda")
+
+    def run(label, eng, want, clients, **kw):
+        seen = spy_contributions(eng)
+        holder = {}
+
+        def go():
+            holder["res"] = eng.run(1)
+            return holder["res"]
+
+        out[label] = run_path(torch, mods, rounds_mod, label, go, want,
+                              clients, 2, rounds_out, **kw)
+        return seen, holder["res"].records[0]
+
+    def once(eng):
+        seen = spy_contributions(eng)
+        return seen, eng.run(1).records[0]
+
+    serial = run("exec_serial_k4", engine("exec_serial_k4"),
+                 {"level_assign": 4, **sm_per_round(4, calls=4)}, 4,
+                 calls=4)
+    batched = run("exec_serial_k4 batched",
+                  engine("exec_serial_k4", executor="vmap"),
+                  {"level_assign": 1, **sm_per_round(4)}, 4)
+    control = once(nudged(torch, engine("exec_serial_k4")))
+    out["gaps_k4_full_width"] = {
+        "batched": executor_gaps(torch, *batched, *serial),
+        "serial_nudged": executor_gaps(torch, *control, *serial)}
+    print(f"  exec_serial_k4 at full width against its serial round (a "
+          f"reading): {out['gaps_k4_full_width']}")
+    if abs(serial[1].up_bytes - batched[1].up_bytes) > 0.02 * (
+            serial[1].up_bytes):
+        fail(f"exec_serial_k4: up_bytes {batched[1].up_bytes} against "
+             f"{serial[1].up_bytes}")
+
+    model, data, cfg = reference_tiny(torch)
+    tiny = {}
+    for ex in ("serial", "vmap", "sharded"):
+        eng = fl.FederatedEngine(
+            model, cfg, data, seed=5, device="cuda",
+            engine_cfg=fl.EngineConfig(
+                executor="serial" if ex == "sharded" else ex,
+                sampling=fl.SamplingConfig(cohort_size=3)))
+        if ex == "sharded":
+            sh = ShardedExecutor(mesh=[torch.device("cuda")] * 2)
+            sh.bind(eng.local_train.executor.round)
+            eng.local_train.executor = sh
+        tiny[ex] = once(eng)
+    for ex in ("serial", "sharded"):
+        out[f"contract_tiny_{ex}"] = executor_contract(
+            torch, f"reference's tiny setting, {ex} against vmap",
+            *tiny[ex], *tiny["vmap"])
+    for n in (SMALL_SAMPLES, 640):
+        small = {}
+        for ex in ("serial", "vmap", "nudged"):
+            model, data = fl.default_setting(8, n_samples=n)
+            eng = engine("exec_serial_k4", model, data,
+                         executor="vmap" if ex == "vmap" else "serial")
+            small[ex] = once(nudged(torch, eng) if ex == "nudged" else eng)
+        if n == SMALL_SAMPLES:
+            out["contract_k4"] = executor_contract(
+                torch, "exec_serial_k4 small", *small["vmap"],
+                *small["serial"])
+        else:
+            out["gaps_k4_640"] = {
+                "batched": executor_gaps(torch, *small["vmap"],
+                                         *small["serial"]),
+                "serial_nudged": executor_gaps(torch, *small["nudged"],
+                                               *small["serial"])}
+            print(f"  exec_serial_k4 on 640 images against its serial "
+                  f"round (a reading): {out['gaps_k4_640']}")
+    full = run("sync_full_fedavg_fsfl batched",
+               engine("sync_full_fedavg_fsfl"),
+               {"level_assign": 1, **sm_per_round(8)}, 8)
+    eng = engine("sharded_cohort_full")
+    if [d.type for d in eng.local_train.executor.mesh] != ["cuda"] * mesh:
+        fail(f"sharded_cohort_full's mesh {eng.local_train.executor.mesh}")
+    sharded = run("sharded_cohort_full", eng,
+                  {"level_assign": mesh, **sm_per_round(8, calls=mesh)}, 8,
+                  calls=mesh, trained=per * mesh)
+    out["contract_sharded"] = executor_contract(
+        torch, "sharded_cohort_full", *sharded, *full, exact=mesh == 1)
+    out["mesh"] = mesh
+    for key in ("contract_tiny_serial", "contract_tiny_sharded",
+                "contract_k4", "contract_sharded"):
+        print(f"  executor contract {key}: {out[key]}")
+    return out
+
+
 def capture_sm(sm) -> tuple[dict, dict]:
     """Wrap ``scaled_matmul``'s forward and backward so that a copy of the
     first call at each distinct set of shapes (and, for the backward,
@@ -1753,11 +2353,19 @@ def capture_sm(sm) -> tuple[dict, dict]:
     return captured, originals
 
 
+def _mm(torch, a, b):
+    """``torch.mm``, or ``torch.bmm`` for a cohort's operands."""
+    return torch.bmm(a, b) if a.ndim == 3 else torch.mm(a, b)
+
+
 SM_LIBRARY = {   # one PyTorch call for each function, timed beside
-    "forward": lambda torch, x, w, s: torch.mm(x, w.t()).mul_(s),
-    "dx": lambda torch, dy, x, w, s: torch.mm(dy * s, w),
-    "dw": lambda torch, dy, x, w, s: torch.mm(dy.t(), x).mul_(s[:, None]),
-    "ds": lambda torch, dy, x, w, s: torch.mm(x, w.t()).mul_(dy).sum(0)}
+    "forward": lambda torch, x, w, s: _mm(
+        torch, x, w.transpose(-1, -2)).mul_(s[..., None, :]),
+    "dx": lambda torch, dy, x, w, s: _mm(torch, dy * s[..., None, :], w),
+    "dw": lambda torch, dy, x, w, s: _mm(
+        torch, dy.transpose(-1, -2), x).mul_(s[..., None]),
+    "ds": lambda torch, dy, x, w, s: _mm(
+        torch, x, w.transpose(-1, -2)).mul_(dy).sum(-2)}
 
 
 def sm_main_path(torch, sm, captured) -> dict:
@@ -1776,21 +2384,22 @@ def sm_main_path(torch, sm, captured) -> dict:
         if not torch.equal(sm.forward(x, w, s), sm.forward(x, w, s)):
             fail(f"scaled_matmul forward at {sa} differs between launches")
         m, n, k = sm_dims("forward", x, w)
+        b = sm_batch(x)
         t = kernel_times(torch, lambda: sm.forward(x, w, s),
                          lambda: sm.scaled_matmul_plain(x, w, s))
         t["library_ms"] = time_ms(
             torch, lambda: SM_LIBRARY["forward"](torch, x, w, s))
         fwd.append(dict(shapes=[list(sa), list(sb)], mnk=[m, n, k],
-                        max_abs_err=err, bound_share=share,
-                        bound=sm_bound_ms(("forward",), m, n, k), **t))
+                        batch=b, max_abs_err=err, bound_share=share,
+                        bound=sm_bound_ms(("forward",), m, n, k, b), **t))
         r = fwd[-1]
         print(f"  scaled_matmul forward {sa} x {sb} on the main path's "
               f"buffer: {err:.3g} off its plain version ({share:.3f} of "
               f"the float32 error bound); kernel {r['ms']:.4f} ms (whole "
               f"wrapper call {r['call_ms']:.4f} ms), plain "
-              f"{r['plain_ms']:.4f} ms, torch.mm and a multiply "
-              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
-              f"({r['bound'][1]})")
+              f"{r['plain_ms']:.4f} ms, torch.{'bmm' if b > 1 else 'mm'} "
+              f"and a multiply {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
     bwd = []
     plains = {"dx": lambda dy, x, w, s: sm.dx_plain(dy, w, s),
               "dw": lambda dy, x, w, s: sm.dw_plain(dy, x, s),
@@ -1798,7 +2407,8 @@ def sm_main_path(torch, sm, captured) -> dict:
     for (sdy, sw, flags), (dy, x, w, s, _) in captured["backward"].items():
         err, share = sm_backward_check(torch, sm, dy, x, w, s, flags)
         asked = [d for d, f in zip(SM_GRADS, flags) if f]
-        m, n, k = dy.shape[0], dy.shape[1], w.shape[1]
+        m, n, k = dy.shape[-2], dy.shape[-1], w.shape[-1]
+        b = sm_batch(dy)
         t = kernel_times(torch, lambda: sm.backward(dy, x, w, s, *flags),
                          lambda: [plains[d](dy, x, w, s) for d in asked])
         t["library_ms"] = time_ms(torch, lambda: [
@@ -1811,10 +2421,11 @@ def sm_main_path(torch, sm, captured) -> dict:
                 plain_ms=time_ms(torch, lambda: plains[d](dy, x, w, s)),
                 library_ms=time_ms(
                     torch, lambda: SM_LIBRARY[d](torch, dy, x, w, s)),
-                bound=sm_bound_ms((d,), m, n, k))
+                bound=sm_bound_ms((d,), m, n, k, b))
         bwd.append(dict(shapes=[list(sdy), list(sw)], mnk=[m, n, k],
-                        grads=asked, max_abs_err=err, bound_share=share,
-                        bound=sm_bound_ms(asked, m, n, k), alone=alone,
+                        batch=b, grads=asked, max_abs_err=err,
+                        bound_share=share,
+                        bound=sm_bound_ms(asked, m, n, k, b), alone=alone,
                         **t))
         r = bwd[-1]
         print(f"  scaled_matmul backward {'+'.join(asked)} dy {sdy}, w {sw} "
@@ -1822,9 +2433,10 @@ def sm_main_path(torch, sm, captured) -> dict:
               f"versions ({share:.3f} of the float32 error bound); one "
               f"launch {r['ms']:.4f} ms (whole wrapper call "
               f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-              f"torch.mm calls {r['library_ms']:.4f} ms, bound "
+              f"torch.{'bmm' if b > 1 else 'mm'} calls "
+              f"{r['library_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); alone: " + ", ".join(
-                  f"{d} {a['ms']:.4f} ms (torch.mm {a['library_ms']:.4f})"
+                  f"{d} {a['ms']:.4f} ms (library {a['library_ms']:.4f})"
                   for d, a in alone.items()))
     return {"forward": fwd, "backward": bwd}
 
@@ -2013,7 +2625,7 @@ def path_a(torch, mods, rounds_mod, fl, fsfl, models, splits,
     launch a client and one on the downlink."""
     n = splits.num_clients
     cfg = fl.build_protocol(fl.get_scenario("bidi_sync_full"), 2)
-    want = {"level_assign": n + 1, **sm_per_round(n)}
+    want = {"level_assign": 2, **sm_per_round(n)}
     launches = {}
     for scenario, run in (
             ("run_federated bidirectional",
@@ -2087,7 +2699,7 @@ def path_c(torch, mods, rounds_mod, fl, codecs_mod, models, splits,
                     sampling=fl.SamplingConfig(cohort_size=4),
                     codec="int8-blockscale", bidirectional=True),
                 device="cuda"),
-            {"delta_apply": 2, "delta_compress": 5, "level_assign": 5,
+            {"delta_apply": 2, "delta_compress": 5, "level_assign": 2,
              **sm_per_round(4)}, 4, 2, rounds_out, up=4 * PAYLOAD_BYTES,
             down=4 * DOWN_PAYLOAD_BYTES)
     finally:
@@ -2376,9 +2988,9 @@ def path_d(torch, la, sm, fl, codecs_mod, models, splits,
         cls.encode_batch, cls.decode_batch = enc0, dec0
     count = la.LAUNCHES["level_assign"]
     check_sm(sm, label, 4, rounds)
-    if count != 4 * rounds:
+    if count != rounds:
         fail(f"{label}: level_assign launched {count} times, expected "
-             f"{4 * rounds}")
+             f"{rounds}")
     pairs = [p for cohort in sizes for p in cohort]
     if len(pairs) != 4 * rounds or not all(a < b for a, b in pairs):
         fail(f"{label}: payloads vs the unmasked re-encode {pairs}")
@@ -2506,7 +3118,7 @@ def path_e(torch, dc, la, sm, fl, codecs_mod, device_mod, models, splits,
     counts = {**dc.LAUNCHES, "level_assign": la.LAUNCHES["level_assign"]}
     check_sm(sm, label, 4, rounds)
     want = {"delta_compress": 0, "delta_compress_batch": rounds,
-            "level_assign": 4 * rounds}
+            "level_assign": rounds}
     if counts != want or entries != [PATH_E_ENTRIES] * rounds:
         fail(f"{label}: launches {counts}, tables {entries}; expected "
              f"{want}, {[PATH_E_ENTRIES] * rounds}")
@@ -2593,7 +3205,7 @@ def bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
         cls.encode_batch = enc0
     round_line(label, 1, rec, rounds_out)
     check_sm(sm, label, splits.num_clients, 1)
-    if la.LAUNCHES["level_assign"] != splits.num_clients:
+    if la.LAUNCHES["level_assign"] != 1:
         fail(f"{label}: level_assign launched "
              f"{la.LAUNCHES['level_assign']} times")
     for v2, v1 in seen["pairs"]:
@@ -2687,11 +3299,12 @@ def async_path(torch, la, sm, fl, models, splits, rounds_out, label: str,
              f"{eng.version}")
     check_server(torch, label, eng.server)
     count = la.LAUNCHES["level_assign"]
-    if count != trained:
-        fail(f"{label}: level_assign launched {count} times for {trained} "
-             f"trainings")
+    if count != len(windows):
+        fail(f"{label}: level_assign launched {count} times for "
+             f"{len(windows)} windows")
     got, calls = dict(sm.LAUNCHES), dict(sm.CALLS)
-    want, want_calls = sm_expected(trained, 1)
+    # each window trains in one call of the batched round
+    want, want_calls = sm_expected(trained, 1, calls=len(windows))
     # one evaluation an aggregation, 2 forward launches each
     want["forward"] += 2 * (rounds - 1)
     want_calls["forward"] += 2 * (rounds - 1)
@@ -2721,8 +3334,8 @@ def full_width_dirichlet_splits(torch, data, alpha: float):
 
 def path_g(torch, la, sm, fl, data, models, rounds_out) -> dict:
     """Path G: 2 rounds of ``noniid_dir1_k4_fedyogi`` (dirichlet(1.0)
-    label partition of the 6,400 images, cohorts of 4, FedYogi): 4
-    ``level_assign`` a round and 434/408 ``scaled_matmul`` launches a
+    label partition of the 6,400 images, cohorts of 4, FedYogi): 1
+    ``level_assign`` a round and 110/102 ``scaled_matmul`` launches a
     round; the server and FedYogi's moments finite, its step 2."""
     from repro_torch.tree import items
     rounds, label = 2, "noniid_dir1_k4_fedyogi"
@@ -2751,9 +3364,9 @@ def path_g(torch, la, sm, fl, data, models, rounds_out) -> dict:
         fail(f"{label}: FedYogi's state is not finite after {rounds} steps")
     count = la.LAUNCHES["level_assign"]
     got = check_sm(sm, label, 4, rounds)
-    if count != 4 * rounds:
+    if count != rounds:
         fail(f"{label}: level_assign launched {count} times, expected "
-             f"{4 * rounds}")
+             f"{rounds}")
     print(f"  {label}: {splits.n_train} training images a client, largest "
           f"label share {share:.3f}; level_assign {count} launches; FedYogi "
           f"step {int(state.step)}, moments finite")
@@ -2778,12 +3391,12 @@ def server_gain(fl, name: str) -> float:
 
 def repeat_small_runs(torch, fl, rounds_mod, name: str, model=None,
                       splits=None):
-    """Two runs of scenario ``name`` on the tiny VGG (or on ``model`` and
-    ``splits``) on the card, with the algorithms the port selects (no
-    context of this script's around them):
-    every payload put on the wire, up and down, and the server's params,
-    scales and BN state must be equal bit for bit.  Returns (report,
-    failures)."""
+    """Two runs of scenario ``name``, through its own executor (the
+    batched one where it names none), on the tiny VGG with 1,280 samples
+    (or on ``model`` and ``splits``) on the card, with the algorithms the
+    port selects (no context of this script's around them): every payload
+    put on the wire, up and down, and the server's params, scales and BN
+    state must be equal bit for bit.  Returns (report, failures)."""
     from repro_torch.comms import codec as codec_mod
     from repro_torch.comms import codecs as codecs_mod
     from repro_torch.tree import sorted_items
@@ -2811,8 +3424,13 @@ def repeat_small_runs(torch, fl, rounds_mod, name: str, model=None,
         codecs_mod.NncCabacCodec.decode_batch = decode_batch
         codecs_mod.Int8BlockScaleCodec.device_sections = device_sections
         try:
-            res = record_small_run(torch, fl, rounds_mod, name, "cuda",
-                                   model, splits)[0]
+            m, sp = model, splits
+            if m is None:
+                m, sp = fl.default_setting(
+                    fl.get_scenario(name).num_clients,
+                    n_samples=SMALL_SAMPLES)
+            res = fl.run_scenario(name, rounds=SMALL_ROUNDS, model=m,
+                                  splits=sp, device="cuda")
         finally:
             codec_mod.Codec.decode = dec0
             codecs_mod.NncCabacCodec.decode_batch = nnc0
@@ -2836,7 +3454,8 @@ def repeat_small_runs(torch, fl, rounds_mod, name: str, model=None,
     if off:
         failures.append(f"{name}: server leaves differ between two runs: "
                         f"{off}")
-    report = {"payloads": len(pay_a), "payload_bytes": sum(map(len, pay_a)),
+    report = {"executor": fl.get_scenario(name).executor,
+              "payloads": len(pay_a), "payload_bytes": sum(map(len, pay_a)),
               "bytes": bytes_a, "server_leaves": len(state_a),
               "cudnn_deterministic": torch.backends.cudnn.deterministic,
               "cudnn_benchmark": torch.backends.cudnn.benchmark}
@@ -3032,20 +3651,20 @@ def slice10_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod,
     training and 120 validation images a client, 960 to test), batch 32:
 
     * I: ``resnet18_small(20, 3)`` on VOC-like data, 2 rounds of
-      ``run_federated`` (fsfl, FedAvg, nnc-cabac): 8 ``level_assign`` and
-      433/408 ``scaled_matmul`` launches a round (one dense layer);
-    * J: ``vgg16_tiny(2, 1)`` on X-ray-like data, 2 rounds likewise: 8
-      ``level_assign`` and 866/816 ``scaled_matmul`` a round;
+      ``run_federated`` (fsfl, FedAvg, nnc-cabac): 1 ``level_assign`` and
+      55/51 ``scaled_matmul`` launches a round (one dense layer);
+    * J: ``vgg16_tiny(2, 1)`` on X-ray-like data, 2 rounds likewise: 1
+      ``level_assign`` and 110/102 ``scaled_matmul`` a round;
     * K: the ResNet with int8-blockscale on both legs, cohorts of 4, the
       device cohort encode, 1 round: the cohort's 110 entries in 2
       ``int8_encode_leaves`` launches, the broadcast's 55 in 1, 2
-      ``delta_apply``, 5 ``level_assign``, 217/204 ``scaled_matmul``;
+      ``delta_apply``, 2 ``level_assign``, 55/51 ``scaled_matmul``;
       payloads of 1,337,044 bytes up and 1,330,296 down, and the server's
       params bitwise the host decode of the broadcast plus the params
       before;
     * L: the ResNet with ``fsfl_dyn``, bidirectional, 1 round: 9
       ``row_stats`` launches (one a client and one on the downlink), each
-      over the 20 weight views, and 433/408 ``scaled_matmul``."""
+      over the 20 weight views, and 55/51 ``scaled_matmul``."""
     la, rs, da, dc, sm = mods
     voc = full_width_splits(torch, data, data.synthetic.VOC_LIKE)
     xray = full_width_splits(torch, data, data.synthetic.XRAY_LIKE)
@@ -3056,12 +3675,12 @@ def slice10_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod,
         torch, mods, rounds_mod, "path I resnet18_small voc_like",
         lambda: fsfl.run_federated(models.resnet18_small(20, 3), cfg, voc, 2,
                                    device="cuda"),
-        {"level_assign": 8, **sm_per_round(8, 1)}, 8, 1, rounds_out)
+        {"level_assign": 1, **sm_per_round(8, 1)}, 8, 1, rounds_out)
     out["J"] = run_path(
         torch, mods, rounds_mod, "path J vgg16_tiny xray_like",
         lambda: fsfl.run_federated(models.vgg16_tiny(2, 1), cfg, xray, 2,
                                    device="cuda"),
-        {"level_assign": 8, **sm_per_round(8, 2)}, 8, 2, rounds_out)
+        {"level_assign": 1, **sm_per_round(8, 2)}, 8, 2, rounds_out)
 
     launch0 = dc._launch
     tables = capture_calls(dc, "_launch", 100,
@@ -3077,7 +3696,7 @@ def slice10_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod,
                     sampling=fl.SamplingConfig(cohort_size=4),
                     codec="int8-blockscale", device_encode=True,
                     bidirectional=True), device="cuda"),
-            {"level_assign": 5, "delta_apply": 2, "delta_compress": 1,
+            {"level_assign": 2, "delta_apply": 2, "delta_compress": 1,
              "delta_compress_batch": 2, **sm_per_round(4, 1)}, 4, 1, rounds_out,
             up=4 * RESNET_INT8_BYTES, down=4 * RESNET_DOWN_BYTES)
     finally:
@@ -3509,19 +4128,19 @@ def slice11_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod, comms,
     """Paths M to O at full width, 6,400 images over 8 clients, batch 32:
 
     * M: ``mobilenetv2_small(20, 3)`` on VOC-like data, 2 rounds of
-      ``run_federated`` (fsfl, FedAvg, nnc-cabac): 8 ``level_assign`` and
-      433/408 ``scaled_matmul`` launches a round (one dense layer);
+      ``run_federated`` (fsfl, FedAvg, nnc-cabac): 1 ``level_assign`` and
+      55/51 ``scaled_matmul`` launches a round (one dense layer);
     * N: the MobileNet with the paper's projection-only scales
       (``mobilenet_proj_only_predicate``), int8-blockscale on both legs,
       cohorts of 4, the device cohort encode, 1 round: the cohort's 124
       entries in 2 ``int8_encode_leaves`` launches, the broadcast's 62 in
-      1, 2 ``delta_apply``, 5 ``level_assign``, 217/204 ``scaled_matmul``;
+      1, 2 ``delta_apply``, 2 ``level_assign``, 55/51 ``scaled_matmul``;
       payloads of the codec's sizes, and the server's params bitwise the
       host decode of the broadcast plus the params before;
     * O: ``cabac_fast_pool_k8`` (the batched uplink over a forkserver pool
       of 2) and ``stream_ingest_k8`` at ``vgg11_thinned`` width, the first
-      round of each as the main path plans 2: 8 ``level_assign`` and
-      866/816 ``scaled_matmul``; up bytes those of
+      round of each as the main path plans 2: 1 ``level_assign`` and
+      110/102 ``scaled_matmul``; up bytes those of
       ``sync_full_fedavg_fsfl``'s first round; the pool's 2 tasks; the
       streaming aggregate bitwise the CPU's float64 fold of the same
       decoded payloads and, against the gather's float32 mean of them
@@ -3535,7 +4154,7 @@ def slice11_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod, comms,
         torch, mods, rounds_mod, "path M mobilenetv2_small voc_like",
         lambda: fsfl.run_federated(models.mobilenetv2_small(20, 3), cfg, voc,
                                    2, device="cuda"),
-        {"level_assign": 8, **sm_per_round(8, 1)}, 8, 1, rounds_out)
+        {"level_assign": 1, **sm_per_round(8, 1)}, 8, 1, rounds_out)
 
     up, down = mobilenet_int8_bytes(torch, comms, models, proj_only=True)
     launch0 = dc._launch
@@ -3554,7 +4173,7 @@ def slice11_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod, comms,
             lambda: fl.run_scenario(proj, rounds=1,
                                     model=models.mobilenetv2_small(20, 3),
                                     splits=voc, device="cuda"),
-            {"level_assign": 5, "delta_apply": 2, "delta_compress": 1,
+            {"level_assign": 2, "delta_apply": 2, "delta_compress": 1,
              "delta_compress_batch": 2, **sm_per_round(4, 1)}, 4, 1,
             rounds_out, up=4 * up, down=4 * down)
     finally:
@@ -3578,7 +4197,7 @@ def path_o(torch, mods, rounds_mod, fl, models, splits, rounds_out) -> dict:
     from repro_torch.tree import sorted_items
     first_up = next(r[4] for r in rounds_out
                     if r[0] == "sync_full_fedavg_fsfl" and r[1] == 1)
-    want = {"level_assign": 8, **sm_per_round(8)}
+    want = {"level_assign": 1, **sm_per_round(8)}
     out, engines = {}, []
     init0 = fl.FederatedEngine.__init__
 
@@ -3778,7 +4397,8 @@ def main() -> int:
                                                    models)
     s11_checks, s11_timings = slice11_kernel_phase(torch, dc, la, da, rs,
                                                    models)
-    checks += s10_checks + s11_checks
+    s12_checks, s12_timings = cohort_kernel_phase(torch, sm, la, models)
+    checks += s10_checks + s11_checks + s12_checks
     t1 = phase("kernel phase", t1)
     splits = full_width_splits(torch, data)
     rounds_out = []
@@ -3854,6 +4474,12 @@ def main() -> int:
     s11 = slice11_paths(torch, mods, fl, fsfl, rounds_mod, codecs_mod, comms,
                         data, models, splits, rounds_out)
     t1 = phase("paths M to O (mobilenetv2_small, the host uplink)", t1)
+
+    # slice 12: the executors (serial beside batched, sharded on the mesh
+    # of the visible devices)
+    s12 = slice12_paths(torch, mods, rounds_mod, fl, models, splits,
+                        rounds_out)
+    t1 = phase("executors (exec_serial_k4, sharded_cohort_full)", t1)
 
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
@@ -3976,9 +4602,11 @@ def main() -> int:
         "ms": la_timing["ms"], "plain_ms": la_timing["plain_ms"],
         "bound_ms": la_timing["bound"][0], "bound_by": la_timing["bound"][1],
         "library_ms": None, "call_ms": la_timing["call_ms"],
-        "leaves": VGG_LEAVES, "elements": la_timing["elements"],
-        "per_leaf_launches_ms": la_timing["per_leaf_ms"],
-        "per_leaf_launches_call_ms": la_timing["per_leaf_call_ms"],
+        "leaves": VGG_LEAVES, "rows": COHORT,
+        "elements": la_timing["elements"],
+        "per_client_launches_ms": la_timing["per_client_ms"],
+        "per_client_launches_call_ms": la_timing["per_client_call_ms"],
+        "cohort_kernel_phase": s12_timings["level_assign"],
         "launches_bidirectional_path_a":
             a_launches["run_federated bidirectional"],
         "launches_path_d": d_out["level_assign"],
@@ -4046,12 +4674,14 @@ def main() -> int:
         "ms": first["ms"], "plain_ms": first["plain_ms"],
         "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
         "library_ms": first["library_ms"], "call_ms": first["call_ms"],
-        "mnk": first["mnk"],
+        "mnk": first["mnk"], "batch": first["batch"],
         "main_path_shapes": [{k: r[k] for k in (
-            "shapes", "mnk", "ms", "plain_ms", "library_ms", "call_ms",
-            "bound")} for r in fwd],
+            "shapes", "mnk", "batch", "ms", "plain_ms", "library_ms",
+            "call_ms", "bound")} for r in fwd],
         "launches_per_path": {label: r["forward"]
                               for label, r in runs.items()},
+        "cohort_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["forward"])
+                                for r in s12_timings["scaled_matmul"]],
         "resnet18_small": s10_timings["scaled_matmul"]})
     bwd = sm_timing["backward"]
     first = next((r for r in bwd if r["mnk"] == [32, 128, 128]
@@ -4066,12 +4696,15 @@ def main() -> int:
         "ms": first["ms"], "plain_ms": first["plain_ms"],
         "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
         "library_ms": first["library_ms"], "call_ms": first["call_ms"],
-        "mnk": first["mnk"], "grads": first["grads"],
+        "mnk": first["mnk"], "batch": first["batch"],
+        "grads": first["grads"],
         "main_path_calls": [{k: r[k] for k in (
-            "shapes", "mnk", "grads", "ms", "plain_ms", "library_ms",
-            "call_ms", "bound", "alone")} for r in bwd],
+            "shapes", "mnk", "batch", "grads", "ms", "plain_ms",
+            "library_ms", "call_ms", "bound", "alone")} for r in bwd],
         "launches_per_path": {label: r["backward"]
                               for label, r in runs.items()},
+        "cohort_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["backward_dx_dw"])
+                                for r in s12_timings["scaled_matmul"]],
         "resnet18_small": s10_timings["scaled_matmul_backward"]})
     for k in kernels:
         if k["launches"] < 1:
@@ -4098,6 +4731,7 @@ def main() -> int:
         "path_h_async_windowed_b4": h_out,
         "paths_i_to_l": s10, "resnet_t_small_input": resnet_t,
         "paths_m_to_o": s11, "mobilenet_t_small_input": mobilenet_t,
+        "executors": s12,
         "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,8 @@ with error feedback on: where one threshold per leaf sparsifies
 (``UpstreamStages.fused``), every leaf's carry, quantization and new
 residual come from one ``level_assign_leaves`` kernel launch (each leaf
 with its own threshold), bitwise equal to ``carry_residual -> compress ->
-new_residual``.
+new_residual``.  ``compress_carry_cohort`` does the same for a cohort of
+clients (the batched client round) in one launch.
 """
 from __future__ import annotations
 
@@ -97,8 +98,27 @@ class UpstreamStages:
         levels and new residual, one kernel launch on the card.  Returns
         ``(levels, recon, new_residual, update_sparsity)``; the sparsity is
         the zero share of the sparsified tensor (a kept element may still
-        round to level 0).
+        round to level 0).  One client's trees: :meth:`compress_carry_cohort`
+        over a cohort of one.
         """
+        def one(tree):
+            return tree_map(lambda x: x[None], tree)
+
+        def first(tree):
+            return tree_map(lambda x: x[0], tree)
+
+        levels, recon, carry, sparsity = self.compress_carry_cohort(
+            one(raw_delta), one(residual), fine_mask)
+        return first(levels), first(recon), first(carry), sparsity[0]
+
+    def compress_carry_cohort(self, raw_delta: Any, residual: Any,
+                              fine_mask: Any):
+        """:meth:`compress_carry` over a cohort: every leaf of
+        ``raw_delta`` and ``residual`` leads with the K clients, each client
+        and leaf with its own theta (one ``topk`` a leaf for all its rows,
+        a selection, so each row's own value), and one
+        ``level_assign_leaves`` call takes them all (one kernel launch on
+        the card for the cohort); the sparsity is (K,)."""
         if not self.fused:
             raise ValueError("compress_carry needs a fused stage chain")
         res = dict(items(residual))
@@ -107,23 +127,25 @@ class UpstreamStages:
         zeros, total = 0, 0
         for path, d in items(raw_delta):
             carried = d + res[path]
-            theta = sparsify_lib.leaf_threshold(carried, self.sparsify)
+            theta = sparsify_lib.leaf_threshold(carried, self.sparsify,
+                                                cohort=True)
+            flat = carried.reshape(carried.shape[0], -1)
             paths.append(path)
             deltas.append(d)
             residuals.append(res[path])
             thetas.append(theta)
             steps.append(self.quant.step_for(fine[path]))
-            zeros = zeros + (d.numel() - torch.count_nonzero(
-                (torch.abs(carried) >= theta) & (carried != 0)))
-            total += d.numel()
+            zeros = zeros + (flat.shape[1] - torch.count_nonzero(
+                (torch.abs(flat) >= theta[:, None]) & (flat != 0), dim=1))
+            total += flat.shape[1]
         levels, carries = level_assign_leaves(
-            deltas, residuals, torch.stack(thetas), steps,
+            deltas, residuals, torch.stack(thetas, dim=1), steps,
             max_level=self.quant.max_level)
         lv_by = dict(zip(paths, levels))
         carry_by = dict(zip(paths, carries))
         recon_by = {path: lv.to(torch.float32) * quant_lib.f32(step, lv)
                     for path, lv, step in zip(paths, levels, steps)}
-        sparsity = torch.as_tensor(zeros).to(torch.float32) / total
+        sparsity = zeros.to(torch.float32) / total
         return (rebuild(raw_delta, lv_by), rebuild(raw_delta, recon_by),
                 rebuild(raw_delta, carry_by), sparsity)
 

@@ -3,7 +3,8 @@
 Port of ``repro.core.fsfl``.  ``run_federated`` configures the engine for
 full participation, a FedAvg server with lr 1, the sync scheduler and wire
 schema v1 with the ``"auto"`` codec (nnc-cabac for quantizing protocols),
-and runs ``rounds`` rounds.  Clients run through the serial executor.
+and runs ``rounds`` rounds.  The clients train as one cohort, in one
+batched call a round (the vmap executor, the engine's default).
 With ``bidirectional`` the server's update is compressed for the broadcast
 too (§5.2), quantized with ``down_step_size``.
 """

@@ -16,6 +16,16 @@ Port of ``repro.core.protocol``.  One communication epoch for one client:
 The reference's ``lax.scan`` loops are plain Python loops here, and
 gradients come from ``torch.autograd.grad`` over the leaves of the
 parameter dict.
+
+``client_round`` trains one client.  ``client_round.cohort`` trains a
+cohort of K clients at once (the reference's ``jax.vmap`` of it, written
+with the cohort as an explicit leading axis of every tree): the model runs
+the clients side by side (``models.cnn``), the loss is the sum of the
+clients' mean losses, so each client's gradient is its own, Adam keeps a
+step count per client, one ``level_assign`` launch covers the cohort's
+leaves, and the Eq. 4 accept rule is a per-client ``torch.where`` with no
+host sync.  Per client it is the same protocol as ``client_round``, up to
+the summation order of the batched convolutions and products.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.models.cnn import CNNModel
 from repro_torch.optim import adam, apply_updates, sgd
 from repro_torch.optim import schedule as schedule_lib
-from repro_torch.tree import leaves, map_with_path, tree_map
+from repro_torch.tree import (leaves, map_with_path, per_row, row, stack,
+                              tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,22 +157,28 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
 
     # ------------------------------------------------------------- losses
 
+    # one client's trees and images, or a cohort's (every leaf and the
+    # images lead with K; the loss is then (K,), each client's mean)
+
     def logits_fn(params, scales, bn_state, x, train):
         # Eq. 4: the conv leaves are scaled here; the dense layers apply
         # their scales inside the product (scaled_matmul)
-        scaled = scaling_lib.apply_scales_tree(params, scales)
+        scaled = scaling_lib.apply_scales_tree(params, scales,
+                                               cohort=x.ndim == 5)
         return model.apply(scaled, bn_state, x, train=train, scales=scales)
 
     def loss_fn(params, scales, bn_state, x, y, train):
         logits, new_bn = logits_fn(params, scales, bn_state, x, train)
         logp = F.log_softmax(logits, dim=-1)
-        loss = torch.mean(-logp.gather(1, y[:, None])[:, 0])
-        return loss, new_bn
+        if y.ndim == 1:
+            return torch.mean(-logp.gather(1, y[:, None])[:, 0]), new_bn
+        return torch.mean(-logp.gather(2, y[..., None])[..., 0], dim=1), new_bn
 
     @torch.no_grad()
     def accuracy(params, scales, bn_state, x, y):
         logits, _ = logits_fn(params, scales, bn_state, x, train=False)
-        return torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
+        hits = (torch.argmax(logits, -1) == y).to(torch.float32)
+        return torch.mean(hits) if y.ndim == 1 else torch.mean(hits, dim=1)
 
     # ------------------------------------------------------------- init
 
@@ -272,9 +289,120 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
                 persistent.sched_step + cfg.scale_subepochs * sub_steps),
             metrics=metrics)
 
+    # ------------------------------------------------------------- cohort
+
+    def cohort_round(servers: ServerState, persistent: ClientPersistent,
+                     train_x, train_y, val_x, val_y,
+                     batch_idx) -> RoundOutput:
+        """``client_round`` for K clients at once: ``servers`` and
+        ``persistent`` are stacked trees (every leaf leads with K, each
+        row that client's server snapshot and state), the data (K, n, ...)
+        and ``batch_idx`` (K, steps, batch).  Returns the stacked
+        ``RoundOutput``."""
+        params0, scales0, bn0 = servers
+        k = train_x.shape[0]
+        template = row(params0, 0)        # masks read one client's shapes
+        t_mask = (None if cfg.trainable_predicate is None
+                  else trainable_mask(template, cfg.trainable_predicate))
+        s_mask = scaling_lib.scale_mask(template, scale_pred)
+        fine_mask = stages_lib.path_fine_mask(template)
+        rows = torch.arange(k, device=train_x.device)[:, None]
+
+        # ---- 2. local training of W (S frozen) --------------------------
+        params, bn, opt_state = params0, bn0, persistent.opt_state
+        losses = []
+        for t in range(batch_idx.shape[1]):
+            idx = batch_idx[:, t]
+            with torch.enable_grad():
+                p_req = _requiring_grad(params)
+                loss, new_bn = loss_fn(p_req, scales0, bn, train_x[rows, idx],
+                                       train_y[rows, idx], True)
+                grads = _grad_tree(torch.sum(loss), p_req)
+            if t_mask is not None:
+                grads = _mask_tree(grads, t_mask)
+            upd, opt_state = w_opt.update(grads, opt_state, params)
+            params = apply_updates(params, upd)
+            bn = tree_map(torch.Tensor.detach, new_bn)
+            losses.append(loss.detach())
+        params1, bn1 = params, bn
+
+        # ---- 3. codec stages: delta + error feedback + sparsify + quant --
+        raw_delta = stages_lib.extract_delta(params1, params0)
+        if cfg.error_feedback and up_stages.fused:
+            # one level_assign launch over the cohort's leaves
+            levels, recon_delta, new_residual, update_sparsity = (
+                up_stages.compress_carry_cohort(raw_delta,
+                                                persistent.residual,
+                                                fine_mask))
+        else:
+            # the unfused chain (structured rows, ternary, none), client
+            # by client
+            per = []
+            for i in range(k):
+                res_i = row(persistent.residual, i)
+                carried = stages_lib.carry_residual(
+                    row(raw_delta, i), res_i, cfg.error_feedback)
+                lv, rec, sparse = up_stages.compress(carried, fine_mask)
+                per.append((lv, rec, stages_lib.new_residual(
+                    carried, rec, cfg.error_feedback, res_i),
+                    sparsify_lib.tree_sparsity(sparse)))
+            levels, recon_delta, new_residual, update_sparsity = (
+                stack(list(part)) for part in zip(*per))
+        params_hat = delta_lib.tree_add(params0, recon_delta)
+
+        # ---- 4. scaling-factor sub-epochs, the accept rule per client ----
+        perf0 = accuracy(params_hat, scales0, bn1, val_x, val_y)
+        best_perf = perf0
+        scales1, sopt = scales0, persistent.scale_opt_state
+        best_epoch = torch.zeros_like(perf0)
+        if cfg.scaling:
+            scales = best_s = scales0
+            for epoch in range(1, cfg.scale_subepochs + 1):
+                for t in range(batch_idx.shape[1]):
+                    idx = batch_idx[:, t]
+                    with torch.enable_grad():
+                        s_req = _requiring_grad(scales)
+                        loss, _ = loss_fn(params_hat, s_req, bn1,
+                                          train_x[rows, idx],
+                                          train_y[rows, idx], False)
+                        g = _grad_tree(torch.sum(loss), s_req)
+                    g = _mask_tree(g, s_mask)
+                    upd, sopt = s_opt.update(g, sopt, scales)
+                    scales = apply_updates(scales, upd)
+                perf = accuracy(params_hat, scales, bn1, val_x, val_y)
+                better = perf >= best_perf
+                best_s = tree_map(
+                    lambda new, old: torch.where(per_row(better, new), new,
+                                                 old), scales, best_s)
+                best_perf = torch.where(better, perf, best_perf)
+                best_epoch = torch.where(better, float(epoch), best_epoch)
+            scales1 = best_s
+
+        # ---- 5. quantize the S delta (fine step size) --------------------
+        s_delta = delta_lib.tree_sub(scales1, scales0)
+        s_levels, s_recon = stages_lib.quantize_scales_delta(
+            s_delta, cfg.fine_step_size)
+
+        metrics = {
+            "train_loss": torch.mean(torch.stack(losses), dim=0),
+            "val_acc_unscaled": perf0,
+            "val_acc": best_perf,
+            "update_sparsity": update_sparsity,
+            "scale_epoch": best_epoch,
+        }
+        return RoundOutput(
+            levels_params=levels, levels_scales=s_levels,
+            recon_delta_params=recon_delta, recon_delta_scales=s_recon,
+            bn_state=bn1,
+            persistent=ClientPersistent(
+                new_residual, opt_state, sopt,
+                persistent.sched_step + cfg.scale_subepochs * sub_steps),
+            metrics=metrics)
+
     def evaluate(server: ServerState, x, y):
         return accuracy(server.params, server.scales, server.bn_state, x, y)
 
+    client_round.cohort = cohort_round
     return init, client_round, evaluate
 
 

@@ -47,21 +47,26 @@ def num_scale_params(scales: Any, mask: Any) -> int:
 
 
 def apply_scale(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """W*_m = W_m * s_m; a scalar placeholder broadcasts trivially."""
+    """W*_m = W_m * s_m; a scalar placeholder broadcasts trivially.  A
+    cohort's leaves lead with K: scales (K, O) scale w (K, O, ...) per
+    client and row, placeholders (K,) per client."""
     if s.ndim == 0:
         return w * s
-    return w * s.reshape((s.shape[0],) + (1,) * (w.ndim - 1)).to(w.dtype)
+    return w * s.reshape(tuple(s.shape) + (1,) * (w.ndim - s.ndim)).to(
+        w.dtype)
 
 
-def at_matmul(w: torch.Tensor, s: torch.Tensor) -> bool:
-    """A dense weight (N, K) with a per-row scale (N,): the models' dense
-    apply takes the scale inside its product (``kernels.scaled_matmul``)."""
-    return w.ndim == 2 and s.ndim == 1
+def at_matmul(w: torch.Tensor, s: torch.Tensor, cohort: bool = False) -> bool:
+    """A dense weight (N, K) with a per-row scale (N,) (a cohort's: (K, N,
+    C) with (K, N)): the models' dense apply takes the scale inside its
+    product (``kernels.scaled_matmul``)."""
+    return w.ndim == 2 + cohort and s.ndim == 1 + cohort
 
 
-def apply_scales_tree(params: Any, scales: Any) -> Any:
+def apply_scales_tree(params: Any, scales: Any, cohort: bool = False) -> Any:
     """Every leaf times its scale, except the dense leaves that
     ``at_matmul`` names: the model's dense apply takes those scales inside
-    its product, so they stay unscaled here."""
-    return tree_map(lambda w, s: w if at_matmul(w, s) else apply_scale(w, s),
-                    params, scales)
+    its product, so they stay unscaled here.  ``cohort``: every leaf leads
+    with the cohort axis."""
+    return tree_map(lambda w, s: w if at_matmul(w, s, cohort)
+                    else apply_scale(w, s), params, scales)

@@ -168,12 +168,24 @@ def one_threshold(cfg: SparsifyConfig) -> bool:
     return cfg.unstructured and not cfg.structured
 
 
-def leaf_threshold(dw: torch.Tensor, cfg: SparsifyConfig) -> torch.Tensor:
+def leaf_threshold(dw: torch.Tensor, cfg: SparsifyConfig,
+                   cohort: bool = False) -> torch.Tensor:
     """theta of a one-threshold config (:func:`one_threshold`) as a 0-d
     tensor on ``dw``'s device: ``sparsify(dw, cfg)`` is
-    ``where(|dw| >= theta, dw, 0)``."""
+    ``where(|dw| >= theta, dw, 0)``.  With ``cohort``, ``dw`` leads with
+    the cohort axis and theta is (K,), each row's own: the k-th largest
+    magnitude of every row in one ``topk`` (a selection, so the value of a
+    row's own), or Eq. 2 row by row."""
     if not one_threshold(cfg):
         raise ValueError("the structured stage has no single threshold")
+    if cohort:
+        if cfg.fixed_sparsity is not None:
+            flat = torch.abs(dw.reshape(dw.shape[0], -1))
+            k = keep_count(flat.shape[1], cfg.fixed_sparsity)
+            return torch.topk(flat, k, dim=1).values[:, -1]
+        return torch.stack([unstructured_threshold(d, cfg.delta,
+                                                   cfg.step_size)
+                            for d in dw])
     if cfg.fixed_sparsity is not None:
         return topk_threshold(dw, cfg.fixed_sparsity)
     return unstructured_threshold(dw, cfg.delta, cfg.step_size)

@@ -53,6 +53,7 @@ from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
                                    raw_bytes_per_client)
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
+from repro_torch.launch.mesh import device_count
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import not_ported, resolve_device
 from repro_torch.tree import leaves, row, tree_map
@@ -129,7 +130,6 @@ class RunResult:
 _NOT_PORTED_FIELDS = {
     "population": (None, "streaming ingest, population, telemetry"),
     "metrics_out": (None, "streaming ingest, population, telemetry"),
-    "mesh_shape": (None, "executors: vmap, sharded, dist"),
 }
 
 
@@ -147,7 +147,11 @@ class EngineConfig:
     codec: Any = "auto"                  # registry name | comms.Codec
     wire_schema: int = 1
     device_encode: bool = False          # cohort encode on the device
-    executor: str = "serial"
+    # cohort backend (fl.executors): "vmap" runs the cohort in one batched
+    # call, "serial" one client at a time, "sharded" the batched call in
+    # blocks over a 1-D device mesh (mesh_shape; None: every visible device)
+    executor: str = "vmap"
+    mesh_shape: tuple[int, ...] | None = None
     channel: ChannelConfig | None = None
     up_predicate: Callable | None = None  # wire leaf predicate (partial)
     uplink_workers: int = 0              # > 1: a pool of wire round trips
@@ -162,7 +166,6 @@ class EngineConfig:
     # accepted only at the reference's defaults (not ported yet)
     population: int | None = None
     metrics_out: str | None = None
-    mesh_shape: tuple[int, ...] | None = None
 
     def validate(self, num_clients: int | None = None) -> None:
         for name, (default, item) in _NOT_PORTED_FIELDS.items():
@@ -176,6 +179,21 @@ class EngineConfig:
             raise ValueError(f"unknown engine mode: {self.mode!r}")
         if self.executor not in EXECUTORS:
             raise ValueError(f"unknown executor: {self.executor!r}")
+        if self.mesh_shape is not None:
+            if self.executor != "sharded":
+                raise ValueError(
+                    f"mesh_shape configures the sharded cohort mesh; it has "
+                    f"no meaning for executor={self.executor!r}: drop it or "
+                    "set executor='sharded'")
+            if len(self.mesh_shape) != 1 or self.mesh_shape[0] < 1:
+                raise ValueError(
+                    f"mesh_shape must be a 1-D positive shape (the cohort "
+                    f"axis is the only sharded axis), got {self.mesh_shape!r}")
+            need, have = self.mesh_shape[0], device_count()
+            if need > have:
+                raise ValueError(
+                    f"mesh_shape {self.mesh_shape!r} needs {need} devices "
+                    f"but only {have} are visible")
         if self.sampling.strategy == "weighted":
             w = self.sampling.weights
             if w is None or (num_clients is not None
@@ -310,7 +328,9 @@ class FederatedEngine:
         self.cohort = CohortPlan(engine_cfg.sampling, self.num_clients)
         self.local_train = LocalTrain(
             client_round, splits, persistent0, self.num_clients,
-            cfg.batch_size, make_executor(engine_cfg.executor))
+            cfg.batch_size, make_executor(engine_cfg.executor,
+                                          mesh_shape=engine_cfg.mesh_shape,
+                                          device=self.device))
         self.uplink = Uplink(cfg, engine_cfg, server)
         self.aggregate = Aggregate(self.device, engine_cfg.measure_bytes,
                                    engine_cfg.wire_schema == 2)

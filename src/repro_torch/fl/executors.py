@@ -1,12 +1,35 @@
 """Cohort execution backends: how a batch of ``client_round`` calls runs.
 
-Port of ``repro.fl.executors`` (serial backend).  ``SerialExecutor`` runs
-one ``client_round`` per client and stacks the outputs on a leading client
-axis, the (K, ...) ``RoundOutput`` the uplink consumes: ``run_shared``
-against one server snapshot (a sync cohort), ``run_stacked`` each row
-against its own snapshot (an async dispatch window whose members started
-from different server versions).  The reference's tests hold its serial
-backend equal to the vmapped one within one quantization level.
+Port of ``repro.fl.executors`` (serial, vmap and sharded backends).  Every
+backend takes client-stacked inputs (leading axis = cohort) and returns
+the stacked (K, ...) ``RoundOutput`` the uplink consumes, through two
+entry points:
+
+* ``run_shared(server, ...)``: the whole batch against ONE server
+  snapshot (the sync cohort barrier);
+* ``run_stacked(servers, ...)``: row i against its own snapshot
+  ``servers[i]`` (an async dispatch window whose members started from
+  different server versions).
+
+The backends:
+
+* ``SerialExecutor``: one ``client_round`` per client, outputs stacked in
+  cohort order.  The reference the equivalence tests hold the others to,
+  and the backend the checks that record a client's steps hook.
+* ``VmapExecutor``, the engine default: the whole cohort in one call of
+  the round's cohort form (``client_round.cohort``, ``core.protocol``),
+  with the clients on an explicit leading axis of every tree, so each
+  kernel launches once a step for the cohort.  The reference's
+  ``jax.vmap``; ``run_shared`` broadcasts the server to the K rows,
+  ``run_stacked`` stacks the snapshots (the reference's stacked axes).
+* ``ShardedExecutor``: the vmap backend over a 1-D device mesh
+  (``launch.mesh.make_cohort_mesh``).  The cohort is padded to a multiple
+  of the mesh size by repeating its last row (``sampling.pad_clients``),
+  each contiguous block runs on its own device, and the outputs are
+  gathered to the inputs' device with the padded rows dropped.
+
+The multi-process ``"dist"`` backend is not ported: it builds on the
+population store.
 """
 from __future__ import annotations
 
@@ -14,12 +37,17 @@ from typing import Any
 
 import torch
 
+from repro_torch.fl.sampling import pad_clients
+from repro_torch.launch.mesh import make_cohort_mesh
+from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import not_ported
-from repro_torch.tree import row, tree_map
+from repro_torch.tree import row, stack, tree_map
 
 
-def _stack(outs: list[Any]) -> Any:
-    return tree_map(lambda *ls: torch.stack(ls), *outs)
+def _broadcast(server: Any, k: int) -> Any:
+    """One server snapshot as K rows, each its own copy."""
+    return tree_map(
+        lambda x: x.expand((k,) + tuple(x.shape)).contiguous(), server)
 
 
 class ClientExecutor:
@@ -48,24 +76,108 @@ class SerialExecutor(ClientExecutor):
         self.round = client_round
 
     def run_shared(self, server, pers, cx, cy, cvx, cvy, bidx):
-        return _stack([self.round(server, row(pers, i), cx[i], cy[i],
-                                  cvx[i], cvy[i], bidx[i])
-                       for i in range(cx.shape[0])])
+        with obs_trace.span("executor.run_shared", backend=self.name,
+                            n=int(cx.shape[0])):
+            return stack([self.round(server, row(pers, i), cx[i], cy[i],
+                                     cvx[i], cvy[i], bidx[i])
+                          for i in range(cx.shape[0])])
 
     def run_stacked(self, servers, pers, cx, cy, cvx, cvy, bidx):
-        return _stack([self.round(servers[i], row(pers, i), cx[i], cy[i],
-                                  cvx[i], cvy[i], bidx[i])
-                       for i in range(cx.shape[0])])
+        with obs_trace.span("executor.run_stacked", backend=self.name,
+                            n=int(cx.shape[0])):
+            return stack([self.round(servers[i], row(pers, i), cx[i],
+                                     cy[i], cvx[i], cvy[i], bidx[i])
+                          for i in range(cx.shape[0])])
+
+
+class VmapExecutor(ClientExecutor):
+    """The whole cohort in one call of the round's cohort form: the
+    engine default."""
+
+    name = "vmap"
+
+    def bind(self, client_round) -> None:
+        cohort = getattr(client_round, "cohort", None)
+        if cohort is None:
+            raise TypeError(f"the {self.name} executor runs a round's "
+                            f"cohort form (client_round.cohort); this round "
+                            f"has none")
+        self.cohort = cohort
+
+    def _run(self, servers, pers, cx, cy, cvx, cvy, bidx):
+        return self.cohort(servers, pers, cx, cy, cvx, cvy, bidx)
+
+    def run_shared(self, server, pers, cx, cy, cvx, cvy, bidx):
+        n = int(cx.shape[0])
+        with obs_trace.span("executor.run_shared", backend=self.name, n=n):
+            return self._run(_broadcast(server, n), pers, cx, cy, cvx, cvy,
+                             bidx)
+
+    def run_stacked(self, servers, pers, cx, cy, cvx, cvy, bidx):
+        with obs_trace.span("executor.run_stacked", backend=self.name,
+                            n=int(cx.shape[0])):
+            return self._run(stack(list(servers)), pers, cx, cy, cvx, cvy,
+                             bidx)
+
+
+class ShardedExecutor(VmapExecutor):
+    """The cohort form with the client axis split across a device mesh.
+
+    ``mesh`` is a list of devices, one block of the padded cohort each
+    (the same device may appear more than once); without it the mesh is
+    ``make_cohort_mesh(mesh_shape, device)``, by default every visible
+    CUDA device.  A block never runs on the CPU unless the mesh names it.
+    The padded rows compute a throwaway replica of the last client and are
+    dropped, so a ragged cohort behaves as on one device.  One host
+    thread drives the blocks one after another, so on several devices
+    they overlap only as far as a block's launches run ahead of the host
+    and of that block's host syncs."""
+
+    name = "sharded"
+
+    def __init__(self, mesh: list | None = None,
+                 mesh_shape: tuple[int, ...] | None = None,
+                 device: str | torch.device = "cuda"):
+        self.mesh = (list(mesh) if mesh is not None
+                     else make_cohort_mesh(mesh_shape, device))
+        if not self.mesh:
+            raise ValueError("a cohort mesh needs at least one device")
+        self.mesh = [torch.device(d) for d in self.mesh]
+        self.mesh_size = len(self.mesh)
+
+    def _run(self, servers, pers, cx, cy, cvx, cvy, bidx):
+        n = int(cx.shape[0])
+        per = -(-n // self.mesh_size)
+        trees = pad_clients((servers, pers, cx, cy, cvx, cvy, bidx),
+                            per * self.mesh_size)
+        home = cx.device
+        outs = []
+        for b, dev in enumerate(self.mesh):
+            block = tree_map(lambda x: x[b * per:(b + 1) * per].to(dev),
+                             trees)
+            outs.append(self.cohort(*block))
+        return tree_map(lambda *ls: torch.cat([x.to(home) for x in ls])[:n],
+                        *outs)
 
 
 EXECUTORS = ("serial", "vmap", "sharded", "dist")
 
+# the port-queue item the multi-process backend waits on (ROADMAP.md)
+DIST_ITEM = "dist executor and population store"
 
-def make_executor(name: str) -> ClientExecutor:
+
+def make_executor(name: str, *, mesh_shape: tuple[int, ...] | None = None,
+                  device: str | torch.device = "cuda") -> ClientExecutor:
+    """Build a backend by registry name (``EngineConfig.executor``);
+    ``mesh_shape`` and ``device`` (the engine's) place the sharded
+    backend's mesh."""
     if name == "serial":
         return SerialExecutor()
-    if name in EXECUTORS:
-        raise not_ported(f"executor {name!r}",
-                         "executors: vmap, sharded, dist")
+    if name == "vmap":
+        return VmapExecutor()
+    if name == "sharded":
+        return ShardedExecutor(mesh_shape=mesh_shape, device=device)
+    if name == "dist":
+        raise not_ported(f"executor {name!r}", DIST_ITEM)
     raise ValueError(f"unknown executor: {name!r} (known: "
                      f"{', '.join(EXECUTORS)})")

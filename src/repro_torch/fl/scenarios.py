@@ -1,10 +1,12 @@
 """Scenario registry: named, reproducible federated settings.
 
-Port of ``repro.fl.scenarios``: 30 of the reference's 35 scenarios, all
+Port of ``repro.fl.scenarios``: 31 of the reference's 35 scenarios, all
 but ``sync_full_fedavg_raw`` on the FSFL protocol (Table-2 row ``fsfl``,
-whose client runs the ``level_assign`` kernel once per client, over all
-its leaves).  The other 5 raise ``runtime.not_ported`` naming the port
-queue item they wait on (``NOT_PORTED``).
+whose cohort runs the ``level_assign`` kernel once a round, over all its
+clients' leaves).  The other 4 raise ``runtime.not_ported`` naming the
+port queue item they wait on (``NOT_PORTED``).  A scenario that names no
+executor trains its cohort, or an async window, in one batched call
+(``executor="vmap"``).
 
 * ``sync_full_fedavg_fsfl``: the paper's setting, all 8 clients, FedAvg,
   nnc-cabac payloads encoded per client on the host;
@@ -26,6 +28,8 @@ queue item they wait on (``NOT_PORTED``).
   4, each lost update re-injected into its client's residual (Eq. 5);
 * ``sync_full_fedavg_raw`` (protocol ``fedavg``, full float32 on the
   wire) and ``exec_serial_k4`` (the serial executor, cohorts of 4);
+* ``sharded_cohort_full``: the batched round over a 1-D mesh of every
+  visible device, one block of the cohort a device;
 * the FedOpt servers and weighted sampling over cohorts of 4:
   ``sync_k4_fedadam``, ``sync_k4_fedavgm``, ``sync_k4_fedadagrad``,
   ``sync_weighted_k4``;
@@ -36,7 +40,7 @@ queue item they wait on (``NOT_PORTED``).
   ``async_b2_m4_fedadam`` (buffer 2, FedAdam), ``bnwire_v2_async``
   (buffer 2, 3 concurrent, schema v2) and ``async_windowed_b4``
   (clients finishing within 0.5 s of each other train in one executor
-  call, ``SerialExecutor.run_stacked``);
+  call, ``VmapExecutor.run_stacked``);
 * the host uplink: ``uplink_pool_k8`` (fp16 round trips on a thread
   pool), ``cabac_fast_batch_k8`` and ``cabac_fast_pool_k8`` (nnc-cabac
   through the batch API in at most 2 tasks a cohort, on a thread or a
@@ -61,6 +65,7 @@ from repro_torch.core.protocol import ProtocolConfig, baseline_configs
 from repro_torch.data import federated, synthetic
 from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.engine import EngineConfig, RunResult, run_simulation
+from repro_torch.fl.executors import DIST_ITEM
 from repro_torch.fl.ingest import IngestConfig
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig
@@ -89,7 +94,8 @@ class Scenario:
     dispatch_window: float = 0.0    # async: batch same-window finishers
     bidirectional: bool = False
     rounds: int = 3
-    executor: str = "serial"
+    executor: str = "vmap"
+    mesh_shape: tuple[int, ...] | None = None   # sharded: 1-D cohort mesh
     codec: str = "auto"
     wire_schema: int = 1
     device_encode: bool = False
@@ -133,6 +139,7 @@ def build_engine(s: Scenario) -> EngineConfig:
                               dispatch_window=s.dispatch_window),
         bidirectional=s.bidirectional,
         executor=s.executor,
+        mesh_shape=s.mesh_shape,
         codec=s.codec,
         channel=s.channel,
         wire_schema=s.wire_schema,
@@ -193,8 +200,7 @@ def register(s: Scenario) -> Scenario:
 NOT_PORTED = {
     **{name: "streaming ingest, population, telemetry" for name in (
         "pop_100k_diurnal", "pop_1m_lazy_k32", "churn_midround_async")},
-    **{name: "executors: vmap, sharded, dist" for name in (
-        "sharded_cohort_full", "dist_cohort_full")},
+    "dist_cohort_full": DIST_ITEM,
 }
 
 
@@ -260,6 +266,11 @@ register(Scenario("sync_full_fedavg_raw",
 register(Scenario("exec_serial_k4",
                   "per-client execution of the sync cohort, cohorts of 4",
                   cohort_size=4, executor="serial"))
+register(Scenario("sharded_cohort_full",
+                  "cohort axis sharded across every visible device (the "
+                  "batched round in one block a device; ragged cohorts pad "
+                  "to the mesh size)",
+                  executor="sharded"))
 register(Scenario("sync_k4_fedadam",
                   "cohorts of 4 of 8, FedAdam server optimizer",
                   cohort_size=4, server_opt="fedadam", server_lr=1e-2))

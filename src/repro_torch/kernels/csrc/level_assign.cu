@@ -14,7 +14,10 @@
 // Two entry points.  `level_assign_launch` takes (rows, n) with one theta
 // and one step.  `level_assign_leaves_launch` takes a client's (or a
 // broadcast's) leaves in ONE launch, each leaf with its own theta (a
-// device array, one per leaf) and its own step (by value).
+// device array, one per leaf) and its own step (by value); or a cohort's:
+// each leaf stacked over the cohort's rows, one theta per row and leaf,
+// the rows on grid y, so the batched client round takes one launch for
+// all its clients where each client took one.
 //
 // Bound: device memory.  Each element reads d and r (8 bytes) and writes the
 // level and the carry (8 bytes): 16 bytes against about 8 float operations,
@@ -121,20 +124,27 @@ struct LeafTable {
   int leaves;
 };
 
+// Grid y is the cohort row z of `rows`: leaf l's input row at d[l] + z *
+// n[l], its outputs at rows * off[l] + z * n[l] (each leaf's rows
+// contiguous), its theta at thetas[z * th_stride + l].
 __global__ void level_assign_leaves_kernel(
     const __grid_constant__ LeafTable t, const float* __restrict__ thetas,
-    int* __restrict__ lv, float* __restrict__ carry, float max_level) {
+    int* __restrict__ lv, float* __restrict__ carry, float max_level,
+    int64_t th_stride) {
   const int b = static_cast<int>(blockIdx.x);
+  const int64_t z = blockIdx.y;
   int lo = 0, hi = t.leaves - 1;    // the last leaf starting at or before b
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
     if (t.chunk_start[mid] <= b) lo = mid;
     else hi = mid - 1;
   }
-  const int64_t off = t.off[lo];
-  assign_chunk(t.d[lo], t.r[lo], lv + off, carry + off,
+  const int64_t in = z * t.n[lo];
+  const int64_t off = static_cast<int64_t>(gridDim.y) * t.off[lo] + in;
+  assign_chunk(t.d[lo] + in, t.r[lo] + in, lv + off, carry + off,
                static_cast<int64_t>(b - t.chunk_start[lo]) * kTile, t.n[lo],
-               thetas[lo], t.step[lo], max_level, (t.vec >> lo) & 1ull);
+               thetas[z * th_stride + lo], t.step[lo], max_level,
+               (t.vec >> lo) & 1ull);
 }
 
 bool aligned16(const void* p) {
@@ -165,19 +175,22 @@ extern "C" int level_assign_launch(const void* d, const void* r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `leaves` (1 to 64) leaves in one launch.  d[l], r[l]: leaf l's n[l]
-// float32 inputs (device pointers); its levels and carry go to lv + off[l]
-// and carry + off[l] (off[l] a multiple of 4); step[l] its step; thetas
-// (device) holds one float32 per leaf; chunk_start (leaves + 1 entries,
-// from 0, non-decreasing) gives the first 1,024-element CTA of each leaf,
-// the last entry their total.  Launches on `stream`; returns
-// cudaGetLastError() (0 = launched).
+// `leaves` (1 to 64) leaves in one launch, over `rows` (1 to 65,535)
+// cohort rows.  d[l], r[l]: leaf l's rows x n[l] float32 inputs (device
+// pointers, row-major); its levels and carry go to the rows x n[l] block
+// at lv + rows * off[l] and carry + rows * off[l] (off[l] a multiple of
+// 4); step[l] its step; thetas (device) holds row z's theta of leaf l at
+// z * th_stride + l; chunk_start (leaves + 1 entries, from 0,
+// non-decreasing) gives the first 1,024-element CTA of each leaf's row, the
+// last entry their total.  Launches on `stream`; returns cudaGetLastError()
+// (0 = launched).
 extern "C" int level_assign_leaves_launch(
     int leaves, const uint64_t* d, const uint64_t* r, const int64_t* n,
     const int64_t* off, const float* step, const int* chunk_start,
-    const void* thetas, void* lv, void* carry, float max_level,
-    void* stream) {
-  if (leaves < 1 || leaves > kMaxLeaves || chunk_start[0] != 0)
+    const void* thetas, void* lv, void* carry, float max_level, int rows,
+    int64_t th_stride, void* stream) {
+  if (leaves < 1 || leaves > kMaxLeaves || chunk_start[0] != 0 || rows < 1
+      || rows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   LeafTable t{};
   t.leaves = leaves;
@@ -193,14 +206,18 @@ extern "C" int level_assign_leaves_launch(
     t.off[l] = off[l];
     t.step[l] = step[l];
     t.chunk_start[l] = chunk_start[l];
-    if (out16 && aligned16(t.d[l]) && aligned16(t.r[l])) t.vec |= 1ull << l;
+    // every row of the leaf starts 16-byte aligned
+    if (out16 && aligned16(t.d[l]) && aligned16(t.r[l])
+        && (rows == 1 || n[l] % kVec == 0))
+      t.vec |= 1ull << l;
   }
   t.chunk_start[leaves] = chunk_start[leaves];
   if (chunk_start[leaves] < 1) return static_cast<int>(cudaErrorInvalidValue);
-  level_assign_leaves_kernel<<<static_cast<unsigned>(chunk_start[leaves]),
-                               kThreads, 0,
+  const dim3 grid(static_cast<unsigned>(chunk_start[leaves]),
+                  static_cast<unsigned>(rows));
+  level_assign_leaves_kernel<<<grid, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<const float*>(thetas), static_cast<int*>(lv),
-      static_cast<float*>(carry), max_level);
+      static_cast<float*>(carry), max_level, th_stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,6 +46,12 @@
 //   one grid, and every CTA reads its role from its index.  The parts of a
 //   backward share dy through L2: their tiles cut dy along different axes
 //   (dx by rows of M, dw and ds by columns of N), so no CTA holds both.
+// * One launch per cohort: the batched client round stacks its clients'
+//   operands along a leading axis (x (K, M, Kin), W (K, N, Kin), s (K, N)),
+//   and grid y runs over those K rows, each CTA offsetting its pointers by
+//   its row.  Per row the arithmetic is that of a launch over the row
+//   alone, so a cohort of 8 takes one launch a dense layer and step where
+//   the clients took 8.
 //
 // Each output is one fmaf chain over the reduction in order, from 0, and ds
 // adds each column's 8 row partials in order in shared memory: the float
@@ -87,12 +93,14 @@ __host__ __device__ inline int chunk_len(int64_t r, int64_t walks) {
 }
 
 // A matrix operand of C = A B^T: element (t, r), t an output index and r
-// the reduction index, at p[t * ld + r] (kmajor) or p[r * ld + t].
+// the reduction index, at p[t * ld + r] (kmajor) or p[r * ld + t]; the
+// matrix of cohort row z starts at p + z * bs.
 struct Operand {
   const float* p;
   int64_t ld;
+  int64_t bs;
   int kmajor;
-  int vec;      // 16-byte copies: p 16-byte aligned and ld % 4 == 0
+  int vec;      // 16-byte copies: p 16-byte aligned, ld and bs % 4 == 0
 };
 
 __host__ __device__ inline int panel_floats(int t, int kmajor, int c) {
@@ -100,7 +108,8 @@ __host__ __device__ inline int panel_floats(int t, int kmajor, int c) {
 }
 
 // C (P, Q) row-major = A B^T over R; A's column r is scaled by a_scale[r]
-// before the product, the result by col_scale[j] or row_scale[i].
+// before the product, the result by col_scale[j] or row_scale[i].  Cohort
+// row z reads the scale vectors from z * sbs on and writes C at z * P * Q.
 struct Product {
   Operand a, b;
   const float* a_scale;
@@ -108,6 +117,7 @@ struct Product {
   const float* row_scale;
   float* c;
   int64_t P, Q, R;
+  int64_t sbs;
   int big;      // 32 x 32 output tiles, else 16 x 16
   int ctas;
 };
@@ -117,7 +127,7 @@ struct Product {
 struct Ds {
   Operand x, w;       // both (rows, K) row-major
   Operand dy;         // dy (M, N) row-major as an index-contiguous panel
-  float* ds;
+  float* ds;          // cohort row z's at ds + z * N
   int64_t M, N, K;
   int ctas;
 };
@@ -423,30 +433,54 @@ __device__ void run_ds(const Ds& d, int cta, float* smem) {
   }
 }
 
+// The operand of cohort row z.
+__device__ __forceinline__ Operand at_row(Operand op, int64_t z) {
+  op.p += z * op.bs;
+  return op;
+}
+
+// Grid y is the cohort: CTA (b, z) does CTA b's work on cohort row z, the
+// same operations in the same order as a launch over that row alone.
 __global__ void __launch_bounds__(kThreads)
     scaled_matmul_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = static_cast<int>(blockIdx.x);
+  const int64_t z = blockIdx.y;
   for (int k = 0; k < p.nprod; ++k) {
     if (b < p.start[k] + p.prod[k].ctas) {
-      if (p.prod[k].big)
-        run_product<32, 32, 2, 2>(p.prod[k], b - p.start[k], smem);
+      Product pr = p.prod[k];
+      pr.a = at_row(pr.a, z);
+      pr.b = at_row(pr.b, z);
+      if (pr.a_scale != nullptr) pr.a_scale += z * pr.sbs;
+      if (pr.col_scale != nullptr) pr.col_scale += z * pr.sbs;
+      if (pr.row_scale != nullptr) pr.row_scale += z * pr.sbs;
+      pr.c += z * pr.P * pr.Q;
+      if (pr.big)
+        run_product<32, 32, 2, 2>(pr, b - p.start[k], smem);
       else
-        run_product<16, 16, 1, 1>(p.prod[k], b - p.start[k], smem);
+        run_product<16, 16, 1, 1>(pr, b - p.start[k], smem);
       return;
     }
   }
-  run_ds<kDsRows, kDsCols, 4, 1>(p.ds, b - p.start[p.nprod], smem);
+  Ds d = p.ds;
+  d.x = at_row(d.x, z);
+  d.w = at_row(d.w, z);
+  d.dy = at_row(d.dy, z);
+  d.ds += z * d.N;
+  run_ds<kDsRows, kDsCols, 4, 1>(d, b - p.start[p.nprod], smem);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-Operand operand(const void* p, int64_t ld, int kmajor) {
-  return Operand{static_cast<const float*>(p), ld, kmajor,
-                 aligned16(p) && ld % 4 == 0};
+// A (rows, ld) row-major operand, one such matrix every bs floats along
+// the cohort (bs unused for a cohort of one).
+Operand operand(const void* p, int64_t ld, int64_t bs, int64_t batch,
+                int kmajor) {
+  return Operand{static_cast<const float*>(p), ld, bs, kmajor,
+                 aligned16(p) && ld % 4 == 0 && (batch == 1 || bs % 4 == 0)};
 }
 
 // Fills the tile size and CTA count of `pr`; returns its shared memory in
@@ -471,7 +505,7 @@ int64_t plan_ds(Ds* d) {
   return (kDsRows / 4) * kDsCols + (steps > 1 ? 2 : 1) * ds_stage(c);
 }
 
-int launch(Params& p, int64_t smem_floats, void* stream) {
+int launch(Params& p, int64_t smem_floats, int64_t batch, void* stream) {
   int64_t total = 0;
   for (int k = 0; k < p.nprod; ++k) {
     if (p.prod[k].ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -484,41 +518,48 @@ int launch(Params& p, int64_t smem_floats, void* stream) {
     total += p.ds.ctas;
   }
   const int64_t bytes = smem_floats * static_cast<int64_t>(sizeof(float));
-  if (total < 1 || total > 0x7fffffff || bytes > 48 * 1024)
+  if (total < 1 || total > 0x7fffffff || bytes > 48 * 1024 || batch < 1
+      || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  scaled_matmul_kernel<<<static_cast<unsigned>(total), kThreads,
-                         static_cast<size_t>(bytes),
+  const dim3 grid(static_cast<unsigned>(total), static_cast<unsigned>(batch));
+  scaled_matmul_kernel<<<grid, kThreads, static_cast<size_t>(bytes),
                          static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// All matrices float32, row-major and contiguous; x (m, k), w (n, k),
-// s (n,), dy (m, n).  Each launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// All matrices float32, row-major and contiguous, one of each shape for
+// every row of a cohort of `batch` (1 to 65,535), stacked along a leading
+// axis: x (batch, m, k), w (batch, n, k), s (batch, n), dy (batch, m, n).
+// One launch covers the cohort, its rows on grid y.  Each launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 
-// y (m, n) = x @ (s * w)^T, the scale applied to the accumulator.
+// y (batch, m, n) = x @ (s * w)^T per row, the scale applied to the
+// accumulator.
 extern "C" int scaled_matmul_forward(const void* x, const void* w,
-                                     const void* s, void* y, int64_t m,
-                                     int64_t n, int64_t k, void* stream) {
+                                     const void* s, void* y, int64_t batch,
+                                     int64_t m, int64_t n, int64_t k,
+                                     void* stream) {
   if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.nprod = 1;
-  p.prod[0] = Product{operand(x, k, 1), operand(w, k, 1), nullptr,
+  p.prod[0] = Product{operand(x, k, m * k, batch, 1),
+                      operand(w, k, n * k, batch, 1), nullptr,
                       static_cast<const float*>(s), nullptr,
-                      static_cast<float*>(y), m, n, k, 0, 0};
-  return launch(p, plan_product(&p.prod[0]), stream);
+                      static_cast<float*>(y), m, n, k, n, 0, 0};
+  return launch(p, plan_product(&p.prod[0]), batch, stream);
 }
 
-// The gradients whose output pointer is not null, in one launch:
+// The gradients whose output pointer is not null, in one launch, per row:
 // dx (m, k) = (dy * s) @ w, dw (n, k) = s * (dy^T @ x) and
 // ds (n,) = column sums of dy * (x @ w^T).  x is read only for dw and ds,
 // s only for dx and dw.
 extern "C" int scaled_matmul_backward(const void* dy, const void* x,
                                       const void* w, const void* s, void* dx,
-                                      void* dw, void* ds, int64_t m,
-                                      int64_t n, int64_t k, void* stream) {
+                                      void* dw, void* ds, int64_t batch,
+                                      int64_t m, int64_t n, int64_t k,
+                                      void* stream) {
   if (m < 1 || n < 1 || k < 1 || (!dx && !dw && !ds))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -526,24 +567,27 @@ extern "C" int scaled_matmul_backward(const void* dy, const void* x,
   const float* sf = static_cast<const float*>(s);
   if (dx != nullptr) {
     Product& pr = p.prod[p.nprod++];
-    pr = Product{operand(dy, n, 1), operand(w, k, 0), sf, nullptr, nullptr,
-                 static_cast<float*>(dx), m, k, n, 0, 0};
+    pr = Product{operand(dy, n, m * n, batch, 1),
+                 operand(w, k, n * k, batch, 0), sf, nullptr, nullptr,
+                 static_cast<float*>(dx), m, k, n, n, 0, 0};
     const int64_t f = plan_product(&pr);
     smem = f > smem ? f : smem;
   }
   if (dw != nullptr) {
     Product& pr = p.prod[p.nprod++];
-    pr = Product{operand(dy, n, 0), operand(x, k, 0), nullptr, nullptr, sf,
-                 static_cast<float*>(dw), n, k, m, 0, 0};
+    pr = Product{operand(dy, n, m * n, batch, 0),
+                 operand(x, k, m * k, batch, 0), nullptr, nullptr, sf,
+                 static_cast<float*>(dw), n, k, m, n, 0, 0};
     const int64_t f = plan_product(&pr);
     smem = f > smem ? f : smem;
   }
   if (ds != nullptr) {
     p.has_ds = 1;
-    p.ds = Ds{operand(x, k, 1), operand(w, k, 1), operand(dy, n, 0),
-              static_cast<float*>(ds), m, n, k, 0};
+    p.ds = Ds{operand(x, k, m * k, batch, 1), operand(w, k, n * k, batch, 1),
+              operand(dy, n, m * n, batch, 0), static_cast<float*>(ds), m, n,
+              k, 0};
     const int64_t f = plan_ds(&p.ds);
     smem = f > smem ? f : smem;
   }
-  return launch(p, smem, stream);
+  return launch(p, smem, batch, stream);
 }

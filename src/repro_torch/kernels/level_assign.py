@@ -19,11 +19,16 @@ step (by value, the float32 of ``quant.f32``), in one launch per
 ``MAX_LEAVES`` leaves; its plain version is the loop of
 ``level_assign_plain`` over the leaves.  The client round and the
 downlink call it once per client and per broadcast
-(``comms.stages.UpstreamStages.compress_carry``).
+(``comms.stages.UpstreamStages.compress_carry``).  Given a (K, L) theta
+tensor it takes a cohort's leaves instead, each stacked over the K
+clients, one theta per client and leaf: one launch for the cohort, its
+rows on the grid's y axis, each row bitwise the launch over that row
+alone, each leaf's rows one contiguous (K, ...) block of the outputs
+(``compress_carry_cohort``, the batched client round).
 
 ``LAUNCHES`` counts kernel launches (only where the CUDA kernel is
 launched); ``CALLS`` counts the function as the plain version applies it,
-once per (K, n) call and once per leaf, on any device.
+once per (K, n) call and once per leaf (and cohort row), on any device.
 """
 from __future__ import annotations
 
@@ -96,6 +101,13 @@ def level_assign_plain(deltas: torch.Tensor, residuals: torch.Tensor,
     # reconstruction, as ``quant.dequantize``
     wide = carried.dtype
     th = _scalar(theta, dev, wide)
+    return _assign(carried, th, step, max_level)
+
+
+def _assign(carried, th, step, max_level: int):
+    """Threshold, quantize and carry of ``carried`` (K, n) with ``th`` of
+    one element or (K, 1), one threshold a row."""
+    dev, wide = carried.device, carried.dtype
     st, st32 = _scalar(step, dev, wide), _scalar(step, dev)
     kept = torch.where(torch.abs(carried) >= th, carried, 0.0)
     lv = torch.clamp(torch.round(kept / st), -max_level, max_level)
@@ -105,11 +117,22 @@ def level_assign_plain(deltas: torch.Tensor, residuals: torch.Tensor,
 def level_assign_leaves_plain(deltas, residuals, thetas: torch.Tensor,
                               steps, max_level: int = MAX_LEVEL):
     """The grouped function in tensor ops: ``level_assign_plain`` on each
-    leaf, flattened to one row, with its own theta and step."""
+    leaf, flattened to one row, with its own theta and step; with (K, L)
+    thetas, each leaf's K rows, row k with its theta ``thetas[k, l]``."""
     levels, carries = [], []
-    for d, r, theta, step in zip(deltas, residuals, thetas, steps):
-        lv, c = level_assign_plain(d.reshape(1, -1), r.reshape(1, -1), theta,
-                                   step, max_level)
+    cohort = thetas.ndim == 2
+    for i, (d, r, step) in enumerate(zip(deltas, residuals, steps)):
+        if cohort:
+            k = d.shape[0]
+            carried = d.reshape(k, -1) + r.reshape(k, -1)
+            if carried.numel() == 0:
+                lv, c = _empty(k, carried.shape[1], d.device)
+            else:
+                lv, c = _assign(carried, thetas[:, i].to(
+                    carried.dtype).reshape(k, 1), step, max_level)
+        else:
+            lv, c = level_assign_plain(d.reshape(1, -1), r.reshape(1, -1),
+                                       thetas[i], step, max_level)
         levels.append(lv.reshape(d.shape))
         carries.append(c.reshape(d.shape))
     return levels, carries
@@ -134,7 +157,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.level_assign_leaves_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -188,10 +211,18 @@ def level_assign(deltas: torch.Tensor, residuals: torch.Tensor, theta, step,
 
 def _launch_leaves(deltas, residuals, thetas, steps, max_level: int):
     dev = deltas[0].device
-    sizes = [d.numel() for d in deltas]
+    cohort = thetas.ndim == 2
+    rows = thetas.shape[0] if cohort else 1
+    if rows > 65535:
+        raise ValueError(f"at most 65535 cohort rows a launch, got {rows}")
+    sizes = [d[0].numel() if cohort and rows else d.numel() for d in deltas]
     offsets, total = leaf_offsets(sizes)
-    levels = torch.empty(total, dtype=torch.int32, device=dev)
-    carry = torch.empty(total, dtype=torch.float32, device=dev)
+    # each leaf's rows in one contiguous block, (K, ...) as the leaf
+    blocks = [rows * o for o in offsets]
+    levels = torch.empty(rows * total, dtype=torch.int32, device=dev)
+    carry = torch.empty(rows * total, dtype=torch.float32, device=dev)
+    if rows == 0:
+        return views(levels, blocks, deltas), views(carry, blocks, deltas)
     ds = [d.contiguous() for d in deltas]
     rs = [r.contiguous() for r in residuals]
     th = thetas.contiguous()
@@ -209,13 +240,13 @@ def _launch_leaves(deltas, residuals, thetas, steps, max_level: int):
                 array(ctypes.c_int64, offsets[lo:hi]),
                 array(ctypes.c_float, steps[lo:hi]),
                 array(ctypes.c_int, starts), th.data_ptr() + 4 * lo,
-                levels.data_ptr(), carry.data_ptr(), float(max_level),
-                stream)
+                levels.data_ptr(), carry.data_ptr(), float(max_level), rows,
+                len(deltas), stream)
             if err:
                 raise RuntimeError(f"level_assign kernel launch failed: "
                                    f"CUDA error {err}")
             LAUNCHES["level_assign"] += 1
-    return views(levels, offsets, deltas), views(carry, offsets, deltas)
+    return views(levels, blocks, deltas), views(carry, blocks, deltas)
 
 
 def level_assign_leaves(deltas, residuals, thetas: torch.Tensor, steps, *,
@@ -225,15 +256,20 @@ def level_assign_leaves(deltas, residuals, thetas: torch.Tensor, steps, *,
     float32 (L,) tensor beside them, ``steps`` L floats.  Returns (levels
     int32, carry float32), two lists of tensors shaped as the leaves; on
     the card they are views of two flat buffers, from one launch per
-    ``MAX_LEAVES`` leaves."""
+    ``MAX_LEAVES`` leaves.  With ``thetas`` (K, L), every leaf is a
+    cohort's, (K, ...), and row k of leaf l takes ``thetas[k, l]``: on the
+    card one launch per ``MAX_LEAVES`` leaves for the whole cohort."""
     deltas, residuals, steps = list(deltas), list(residuals), [
         float(s) for s in steps]
     if not len(deltas) == len(residuals) == len(steps):
         raise ValueError(f"level_assign_leaves takes as many residuals and "
                          f"steps as deltas, got {len(deltas)}, "
                          f"{len(residuals)} and {len(steps)}")
-    if thetas.shape != (len(deltas),):
-        raise ValueError(f"thetas must have shape ({len(deltas)},), got "
+    if thetas.ndim not in (1, 2) or thetas.shape[-1] != len(deltas) or (
+            thetas.ndim == 2 and any(d.ndim == 0 or d.shape[0]
+                                     != thetas.shape[0] for d in deltas)):
+        raise ValueError(f"thetas must have shape ({len(deltas)},), or (K, "
+                         f"{len(deltas)}) beside leaves of K rows, got "
                          f"{tuple(thetas.shape)}")
     tensors = deltas + residuals + [thetas]
     _check_dtypes("level_assign_leaves", tensors, thetas.device)
@@ -246,7 +282,8 @@ def level_assign_leaves(deltas, residuals, thetas: torch.Tensor, steps, *,
                              f"residual of shape {tuple(r.shape)}")
     if not 0 < max_level <= 2**24:
         raise ValueError(f"max_level must be in (0, 2**24], got {max_level}")
-    CALLS["level_assign"] += len(deltas)
+    CALLS["level_assign"] += len(deltas) * (
+        thetas.shape[0] if thetas.ndim == 2 else 1)
     if thetas.device.type == "cpu":
         return level_assign_leaves_plain(deltas, residuals, thetas, steps,
                                          max_level)

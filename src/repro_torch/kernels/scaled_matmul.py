@@ -4,6 +4,10 @@ backward:
 
     y = x @ (s * W)^T          x (M, K), W (N, K), s (N,) -> (M, N)
 
+or, for a cohort of B clients stacked on a leading axis, the same per row:
+x (B, M, K), W (B, N, K), s (B, N) -> (B, M, N), one launch for the cohort
+(the batched client round of ``fl.executors.VmapExecutor``).
+
 ``scaled_matmul`` is a ``torch.autograd.Function``.  Its forward launches
 one hand-written CUDA kernel of ``csrc/scaled_matmul.cu`` on CUDA tensors,
 and so does its backward, which computes in that one launch the gradients
@@ -25,8 +29,9 @@ On the port's path every dense layer of the client round and of the
 server's evaluation calls it (``models.cnn.dense_apply``).
 
 ``LAUNCHES`` counts kernel launches, ``forward`` and ``backward`` (only
-where a CUDA kernel is launched); ``CALLS`` counts the products computed
-per direction (forward, dx, dw, ds) on any device.
+where a CUDA kernel is launched; a cohort's is one); ``CALLS`` counts the
+products computed per direction (forward, dx, dw, ds) on any device, one
+per cohort row.
 """
 from __future__ import annotations
 
@@ -50,30 +55,32 @@ def reset_counters() -> None:
 
 # ------------------------------------------------------------ plain versions
 
+# each takes one product (2-D operands) or a cohort's (3-D, row by row)
+
 def scaled_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                         s: torch.Tensor) -> torch.Tensor:
     """``x @ (s * W)^T``: the weight scaled first, as the reference's
     oracle."""
-    return x @ (w * s[:, None]).T
+    return x @ (w * s[..., None]).transpose(-1, -2)
 
 
 def dx_plain(dy: torch.Tensor, w: torch.Tensor,
              s: torch.Tensor) -> torch.Tensor:
     """d x of ``x @ (s * W)^T``: ``dy @ (s * W)``."""
-    return dy @ (w * s[:, None])
+    return dy @ (w * s[..., None])
 
 
 def dw_plain(dy: torch.Tensor, x: torch.Tensor,
              s: torch.Tensor) -> torch.Tensor:
     """d W: ``s * (dy^T @ x)``."""
-    return (dy.T @ x) * s[:, None]
+    return (dy.transpose(-1, -2) @ x) * s[..., None]
 
 
 def ds_plain(dy: torch.Tensor, x: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
     """d s: the row sums of ``(dy^T @ x) * W``, which are ``sum_m dy[m, n]
     (x W^T)[m, n]``."""
-    return torch.sum((dy.T @ x) * w, dim=1)
+    return torch.sum((dy.transpose(-1, -2) @ x) * w, dim=-1)
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -82,12 +89,12 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("scaled_matmul")
     fn = lib.scaled_matmul_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     fn = lib.scaled_matmul_backward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -115,19 +122,26 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _batch(t: torch.Tensor) -> tuple[int, tuple]:
+    """A cohort's row count (1 for a 2-D operand) and its leading shape."""
+    return (t.shape[0], t.shape[:1]) if t.ndim == 3 else (1, ())
+
+
 def forward(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
-    CALLS["forward"] += 1
+    b, lead = _batch(x)
+    CALLS["forward"] += b
     if _on_cpu(x.device):
         return scaled_matmul_plain(x, w, s)
-    (m, k), n = x.shape, w.shape[0]
-    if min(m, n, k) == 0:     # an empty sum: nothing to launch
-        return torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    (m, k), n = x.shape[-2:], w.shape[-2]
+    if min(b, m, n, k) == 0:     # an empty sum: nothing to launch
+        return torch.zeros(lead + (m, n), dtype=torch.float32,
+                           device=x.device)
     x, w, s = x.contiguous(), w.contiguous(), s.contiguous()
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    y = torch.empty(lead + (m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().scaled_matmul_forward(
-            x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), m, n, k,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), b, m, n,
+            k, torch.cuda.current_stream(x.device).cuda_stream)
     _check("forward", err)
     return y
 
@@ -135,12 +149,14 @@ def forward(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor):
 def backward(dy: torch.Tensor, x, w, s, need_x: bool, need_w: bool,
              need_s: bool):
     """``(dx, dW, ds)`` of ``x @ (s * W)^T`` for the upstream gradient
-    ``dy`` (M, N), each None unless asked for; on the card one launch
-    computes all that are.  ``x`` (M, K) is read only for dW and ds, ``s``
-    only for dx and dW, so either may be None where it is not."""
+    ``dy`` (M, N), or (B, M, N) for a cohort, each None unless asked for;
+    on the card one launch computes all that are.  ``x`` (M, K) is read
+    only for dW and ds, ``s`` only for dx and dW, so either may be None
+    where it is not."""
+    b, lead = _batch(dy)
     asked = {"dx": need_x, "dw": need_w, "ds": need_s}
     for d, need in asked.items():
-        CALLS[d] += int(need)
+        CALLS[d] += b * int(need)
     if _on_cpu(dy.device):
         # a float32 s beside float64 x and W (the reference's pinned
         # scales under x64): its gradient in float32, as autograd's
@@ -148,11 +164,12 @@ def backward(dy: torch.Tensor, x, w, s, need_x: bool, need_w: bool,
                 dw_plain(dy, x, s) if need_w else None,
                 ds_plain(dy, x, w).to(dy.dtype if s is None else s.dtype)
                 if need_s else None)
-    (m, n), k = dy.shape, (w if w is not None else x).shape[1]
+    (m, n), k = dy.shape[-2:], (w if w is not None else x).shape[-1]
     shapes = {"dx": (m, k), "dw": (n, k), "ds": (n,)}
-    out = {d: torch.empty(shapes[d], dtype=torch.float32, device=dy.device)
+    out = {d: torch.empty(lead + shapes[d], dtype=torch.float32,
+                          device=dy.device)
            if need else None for d, need in asked.items()}
-    if not any(asked.values()) or min(m, n, k) == 0:   # nothing to launch
+    if not any(asked.values()) or min(b, m, n, k) == 0:   # nothing to launch
         return tuple(o.zero_() if o is not None else None
                      for o in out.values())
     dy, x, w, s = (t.contiguous() if t is not None else None
@@ -160,7 +177,7 @@ def backward(dy: torch.Tensor, x, w, s, need_x: bool, need_w: bool,
     with torch.cuda.device(dy.device):
         err = _lib().scaled_matmul_backward(
             dy.data_ptr(), _ptr(x), _ptr(w), _ptr(s), _ptr(out["dx"]),
-            _ptr(out["dw"]), _ptr(out["ds"]), m, n, k,
+            _ptr(out["dw"]), _ptr(out["ds"]), b, m, n, k,
             torch.cuda.current_stream(dy.device).cuda_stream)
     _check("backward", err)
     return tuple(out.values())
@@ -201,12 +218,19 @@ class ScaledMatmul(torch.autograd.Function):
 def scaled_matmul(x: torch.Tensor, w: torch.Tensor,
                   s: torch.Tensor) -> torch.Tensor:
     """x (M, K), w (N, K), s (N,) float32 on one device -> (M, N) float32
-    ``x @ (s * W)^T``, differentiable in all three."""
-    if x.ndim != 2 or w.ndim != 2 or s.shape != (w.shape[0],) or (
-            x.shape[1] != w.shape[1]):
+    ``x @ (s * W)^T``, differentiable in all three; or a cohort's, x (B, M,
+    K), w (B, N, K), s (B, N) -> (B, M, N), in one launch each way."""
+    lead = x.shape[:-2]
+    if x.ndim not in (2, 3) or w.ndim != x.ndim or s.ndim != x.ndim - 1 or (
+            w.shape[:-2] != lead or s.shape[:-1] != lead
+            or s.shape[-1] != w.shape[-2] or x.shape[-1] != w.shape[-1]):
         raise ValueError(f"scaled_matmul takes x (M, K), w (N, K) and s "
-                         f"(N,), got {tuple(x.shape)}, {tuple(w.shape)} and "
+                         f"(N,), or x (B, M, K), w (B, N, K) and s (B, N), "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)} and "
                          f"{tuple(s.shape)}")
+    if x.ndim == 3 and x.shape[0] > 65535:
+        raise ValueError(f"at most 65535 cohort rows a launch, got "
+                         f"{x.shape[0]}")
     cpu_wide = (x.device.type == "cpu" and x.dtype == w.dtype
                 and x.dtype.is_floating_point
                 and s.dtype in (torch.float32, x.dtype))

@@ -1,0 +1,52 @@
+"""The cohort mesh of the sharded executor.
+
+Port of ``repro.launch.mesh.make_cohort_mesh``: a 1-D mesh over the
+federated cohort axis.  Where the reference builds a ``jax`` mesh, the
+port's mesh is the list of ``torch.device``s the cohort's blocks run on,
+one block a device (``fl.executors.ShardedExecutor``).  The production and
+multi-host meshes are not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def device_count() -> int:
+    """Devices a cohort mesh may span: the visible CUDA devices, or the
+    CPU alone where there is none."""
+    return torch.cuda.device_count() or 1
+
+
+def make_cohort_mesh(mesh_shape: tuple[int, ...] | None = None,
+                     device: str | torch.device = "cuda"
+                     ) -> list[torch.device]:
+    """1-D mesh over the cohort axis on ``device``'s platform.
+
+    For CUDA, ``mesh_shape=None`` takes every visible device; an explicit
+    shape must be 1-D and fit the visible device count (the first ones).
+    For the CPU, which is one device, the mesh is the CPU, ``mesh_shape``
+    (1,) or None; a caller who wants the CPU named more than once (to
+    shard a cohort into blocks on one host) passes its own list to the
+    executor."""
+    platform = torch.device(device).type
+    if mesh_shape is not None and (len(mesh_shape) != 1
+                                   or mesh_shape[0] < 1):
+        raise ValueError(f"cohort mesh is 1-D (the client axis); got shape "
+                         f"{mesh_shape!r}")
+    if platform == "cuda":
+        have = torch.cuda.device_count()
+        if have == 0:
+            raise RuntimeError("a CUDA cohort mesh needs a visible CUDA "
+                               "device, and there is none")
+        devices = [torch.device("cuda", i) for i in range(have)]
+    elif platform == "cpu":
+        devices = [torch.device("cpu")]
+    else:
+        raise ValueError(f"unsupported device {device!s}: use 'cuda' or "
+                         f"'cpu'")
+    need = len(devices) if mesh_shape is None else mesh_shape[0]
+    if need > len(devices):
+        raise ValueError(f"mesh_shape {mesh_shape!r} needs {need} devices "
+                         f"but {len(devices)} {platform} devices are "
+                         f"visible")
+    return devices[:need]

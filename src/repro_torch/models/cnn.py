@@ -13,6 +13,15 @@ Conventions as in the reference:
   variance and updates the running stats as ``0.9*old + 0.1*batch``;
   ``train=False`` uses (and keeps) the running stats, which is how
   Algorithm 1 freezes BN during scale training.
+
+The same applies take a cohort of K clients (the batched client round of
+``fl.executors.VmapExecutor``): every leaf of the params and BN state
+leads with K, and the images are (K, B, H, W, C).  Inside, the clients'
+channels sit side by side in one grouped layout, (B, K*C, H, W): a
+convolution of K clients is one grouped convolution (``groups`` times K)
+and a BatchNorm one call whose per-channel statistics are per client as
+they stand; the dense layers are batched products, (K, B, C) by (K, N,
+C).
 """
 from __future__ import annotations
 
@@ -58,14 +67,20 @@ def conv_apply(p: dict, x: torch.Tensor, stride: int = 1,
     """SAME convolution on NCHW activations; the input is padded apart
     only where SAME pads one side more than the other.  ``groups`` is
     JAX's ``feature_group_count``: a depthwise convolution of C channels
-    has weights (C, 1, k, k) and ``groups=C``, in the same OIHW layout."""
-    k = p["w"].shape[-1]
+    has weights (C, 1, k, k) and ``groups=C``, in the same OIHW layout.
+    A cohort's weights (K, O, I, k, k) take its grouped layout (B, K*C, H,
+    W): one convolution with ``groups`` times K."""
+    w = p["w"]
+    if w.ndim == 5:
+        groups *= w.shape[0]
+        w = w.reshape((-1,) + tuple(w.shape[2:]))
+    k = w.shape[-1]
     (top, bottom), (left, right) = (same_padding(n, k, stride)
                                     for n in x.shape[2:])
     if top == bottom and left == right:
-        return F.conv2d(x, p["w"], stride=stride, padding=(top, left),
+        return F.conv2d(x, w, stride=stride, padding=(top, left),
                         groups=groups)
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), p["w"],
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w,
                     stride=stride, groups=groups)
 
 
@@ -85,10 +100,16 @@ def dense_apply(p: dict, x: torch.Tensor,
                 s: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ W^T + b``; with a per-row scale ``s`` (N,) the product is Eq.
     4 at matmul time, ``x @ (s * W)^T``, on the ``scaled_matmul`` kernel
-    (its plain version on the CPU), and ``W`` is not scaled first."""
-    if s is None or not at_matmul(p["w"], s):
-        return x @ p["w"].T + p["b"]
-    return scaled_matmul(x, p["w"], s) + p["b"]
+    (its plain version on the CPU), and ``W`` is not scaled first.  A
+    cohort's x (K, B, C), W (K, N, C), b (K, N) and s (K, N): one batched
+    product (a ``torch.bmm`` without the scale)."""
+    if x.ndim == 3:
+        cohort, b = True, p["b"][:, None, :]
+    else:
+        cohort, b = False, p["b"]
+    if s is None or not at_matmul(p["w"], s, cohort):
+        return x @ p["w"].transpose(-1, -2) + b
+    return scaled_matmul(x, p["w"], s) + b
 
 
 def bn_init(c: int, device):
@@ -99,10 +120,13 @@ def bn_init(c: int, device):
 
 
 def bn_apply(p: dict, s: dict, x: torch.Tensor, train: bool):
-    """BatchNorm over the N, H, W axes of NCHW activations."""
+    """BatchNorm over the N, H, W axes of NCHW activations; a cohort's
+    parameters and stats (K, C) on its grouped layout (B, K*C, H, W), where
+    each channel's statistics are its own client's."""
     if train:
-        mean = torch.mean(x, dim=(0, 2, 3))
-        var = torch.var(x, dim=(0, 2, 3), correction=0)
+        mean = torch.mean(x, dim=(0, 2, 3)).reshape(s["mean"].shape)
+        var = torch.var(x, dim=(0, 2, 3), correction=0).reshape(
+            s["var"].shape)
         new_s = {"mean": BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * mean,
                  "var": BN_MOMENTUM * s["var"] + (1 - BN_MOMENTUM) * var}
     else:
@@ -114,6 +138,32 @@ def bn_apply(p: dict, s: dict, x: torch.Tensor, train: bool):
 
     y = (x - c(mean)) * torch.rsqrt(c(var) + BN_EPS) * c(p["gamma"]) + c(p["beta"])
     return y, new_s
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC images (B, H, W, C) as an NCHW view; a cohort's (K, B, H, W,
+    C) as its grouped layout (B, K*C, H, W), channels-last in memory,
+    which cuDNN's grouped convolutions take without transposing
+    (``chip_smoke.grouped_layout_times`` times both layouts)."""
+    if x.ndim == 5:
+        k, b, h, w, c = x.shape
+        x = x.permute(1, 2, 3, 0, 4).reshape(b, h, w, k * c)
+    return x.permute(0, 3, 1, 2)
+
+
+def global_pool(x: torch.Tensor, cohort: int | None) -> torch.Tensor:
+    """Global average pool of NCHW activations -> (B, C); of a cohort of
+    ``cohort`` clients' grouped layout -> (K, B, C), the dense layers'
+    batched input."""
+    if cohort is None:
+        return torch.mean(x, dim=(2, 3))
+    x = torch.mean(x, dim=(2, 3))
+    return x.reshape(x.shape[0], cohort, -1).transpose(0, 1)
+
+
+def cohort_of(x: torch.Tensor) -> int | None:
+    """The cohort size of a model's input images, None for one client's."""
+    return x.shape[0] if x.ndim == 5 else None
 
 
 # ------------------------------------------------------------------ model API
@@ -147,14 +197,17 @@ def make_vgg(name: str, widths, num_classes: int, in_channels: int = 3,
     def apply(params, state, x, train=False, scales=None):
         """With ``scales`` (the scales tree), each dense layer applies its
         weight's per-row scale inside its product; the caller has scaled
-        the other leaves (``core.scaling.apply_scales_tree``)."""
+        the other leaves (``core.scaling.apply_scales_tree``).  Images
+        (K, B, H, W, C) with trees whose leaves lead with K run a cohort,
+        logits (K, B, classes)."""
         new_state = dict(state)
 
         def dense(name, x):
             s = None if scales is None else scales[name]["w"]
             return dense_apply(params[name], x, s)
 
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        k = cohort_of(x)
+        x = to_nchw(x)
         for i in range(len(widths)):
             x = conv_apply(params[f"conv{i}"], x)
             x, new_state[f"bn{i}"] = bn_apply(params[f"bn{i}"],
@@ -162,8 +215,7 @@ def make_vgg(name: str, widths, num_classes: int, in_channels: int = 3,
             x = F.relu(x)
             if i in pool_after:
                 x = F.max_pool2d(x, 2, 2)  # VALID: odd edges are dropped
-        x = torch.mean(x, dim=(2, 3))  # global average pool
-        x = F.relu(dense("fc0", x))
+        x = F.relu(dense("fc0", global_pool(x, k)))
         return dense("fc1", x), new_state
 
     return CNNModel(name, init, apply)
@@ -218,7 +270,8 @@ def make_resnet(name: str, widths, blocks_per_stage: int, num_classes: int,
             y, new_state[name] = bn_apply(params[name], state[name], x, train)
             return y
 
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        k = cohort_of(x)
+        x = to_nchw(x)
         x = F.relu(bn("stem_bn", conv_apply(params["stem"], x)))
         for si in range(len(widths)):
             for bi in range(blocks_per_stage):
@@ -232,9 +285,8 @@ def make_resnet(name: str, widths, blocks_per_stage: int, num_classes: int,
                 elif stride != 1:
                     x = x[:, :, ::stride, ::stride]
                 x = F.relu(h + x)
-        x = torch.mean(x, dim=(2, 3))  # global average pool
         s = None if scales is None else scales["fc"]["w"]
-        return dense_apply(params["fc"], x, s), new_state
+        return dense_apply(params["fc"], global_pool(x, k), s), new_state
 
     return CNNModel(name, init, apply)
 
@@ -292,7 +344,8 @@ def make_mobilenet(name: str, num_classes: int, in_channels: int = 3,
             y, new_state[name] = bn_apply(params[name], state[name], x, train)
             return y
 
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        k = cohort_of(x)
+        x = to_nchw(x)
         x = relu6(bn("stem_bn", conv_apply(params["stem"], x)))
         in_c = 16
         for si, (w, n) in enumerate(blocks):
@@ -309,9 +362,8 @@ def make_mobilenet(name: str, num_classes: int, in_channels: int = 3,
                 x = (x + h) if (stride == 1 and in_c == w) else h
                 in_c = w
         x = relu6(bn("head_bn", conv_apply(params["head"], x)))
-        x = torch.mean(x, dim=(2, 3))  # global average pool
         s = None if scales is None else scales["fc"]["w"]
-        return dense_apply(params["fc"], x, s), new_state
+        return dense_apply(params["fc"], global_pool(x, k), s), new_state
 
     return CNNModel(name, init, apply)
 

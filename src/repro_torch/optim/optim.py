@@ -3,7 +3,11 @@
 Port of ``repro.optim.optim``: ``opt = adam(lr); state = opt.init(params);
 updates, state = opt.update(grads, state)``, with updates *added* to the
 params.  Learning rates may be schedules (callables of the int32 step
-tensor), read at the pre-increment step.  Adam and Yogi are bias-corrected
+tensor), read at the pre-increment step.  A cohort's state (the batched
+client round) has one step a client, a (K,) tensor, and every leaf leads
+with K: the rate and the bias corrections broadcast per client over each
+leaf's leading axis (``tree.per_row``), the same float32 operations as a
+client's own.  Adam and Yogi are bias-corrected
 as ``-lr * (m / bc1) / (sqrt(v / bc2) + eps)``, evaluated in float32 in the
 reference's operation order; Yogi moves ``v`` by
 ``v - (1 - b2) * sign(v - g*g) * g * g``, Adagrad accumulates ``g*g``.
@@ -15,7 +19,7 @@ from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, per_row, tree_map
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 LR = Union[float, Schedule]
@@ -25,6 +29,7 @@ def _lr_at(lr: LR, step: torch.Tensor) -> torch.Tensor:
     if callable(lr):
         return lr(step).to(torch.float32)
     return torch.tensor(lr, dtype=torch.float32, device=step.device)
+
 
 
 def _device_of(params: Any) -> torch.device:
@@ -55,10 +60,10 @@ def sgd(lr: LR, momentum: float = 0.0) -> Optimizer:
         if momentum:
             new_m = tree_map(lambda m, g: momentum * m + g,
                              state.momentum, grads)
-            updates = tree_map(lambda m: -lr_t * m, new_m)
+            updates = tree_map(lambda m: -per_row(lr_t, m) * m, new_m)
         else:
             new_m = None
-            updates = tree_map(lambda g: -lr_t * g, grads)
+            updates = tree_map(lambda g: -per_row(lr_t, g) * g, grads)
         return updates, SGDState(state.step + 1, new_m)
 
     return Optimizer(init, update)
@@ -79,7 +84,8 @@ def _bias_corrected(lr_t, b1: float, b2: float, step, mu, nu, eps):
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                      device=stepf.device), stepf)
     return tree_map(
-        lambda m, v: -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps),
+        lambda m, v: -per_row(lr_t, m) * (m / per_row(bc1, m)) / (
+            torch.sqrt(v / per_row(bc2, v)) + eps),
         mu, nu)
 
 
@@ -138,8 +144,9 @@ def adagrad(lr: LR, eps: float = 1e-8) -> Optimizer:
         del params
         lr_t = _lr_at(lr, state.step)
         nu = tree_map(lambda v, g: v + g * g, state.nu, grads)
-        updates = tree_map(lambda g, v: -lr_t * g / (torch.sqrt(v) + eps),
-                           grads, nu)
+        updates = tree_map(
+            lambda g, v: -per_row(lr_t, g) * g / (torch.sqrt(v) + eps),
+            grads, nu)
         return updates, AdagradState(state.step + 1, nu)
 
     return Optimizer(init, update)

@@ -87,3 +87,17 @@ def rebuild(template: Any, by_path: dict[str, Any]) -> Any:
 def row(tree: Any, i) -> Any:
     """Index the leading (client) axis of every leaf."""
     return tree_map(lambda x: x[i], tree)
+
+
+def stack(trees: list[Any]) -> Any:
+    """Trees of one structure stacked leafwise on a new leading axis."""
+    import torch
+    return tree_map(lambda *leaves_: torch.stack(leaves_), *trees)
+
+
+def per_row(t: Any, leaf: Any) -> Any:
+    """A per-row (K,) tensor shaped to broadcast over ``leaf``'s leading
+    axis; a 0-d one as it is."""
+    if t.ndim == 0:
+        return t
+    return t.reshape(tuple(t.shape) + (1,) * (leaf.ndim - t.ndim))

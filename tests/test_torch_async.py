@@ -52,7 +52,7 @@ from repro.data.federated import FederatedSplits as RefSplits
 from repro.models import cnn as ref_cnn
 from repro_torch import comms, convert
 from repro_torch.fl import async_buffer, engine, rounds, scenarios
-from repro_torch.fl.executors import SerialExecutor
+from repro_torch.fl.executors import VmapExecutor
 from repro_torch.tree import sorted_items
 from test_torch_sampling import N_SAMPLES
 
@@ -298,13 +298,13 @@ def _counted_clients(cfg, r_c, p_c) -> list[int]:
 def test_async_run_schedule_equals_reference(name, monkeypatch):
     ref_s = ref_scenarios.get_scenario(name)
     stacked = []
-    run_stacked = SerialExecutor.run_stacked
+    run_stacked = VmapExecutor.run_stacked   # the scenarios' executor
 
     def spy(self, servers, *a):
         stacked.append(len(servers))
         return run_stacked(self, servers, *a)
 
-    monkeypatch.setattr(SerialExecutor, "run_stacked", spy)
+    monkeypatch.setattr(VmapExecutor, "run_stacked", spy)
     (cfg, ref, port, ref_recs, ref_servers, port_recs, port_servers,
      ref_log, port_log, n_test, before) = async_runs(
         ref_s, scenarios.get_scenario(name))

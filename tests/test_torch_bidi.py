@@ -27,7 +27,11 @@ steps per client a round), from the same state, data and draws:
 * A: ``run_federated(bidirectional=True)`` with ``fsfl`` and nnc-cabac,
   2 clients;
 * B: the same with ``fsfl_dyn``, 2 clients;
-* C: ``int8-blockscale`` on both legs, cohorts of 4 of 8 clients.
+* C: ``int8-blockscale`` on both legs, cohorts of 4 of 8 clients,
+  through the serial executor, and through the batched one (the
+  engine's default) round by round from the reference's server, client
+  and downlink state, since as one trajectory it parts in round 2 as
+  the int8 slice's does (``tests/test_torch_slice.py``).
 
 Bounds, those of the slices before (tests/test_torch_slice.py,
 tests/test_torch_fsfl.py): server params within one uplink quantization
@@ -310,8 +314,7 @@ def test_bidi_scenario_matches_reference():
     ref_s = ref_scenarios.get_scenario("bidi_sync_full")
     port_s = scenarios.get_scenario("bidi_sync_full")
     for f in dataclasses.fields(port_s):
-        if f.name != "executor":   # the port runs its clients serially
-            assert getattr(port_s, f.name) == getattr(ref_s, f.name), f.name
+        assert getattr(port_s, f.name) == getattr(ref_s, f.name), f.name
     assert scenarios.build_engine(port_s).bidirectional
 
 
@@ -341,7 +344,8 @@ def _capture_levels(monkeypatch, module, log, to_np):
 
 
 def _check_run(ref_recs, port_recs, ref_srv, port_srv, ref_levels,
-               port_levels, cfg, n_test, n_params, fixed_len):
+               port_levels, cfg, n_test, n_params, fixed_len,
+               scale_steps=ROUNDS):
     same = True
     for r, p, rl, pl in zip(ref_recs, port_recs, ref_levels, port_levels):
         assert r.participants == p.participants
@@ -374,7 +378,8 @@ def _check_run(ref_recs, port_recs, ref_srv, port_srv, ref_levels,
     port_sc = _flat(port_srv.scales, lambda v: v.numpy())
     for k, v in ref_sc.items():
         np.testing.assert_allclose(port_sc[k], v, rtol=0,
-                                   atol=ROUNDS * cfg.fine_step_size * 1.01,
+                                   atol=scale_steps * cfg.fine_step_size
+                                   * 1.01,
                                    err_msg=f"scales {k}")
 
 
@@ -425,7 +430,13 @@ def test_run_federated_bidirectional_matches_reference(name, monkeypatch):
 
 
 def test_int8_bidirectional_k4_matches_reference(monkeypatch):
-    """Path C: int8-blockscale on both legs, cohorts of 4 of 8, FedAvg."""
+    """Path C: int8-blockscale on both legs, cohorts of 4 of 8, FedAvg;
+    through the serial executor as one trajectory, and through the
+    engine's default, the batched executor, each round from the
+    reference's server, client and downlink state after the round before
+    (teacher-forced), its scales within one fine step a round: as one
+    trajectory the batched round parts there as the int8 slice's does
+    (``tests/test_torch_slice.py``)."""
     s = ref_scenarios.get_scenario("codec_int8_k4")
     cfg = ref_scenarios.build_protocol(s, ROUNDS)
     model, splits = ref_scenarios.default_setting(8, n_samples=1280)
@@ -450,23 +461,55 @@ def test_int8_bidirectional_k4_matches_reference(monkeypatch):
     ref = RefEngine(model, cfg, splits, jax.random.PRNGKey(C_KEY),
                     dataclasses.replace(ref_scenarios.build_engine(s),
                                         bidirectional=True))
-    ref_res = ref.run(ROUNDS)
+    ref_recs, ref_states = [], []
+    for _ in range(ROUNDS):
+        ref_recs += ref.run(1).records
+        ref_states.append(jax.device_get((
+            ref.server, ref.local_train.persistent, ref.downlink.residual,
+            ref.downlink.last_payload_bytes)))
     port_s = scenarios.get_scenario("codec_int8_k4")
-    for mod in (la, da):
-        mod.reset_counters()
-    port = engine.run_simulation(
-        _tiny(), scenarios.build_protocol(port_s, ROUNDS), _splits_np(splits),
-        ROUNDS, engine=engine.EngineConfig(
-            sampling=PortSamplingConfig(cohort_size=4),
-            codec="int8-blockscale", bidirectional=True),
-        init_state=convert.initial_state(server0, pers0), plan=plan,
-        device="cpu")
-    # 13 leaves: 4 clients and the downlink run level_assign; the downlink
-    # forms its residual and the server applies, one delta_apply each
-    assert la.CALLS["level_assign"] == 13 * 5 * ROUNDS
-    assert da.CALLS["delta_apply"] == 13 * 2 * ROUNDS
-    for (idx, _), r in zip(plan, port.records):
-        assert r.participants == tuple(int(i) for i in idx)
-    _check_run(ref_res.records, port.records, ref_res.server, port.server,
+
+    def port_engine(executor):
+        for mod in (la, da):
+            mod.reset_counters()
+        return engine.FederatedEngine(
+            _tiny(), scenarios.build_protocol(port_s, ROUNDS),
+            _splits_np(splits), engine_cfg=engine.EngineConfig(
+                executor=executor, sampling=PortSamplingConfig(cohort_size=4),
+                codec="int8-blockscale", bidirectional=True),
+            init_state=convert.initial_state(server0, pers0), plan=plan,
+            device="cpu")
+
+    def counted(recs):
+        # 13 leaves: 4 clients and the downlink run level_assign; the
+        # downlink forms its residual and the server applies, one
+        # delta_apply each
+        assert la.CALLS["level_assign"] == 13 * 5 * ROUNDS
+        assert da.CALLS["delta_apply"] == 13 * 2 * ROUNDS
+        for (idx, _), r in zip(plan, recs):
+            assert r.participants == tuple(int(i) for i in idx)
+
+    port = port_engine("serial").run(ROUNDS)
+    counted(port.records)
+    _check_run(ref_recs, port.records, ref_states[-1][0], port.server,
                ref_levels, port_levels, cfg, len(splits.test_y), 6_786,
                fixed_len=True)
+
+    port_levels.clear()
+    forced = port_engine(engine.EngineConfig().executor)
+    assert forced.engine_cfg.executor == "vmap"
+    recs = []
+    for rnd in range(ROUNDS):
+        if rnd:
+            server, pers, residual, last = ref_states[rnd - 1]
+            forced.server = convert.server_state(server)
+            forced.local_train.state = convert.client_persistent(pers)
+            forced.downlink.residual = convert.to_tensors(residual)
+            forced.downlink.last_payload_bytes = last
+        recs += forced.run(1).records
+        # each run(1) numbers its record 1 and counts its bytes afresh
+        _check_run(ref_recs[rnd:rnd + 1], recs[rnd:], ref_states[rnd][0],
+                   forced.server, ref_levels[rnd:rnd + 1], port_levels[rnd:],
+                   cfg, len(splits.test_y), 6_786, fixed_len=True,
+                   scale_steps=1)
+    counted(recs)

@@ -278,11 +278,11 @@ def test_ingest_config_and_engine_validation_are_the_reference():
 def test_other_scenarios_still_not_ported():
     assert sorted(scenarios.NOT_PORTED) == [
         "churn_midround_async", "dist_cohort_full", "pop_100k_diurnal",
-        "pop_1m_lazy_k32", "sharded_cohort_full"]
+        "pop_1m_lazy_k32"]
     for name, item in scenarios.NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=item):
             scenarios.get_scenario(name)
-    assert len(scenarios.SCENARIOS) == 30
+    assert len(scenarios.SCENARIOS) == 31
     assert set(scenarios.SCENARIOS) | set(scenarios.NOT_PORTED) == set(
         ref_scenarios.list_scenarios())
 

@@ -16,7 +16,7 @@
   params leaf outside ``fc*`` stays bitwise at its initial value, and the
   payloads carry the classifier only.
 * The five scenarios of this slice are registered with the reference's
-  field values (but the executor: the port's is the serial one).
+  field values (the executor too: both default to the batched one).
 """
 import dataclasses
 import functools
@@ -341,9 +341,8 @@ NEW = ["partial_fc_k4", "bnwire_v2_full", "chan_slow_cabac", "chan_slow_raw",
 @pytest.mark.parametrize("name", NEW)
 def test_scenarios_registered_as_in_the_reference(name):
     port, ref = scenarios.get_scenario(name), ref_scenarios.get_scenario(name)
-    # the reference's default executor is "vmap"; the port's, as in every
-    # scenario it registers, the serial one (the batched one is queued)
-    assert (port.executor, ref.executor) == ("serial", "vmap")
+    # both default to the batched executor
+    assert (port.executor, ref.executor) == ("vmap", "vmap")
     for f in dataclasses.fields(port):
         if f.name == "executor":
             continue

@@ -210,12 +210,7 @@ def test_scenarios_registered_as_in_the_reference(name):
         got, want = getattr(port, f.name), getattr(ref, f.name)
         if f.name == "description":
             continue      # prose; the port's names its own executor
-        if f.name == "executor" and want == "vmap":
-            # the port's scenarios run the serial executor (the batched
-            # one is queued)
-            assert got == "serial"
-        else:
-            assert got == want, f.name
+        assert got == want, f.name
     p_eng, r_eng = scenarios.build_engine(port), ref_scenarios.build_engine(
         ref)
     for f in ("mode", "codec", "wire_schema", "bidirectional"):

@@ -28,6 +28,17 @@ key discipline: ``k_init, key = split(key)``, then per round
   the other moves a scale by its whole delta, up to ~0.09 here;
 * test accuracy within one of the 192 test images (equal when seen);
 * the kernel wrappers' call counters show the path went through them.
+
+The two rounds run twice, held to these bounds.  Through the serial
+executor they run as one trajectory, each round from the port's own
+state.  Through the engine's default, the batched executor, each round
+starts from the reference's server and client state after the round
+before (teacher-forced), the scales of every round within one fine step.
+As one trajectory the batched executor's round 2 parts from the
+reference's: its grouped convolutions sum in another order, round 1
+leaves the clients' state float32 noise apart from the serial one's, and
+round 2 turns that noise into scale drift.  So does the serial trajectory with its initial params one ulp
+up, further; both are printed as readings.
 """
 import dataclasses
 
@@ -96,31 +107,64 @@ def test_slice_two_rounds_match_reference(name, kernel, calls_per_round):
 
     ref = RefEngine(model, cfg, splits, jax.random.PRNGKey(42),
                     ref_scenarios.build_engine(s))
-    ref_recs, ref_servers = [], []
+    ref_recs, ref_servers, ref_pers = [], [], []
     for _ in range(ROUNDS):
         ref_recs += ref.run(1).records
         ref_servers.append(jax.device_get(ref.server))
+        ref_pers.append(jax.device_get(ref.local_train.persistent))
 
     port_s = scenarios.get_scenario(name)
-    port = engine.FederatedEngine(
-        cnn.make_vgg("vgg_scenario", [8, 16, 32], 10, 3, dense_width=16,
-                     pool_after=(0, 1, 2)),
-        scenarios.build_protocol(port_s, ROUNDS),
-        FederatedSplits.from_numpy(*jax.device_get(
-            (splits.client_x, splits.client_y, splits.client_val_x,
-             splits.client_val_y, splits.test_x, splits.test_y))),
-        engine_cfg=scenarios.build_engine(port_s),
-        init_state=convert.initial_state(server0, pers0), plan=plan,
-        device="cpu")
-    dc.reset_counters()
-    port_recs, port_servers = [], []
-    for _ in range(ROUNDS):
-        port_recs += port.run(1).records
-        port_servers.append(port.server)
-    assert dc.CALLS[kernel] == calls_per_round * ROUNDS
-    assert dc.LAUNCHES == {"delta_compress": 0, "delta_compress_batch": 0}
+    data = FederatedSplits.from_numpy(*jax.device_get(
+        (splits.client_x, splits.client_y, splits.client_val_x,
+         splits.client_val_y, splits.test_x, splits.test_y)))
 
-    n_test = len(splits.test_y)
+    def port_run(executor, forced=False, nudge=False):
+        server, pers = convert.initial_state(server0, pers0)
+        if nudge:    # every initial param one ulp up
+            server = server._replace(params={
+                m: {n: torch.nextafter(v, torch.full_like(v, np.inf))
+                    for n, v in d.items()} for m, d in server.params.items()})
+        port = engine.FederatedEngine(
+            cnn.make_vgg("vgg_scenario", [8, 16, 32], 10, 3, dense_width=16,
+                         pool_after=(0, 1, 2)),
+            scenarios.build_protocol(port_s, ROUNDS), data,
+            engine_cfg=dataclasses.replace(scenarios.build_engine(port_s),
+                                           executor=executor),
+            init_state=(server, pers), plan=plan, device="cpu")
+        dc.reset_counters()
+        recs, servers = [], []
+        for rnd in range(ROUNDS):
+            if forced and rnd:
+                port.server = convert.server_state(ref_servers[rnd - 1])
+                port.local_train.state = convert.client_persistent(
+                    ref_pers[rnd - 1])
+            recs += port.run(1).records
+            servers.append(port.server)
+        assert dc.CALLS[kernel] == calls_per_round * ROUNDS
+        assert dc.LAUNCHES == {"delta_compress": 0,
+                               "delta_compress_batch": 0}
+        return recs, servers
+
+    assert port_s.executor == "vmap"
+    for executor, forced in (("serial", False), ("vmap", True)):
+        _check_rounds(name, cfg, plan, len(splits.test_y), ref_recs,
+                      *port_run(executor, forced), ref_servers, forced)
+    # readings, not held: the trajectories the forced rounds stand for
+    for label, run in (("vmap", dict(executor="vmap")),
+                       ("serial, initial params one ulp up",
+                        dict(executor="serial", nudge=True))):
+        servers = port_run(**run)[1]
+        drift = [max(float(np.abs(np.asarray(v.numpy()) - np.asarray(
+            ref_srv.scales[m][n])).max()) for m, d in srv.scales.items()
+            for n, v in d.items()) / cfg.fine_step_size
+            for srv, ref_srv in zip(servers, ref_servers)]
+        print(f"{name}, {label}, unforced: server scales "
+              f"{', '.join(f'{x:.2f}' for x in drift)} fine steps off the "
+              f"reference's, round by round")
+
+
+def _check_rounds(name, cfg, plan, n_test, ref_recs, port_recs,
+                  port_servers, ref_servers, forced):
     for (idx, _), r, p in zip(plan, ref_recs, port_recs):
         assert r.participants == p.participants == tuple(int(i) for i in idx)
         assert p.up_bytes == r.up_bytes
@@ -134,20 +178,22 @@ def test_slice_two_rounds_match_reference(name, kernel, calls_per_round):
                                for k, v in ref_p.items()])
         flips = int(np.sum(diff > cfg.step_size * 1.01))
         off = int(np.sum(diff > 1e-6))
-        print(f"{name} round {rnd}: max |param diff| {diff.max():.3g}, "
-              f"{off} of {diff.size} params off by > 1e-6, {flips} flips")
+        print(f"{name} round {rnd}{' (forced)' if forced else ''}: max "
+              f"|param diff| {diff.max():.3g}, {off} of {diff.size} params "
+              f"off by > 1e-6, {flips} flips")
         assert flips <= MAX_FLIPS and off <= MAX_OFF, (rnd, flips, off)
         ref_sc, port_sc = _flat(ref_srv.scales), _flat(port_srv.scales,
                                                         lambda v: v.numpy())
+        steps = 1 if forced else rnd
         for k, v in ref_sc.items():
             np.testing.assert_allclose(port_sc[k], v, rtol=0,
-                                       atol=rnd * cfg.fine_step_size * 1.01,
+                                       atol=steps * cfg.fine_step_size * 1.01,
                                        err_msg=f"round {rnd} scales {k}")
 
 
 def test_unported_options_raise():
     s = dataclasses.replace(scenarios.get_scenario("codec_int8_k4"),
-                            executor="vmap")
+                            executor="dist")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         scenarios.run_scenario(s, rounds=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
