@@ -147,6 +147,22 @@ Phases (any failure exits non-zero):
      device, one block of the cohort a device, beside
      ``sync_full_fedavg_fsfl`` through the batched executor: bit for bit
      on one card;
+   * the step check (``step_check``): in ``exec_serial_k4``'s full-width
+     setting, one local step at a time from each of the serial round's
+     17 W-step and 34 S-step states, the cohort route against the serial
+     route and the control (params one ulp up), with and without their
+     ReLU and max-pool routing forced to the serial forward's: every
+     step within ``STEP_FACTOR`` of the control once the routing is
+     forced, and every step that breaks the rule as it runs explained by
+     flipped decisions within ``TIE_NOISE`` of a tie;
+   * the population axis (``population_paths``): the two cohort kernels
+     at K = 32 against their plain versions (VGG11's shapes);
+     ``pop_100k_diurnal`` at full width, 32 of 10^5 virtual clients a
+     round through the sharded store (launches as any batched round, the
+     store's counters and spill, load and materialize host ms); the
+     memory store against the sharded one bit for bit at full width with
+     spills and loads; ``pop_1m_lazy_k32`` and ``churn_midround_async``
+     on the scenarios' tiny VGG (churn count, adaptive window sizes);
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -1851,30 +1867,34 @@ COHORT_LA_MODELS = (("vgg11_thinned", 28), ("resnet18_small", 55),
                     ("mobilenetv2_small", 62))
 
 
-def cohort_kernel_phase(torch, sm, la, models) -> tuple[int, dict]:
+def cohort_kernel_phase(torch, sm, la, models, cohort: int = COHORT,
+                        sm_shapes=COHORT_SM_SHAPES,
+                        la_models=COHORT_LA_MODELS) -> tuple[int, dict]:
     """The two kernels that take a cohort in one launch, against their
-    plain versions on random inputs: ``scaled_matmul`` at K = 8 rows of
-    the main paths' dense shapes, every direction and backward subset
-    within the float32 error bound (the backward twice to the same bits),
-    each row bitwise the launch over that row alone; ``level_assign_leaves``
-    over 8 rows of every leaf of VGG11, the ResNet and the MobileNet, in
-    one launch, bitwise the plain version and each row's own launch.  Each
-    timed beside its plain version, the bound and, for ``scaled_matmul``,
-    ``torch.bmm`` and a multiply.  Returns (checks, timings)."""
+    plain versions on random inputs: ``scaled_matmul`` at K = ``cohort``
+    (8; 32 for the population path) rows of the main paths' dense shapes
+    (``sm_shapes``), every direction and backward subset within the
+    float32 error bound (the backward twice to the same bits), each row
+    bitwise the launch over that row alone; ``level_assign_leaves`` over
+    ``cohort`` rows of every leaf of VGG11, the ResNet and the MobileNet
+    (``la_models``), in one launch, bitwise the plain version and each
+    row's own launch.  Each timed beside its plain version, the bound
+    and, for ``scaled_matmul``, ``torch.bmm`` and a multiply.  Returns
+    (checks, timings)."""
     gen = torch.Generator().manual_seed(12)
     worst = dict.fromkeys(sm.DIRECTIONS + ("backward",), 0.0)
     checks, sm_t = 0, []
-    for m, n, k in COHORT_SM_SHAPES:
+    for m, n, k in sm_shapes:
         c, (x, w, s, dy) = sm_check_shape(torch, sm, gen, m, n, k, worst,
-                                          COHORT)
+                                          cohort)
         checks += c
         rows = sm.backward(dy, x, w, s, True, True, True)
         y = sm.forward(x, w, s)
-        for i in range(COHORT):
+        for i in range(cohort):
             one = sm.backward(dy[i], x[i], w[i], s[i], True, True, True)
             if not (torch.equal(y[i], sm.forward(x[i], w[i], s[i]))
                     and all(torch.equal(a[i], b) for a, b in zip(rows, one))):
-                fail(f"scaled_matmul at K = {COHORT}, ({m}, {n}, {k}): row "
+                fail(f"scaled_matmul at K = {cohort}, ({m}, {n}, {k}): row "
                      f"{i} differs from its own launch")
         checks += 1
         before = dict(sm.LAUNCHES)
@@ -1887,37 +1907,37 @@ def cohort_kernel_phase(torch, sm, la, models) -> tuple[int, dict]:
                                 lambda: sm.scaled_matmul_plain(x, w, s)),
                    library_ms=time_ms(torch, lambda: SM_LIBRARY["forward"](
                        torch, x, w, s)),
-                   bound=sm_bound_ms(("forward",), m, n, k, COHORT))
+                   bound=sm_bound_ms(("forward",), m, n, k, cohort))
         bwd = dict(kernel_times(
             torch, lambda: sm.backward(dy, x, w, s, True, True, False),
             lambda: (sm.dx_plain(dy, w, s), sm.dw_plain(dy, x, s))),
             library_ms=time_ms(torch, lambda: [
                 SM_LIBRARY[d](torch, dy, x, w, s) for d in ("dx", "dw")]),
-            bound=sm_bound_ms(("dx", "dw"), m, n, k, COHORT))
-        sm_t.append({"k_mnk": [COHORT, m, n, k], "forward": fwd,
+            bound=sm_bound_ms(("dx", "dw"), m, n, k, cohort))
+        sm_t.append({"k_mnk": [cohort, m, n, k], "forward": fwd,
                      "backward_dx_dw": bwd})
-        print(f"  cohort scaled_matmul K={COHORT} ({m}, {n}, {k}): forward "
+        print(f"  cohort scaled_matmul K={cohort} ({m}, {n}, {k}): forward "
               f"{fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, torch.bmm "
               f"and a multiply {fwd['library_ms']:.4f}, bound "
               f"{fwd['bound'][0]:.6f} {fwd['bound'][1]}); backward dx + dw "
               f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, torch.bmm "
               f"{bwd['library_ms']:.4f}, bound {bwd['bound'][0]:.6f})")
     la_t = {}
-    for name, leaves in COHORT_LA_MODELS:
+    for name, leaves in la_models:
         params, _ = getattr(models, name)().init(
             torch.Generator().manual_seed(0))
         shapes = [tuple(v.shape) for d in params.values()
                   for v in d.values()]
         if len(shapes) != leaves:
             fail(f"{name} has {len(shapes)} leaves, not {leaves}")
-        rows = [la_leaf_inputs(torch, gen, shapes) for _ in range(COHORT)]
+        rows = [la_leaf_inputs(torch, gen, shapes) for _ in range(cohort)]
         d = [torch.stack([r[0][i] for r in rows]) for i in range(leaves)]
         r = [torch.stack([r[1][i] for r in rows]) for i in range(leaves)]
         th = torch.stack([r_[2] for r_ in rows])
         steps = rows[0][3]
         la_group_compare(torch, la, d, r, th, steps)
         lvs, cs = la.level_assign_leaves(d, r, th, steps)
-        for i in range(COHORT):
+        for i in range(cohort):
             one_l, one_c = la.level_assign_leaves(
                 [t[i] for t in d], [t[i] for t in r], th[i].contiguous(),
                 steps)
@@ -1930,7 +1950,7 @@ def cohort_kernel_phase(torch, sm, la, models) -> tuple[int, dict]:
         checks += 2
         n = sum(t.numel() for t in d)
         per_client = [([t[i] for t in d], [t[i] for t in r],
-                       th[i].contiguous()) for i in range(COHORT)]
+                       th[i].contiguous()) for i in range(cohort)]
         la_t[name] = dict(
             kernel_times(torch, lambda: la.level_assign_leaves(d, r, th,
                                                                steps),
@@ -1939,16 +1959,16 @@ def cohort_kernel_phase(torch, sm, la, models) -> tuple[int, dict]:
             per_client_launches_ms=time_ms(torch, lambda: [
                 la.level_assign_leaves(a, b, c, steps)
                 for a, b, c in per_client], spin=20_000_000),
-            bound=la_bound_ms(n), elements=n, leaves=leaves, rows=COHORT)
+            bound=la_bound_ms(n), elements=n, leaves=leaves, rows=cohort)
         t = la_t[name]
-        print(f"  cohort level_assign {COHORT} x {leaves} leaves of {name} "
+        print(f"  cohort level_assign {cohort} x {leaves} leaves of {name} "
               f"({n} elements): bitwise, one launch {t['ms']:.4f} ms "
-              f"(whole call {t['call_ms']:.4f} ms), {COHORT} per-client "
+              f"(whole call {t['call_ms']:.4f} ms), {cohort} per-client "
               f"launches {t['per_client_launches_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms "
               f"({t['bound'][1]})")
     print(f"kernel phase: {checks} cohort comparisons (scaled_matmul at K = "
-          f"{COHORT} within the float32 error bound, largest share "
+          f"{cohort} within the float32 error bound, largest share "
           f"{ {d: round(v, 4) for d, v in worst.items()} }; level_assign "
           f"bitwise), each row bitwise its own launch")
     return checks, {"scaled_matmul": sm_t, "level_assign": la_t,
@@ -2178,6 +2198,435 @@ def nudged(torch, eng):
         lambda t: torch.nextafter(t, torch.full_like(t, math.inf)),
         eng.server.params))
     return eng
+
+
+# the step check: a cohort step's gap may be STEP_FACTOR times the
+# control's; a stepped value STEP_PARAM_TOL apart is counted; a routing
+# decision within TIE_NOISE of a tie (of its layer's largest input) is
+# float32 noise
+STEP_FACTOR = 8.0
+STEP_PARAM_TOL = 1e-6
+TIE_NOISE = 1e-5
+
+
+class Routing:
+    """``torch.nn.functional`` for ``models.cnn`` with ``relu`` and
+    ``max_pool2d`` that record each routing decision of a forward (the
+    ReLU's ``x > 0`` mask, the pool's argmax indices) beside its input,
+    or, given ``forced`` (one decision a call, in call order), route by
+    those decisions instead: ``where(mask, x, 0)`` and a gather at the
+    indices, so the backward takes the forced routes.  Everything else is
+    ``torch.nn.functional`` itself."""
+
+    def __init__(self, torch, forced=None):
+        import torch.nn.functional as F
+        self._torch, self._F, self.forced = torch, F, forced
+        self.calls: list = []
+
+    def __getattr__(self, name):
+        return getattr(self._F, name)
+
+    def relu(self, x):
+        j = len(self.calls)
+        if self.forced is None:
+            self.calls.append(("relu", x.detach(), x.detach() > 0))
+            return self._F.relu(x)
+        mask = self.forced[j]
+        self.calls.append(("relu", x.detach(), mask))
+        return self._torch.where(mask, x, self._torch.zeros_like(x))
+
+    def max_pool2d(self, x, kernel, stride):
+        j = len(self.calls)
+        out, idx = self._F.max_pool2d(x, kernel, stride, return_indices=True)
+        if self.forced is not None:
+            idx = self.forced[j]
+            out = x.flatten(2).gather(2, idx.flatten(2)).reshape(idx.shape)
+        self.calls.append(("pool", x.detach(), idx))
+        return out
+
+
+def _client_part(t, i: int, k: int):
+    """Client ``i``'s part of a cohort forward's tensor: its channel block
+    of the grouped layout (B, K*C, ...), or its row of (K, B, N)."""
+    if t.ndim == 3:
+        return t[i]
+    c = t.shape[1] // k
+    return t[:, i * c:(i + 1) * c]
+
+
+def _cohort_of(parts: list):
+    """The cohort forward's decision from its clients' (the inverse of
+    ``_client_part``)."""
+    import torch
+    return (torch.stack(parts) if parts[0].ndim == 2
+            else torch.cat(parts, dim=1))
+
+
+def route_flips(serial_calls, cohort_calls, i: int, k: int) -> list[float]:
+    """Where the cohort forward routed client ``i`` otherwise than the
+    serial forward: for each such ReLU or max-pool decision, its margin
+    in the serial forward's own input (``|x|`` at a ReLU, the chosen
+    maximum less the cohort's choice at a pool) over the layer's largest
+    ``|x|``."""
+    margins = []
+    for (kind, xs, ds), (_, _, dc) in zip(serial_calls, cohort_calls):
+        dc = _client_part(dc, i, k)
+        scale = float(xs.abs().max()) or 1.0
+        flip = ds != dc
+        if not bool(flip.any()):
+            continue
+        if kind == "relu":
+            margins += (xs[flip].abs() / scale).tolist()
+        else:
+            plane = xs.flatten(2)
+            chosen = plane.gather(2, ds.flatten(2)).reshape(ds.shape)
+            other = plane.gather(2, dc.flatten(2)).reshape(dc.shape)
+            margins += ((chosen - other)[flip].abs() / scale).tolist()
+    return margins
+
+
+def step_gaps(torch, eng, k: int) -> list[dict]:
+    """The cohort route against the serial route one local step at a
+    time, teacher-forced from the serial route's own states.
+
+    ``eng`` is an engine on the serial executor.  Its first ``k`` clients
+    train one round one after another through ``client_round`` against
+    the server, and every state a W-step or an S-step starts from
+    (params, scales, BN state, optimizer state, the batch) is recorded
+    through ``client_round.steps``.  From each recorded state one step is
+    taken three ways: the cohort route (the ``k`` clients' states stacked
+    into one call of the same step, as ``client_round.cohort`` takes it),
+    the serial route, and the control: the serial route with that
+    state's params one ulp up (toward +inf), a step that differs only by
+    float32 rounding.  Per step, against the serial step: the largest
+    gradient gap of any client's leaf relative to the leaf's norm,
+    floored at ``GRAD_FLOOR`` times that client's largest leaf norm
+    (``gap``), and the count of stepped params (W-steps) or scales
+    (S-steps) apart by more than ``STEP_PARAM_TOL`` (``apart``).
+
+    Each step also records (the VGG family: ``models.cnn``'s ``F.relu``
+    and ``F.max_pool2d`` through :class:`Routing`) every ReLU and max-pool
+    decision of the serial and the cohort
+    forwards, lists the margins of the decisions the cohort route took
+    otherwise (``flips``, see ``route_flips``), and takes the cohort and
+    the control steps once more with their routing forced to the serial
+    forward's (``cohort_forced``, ``control_forced``): what is left of the
+    gap then is rounding alone.  Returns one dict a step, W-steps first,
+    in order."""
+    from repro_torch.models import cnn
+    from repro_torch.tree import items, row, stack, tree_map
+
+    lt = eng.local_train
+    cr = lt.executor.round
+    steps = cr.steps
+    w0, s0 = steps.w_step, steps.s_step
+    recorded = {"w": [[] for _ in range(k)], "s": [[] for _ in range(k)]}
+    who = [0]
+
+    def keep(tree):
+        return tree_map(lambda x: x.detach().clone()
+                        if isinstance(x, torch.Tensor) else x, tree)
+
+    def w_rec(*args):
+        recorded["w"][who[0]].append(keep(args))
+        return w0(*args)
+
+    def s_rec(*args):
+        recorded["s"][who[0]].append(keep(args))
+        return s0(*args)
+
+    s = lt.splits
+    bidx = lt.batches(torch.Generator().manual_seed(11), k).to(
+        s.client_x.device)
+    steps.w_step, steps.s_step = w_rec, s_rec
+    try:
+        for i in range(k):
+            who[0] = i
+            cr(eng.server, row(lt.state, i), s.client_x[i], s.client_y[i],
+               s.client_val_x[i], s.client_val_y[i], bidx[i])
+    finally:
+        steps.w_step, steps.s_step = w0, s0
+
+    def up_one(tree):
+        return tree_map(lambda t: torch.nextafter(
+            t, torch.full_like(t, math.inf)), tree)
+
+    f0 = cnn.F
+
+    def routed(call, forced=None):
+        """``call()`` with ``cnn.F`` a :class:`Routing` -> (its result,
+        the routing's calls)."""
+        cnn.F = Routing(torch, forced)
+        try:
+            return call(), cnn.F.calls
+        finally:
+            cnn.F = f0
+
+    out = []
+    for kind, fn in (("w", w0), ("s", s0)):
+        for t in range(len(recorded[kind][0])):
+            states = [recorded[kind][i][t] for i in range(k)]
+            mask = states[0][6]
+            args = [stack([st[j] for st in states]) for j in range(6)]
+            cohort, c_calls = routed(lambda: fn(*args, mask))
+            runs = {"cohort": [], "control": [], "cohort_forced": [],
+                    "control_forced": []}
+            serials, flips = [], []
+            for i, st in enumerate(states):
+                serial, s_calls = routed(lambda: fn(*st))
+                serials.append(serial)
+                runs["cohort"].append(cohort)
+                runs["control"].append(fn(up_one(st[0]), *st[1:]))
+                flips += route_flips(s_calls, c_calls, i, k)
+                runs["control_forced"].append(routed(
+                    lambda: fn(up_one(st[0]), *st[1:]),
+                    [d for _, _, d in s_calls])[0])
+                states[i] = (st, s_calls)
+            forced = [_cohort_of([states[i][1][j][2] for i in range(k)])
+                      for j in range(len(c_calls))]
+            runs["cohort_forced"] = [routed(lambda: fn(*args, mask),
+                                            forced)[0]] * k
+            rec = {"kind": kind, "step": t, "gap": {}, "apart": {},
+                   "flips": len(flips),
+                   "flip_margin": max(flips, default=0.0)}
+            for route, res in runs.items():
+                gap, apart = 0.0, 0
+                for i, (serial, got) in enumerate(zip(serials, res)):
+                    stepped, grads = got[0], got[-1]
+                    if route.startswith("cohort"):
+                        stepped, grads = row(stepped, i), row(grads, i)
+                    g_ser = dict(items(serial[-1]))
+                    g_got = dict(items(grads))
+                    floor = GRAD_FLOOR * max(float(g.norm())
+                                             for g in g_ser.values())
+                    gap = max(gap, max(float((g_got[p] - g).norm())
+                                       / max(float(g.norm()), floor)
+                                       for p, g in g_ser.items()))
+                    apart += sum(int(((a - b).abs() > STEP_PARAM_TOL).sum())
+                                 for (_, a), (_, b) in zip(
+                                     items(stepped), items(serial[0])))
+                rec["gap"][route], rec["apart"][route] = gap, apart
+            out.append(rec)
+    return out
+
+
+def step_rule(gaps: list[dict], route: str = "cohort",
+              control: str = "control") -> tuple[list[dict], dict]:
+    """The step check's rule: at every step the cohort route's largest
+    gradient gap at most ``STEP_FACTOR`` times the control's, and its
+    count of stepped values apart at most ``STEP_FACTOR`` times the
+    control's (a count of 0 taken as 1).  ``route``/``control`` name the
+    two compared (the forced-routing pair: ``cohort_forced``,
+    ``control_forced``).  -> (the steps that break it, the worst ratio of
+    each metric and where)."""
+    broken, worst = [], {"gap": (0.0, None), "apart": (0.0, None)}
+    for g in gaps:
+        where = f"{g['kind']}{g['step']}"
+        ratios = {"gap": g["gap"][route] / max(g["gap"][control], 1e-30),
+                  "apart": g["apart"][route] / max(g["apart"][control], 1)}
+        for m, r in ratios.items():
+            if r > worst[m][0]:
+                worst[m] = (r, where)
+        if any(r > STEP_FACTOR for r in ratios.values()):
+            broken.append(g)
+    return broken, worst
+
+
+def step_verdict(gaps: list[dict]) -> dict:
+    """``step_rule`` on the routes as they run and with their routing
+    forced, and the causes: a step that breaks the rule as it runs is
+    explained when the cohort route routed some ReLU or max-pool decision
+    otherwise than the serial route and every such decision lay within
+    ``TIE_NOISE`` of a tie; the forced pair must hold the rule at every
+    step.  -> the broken steps, the worst ratios and what is unexplained
+    (empty when the check holds)."""
+    broken, worst = step_rule(gaps)
+    broken_f, worst_f = step_rule(gaps, "cohort_forced", "control_forced")
+    wide = [f"{g['kind']}{g['step']}" for g in gaps
+            if g["flip_margin"] > TIE_NOISE]
+    unexplained = [f"{g['kind']}{g['step']}" for g in broken
+                   if g["flips"] == 0]
+    return {"broken": [f"{g['kind']}{g['step']}" for g in broken],
+            "worst": worst, "broken_forced": [
+                f"{g['kind']}{g['step']}" for g in broken_f],
+            "worst_forced": worst_f, "flips_beyond_noise": wide,
+            "unexplained": unexplained,
+            "worst_flip_margin": max(g["flip_margin"] for g in gaps)}
+
+
+def step_check(torch, fl, models, splits) -> dict:
+    """``step_gaps`` at full width in ``exec_serial_k4``'s setting
+    (``vgg11_thinned``, 4 clients of 560 images, batch 32: 17 W-steps and
+    2 x 17 S-steps) on the card, judged by ``step_verdict``: it fails on
+    a step the forced pair breaks, a flipped decision beyond
+    ``TIE_NOISE``, or a broken step without a flip."""
+    s = fl.get_scenario("exec_serial_k4")
+    eng = fl.FederatedEngine(models.vgg11_thinned(), fl.build_protocol(s, 1),
+                             splits, engine_cfg=fl.build_engine(s),
+                             device="cuda")
+    gaps = step_gaps(torch, eng, 4)
+    verdict = step_verdict(gaps)
+    for g in gaps:
+        print(f"  step_check {g['kind']}-step {g['step']:2d}: gradient gap "
+              + ", ".join(f"{r} {v:.3g}" for r, v in g["gap"].items())
+              + f"; apart by > {STEP_PARAM_TOL:g}: " + ", ".join(
+                  f"{r} {v}" for r, v in g["apart"].items())
+              + f"; cohort routing flips {g['flips']} (largest margin "
+              f"{g['flip_margin']:.3g})")
+    print(f"  step_check: {len(gaps)} steps, {verdict} (rule: at most "
+          f"{STEP_FACTOR:g} times the control's; ties within "
+          f"{TIE_NOISE:g})")
+    if (verdict["broken_forced"] or verdict["flips_beyond_noise"]
+            or verdict["unexplained"]):
+        fail(f"step_check: {verdict}")
+    return {"steps": gaps, "verdict": verdict, "factor": STEP_FACTOR}
+
+
+POP_COHORT = 32      # pop_100k_diurnal's cohort
+
+
+def span_ms(res, names) -> dict:
+    """Host ms and count of each span ``names`` recorded in a run with
+    ``telemetry="trace"``."""
+    out = {n: {"ms": 0.0, "count": 0} for n in names}
+    for sp in res.telemetry.recorder.snapshot():
+        if sp.name in out:
+            out[sp.name]["ms"] += sp.dur_ns / 1e6
+            out[sp.name]["count"] += 1
+    return out
+
+
+def population_paths(torch, mods, rounds_mod, fl, models, splits,
+                     rounds_out) -> dict:
+    """The population axis on the card (slice 13):
+
+    * (a) ``pop_100k_diurnal`` through ``run_scenario`` on
+      ``vgg11_thinned`` with the full-width split as its 8 base shards:
+      10^5 virtual clients, cohorts of 32 streamed under diurnal
+      availability, their state in the sharded store (16 clients a shard,
+      8 hot, spilled with zlib since the card's machine has no
+      zstandard), 1 round: one ``level_assign`` and 110/102
+      ``scaled_matmul`` launches as for any batched round; its wall,
+      bytes, the store's counters and the host ms of the spans
+      ``store.spill``, ``store.load`` and ``store.materialize``;
+    * (b) the memory store against the sharded one at full width: 64
+      virtual clients, cohorts of 8, 4 clients a shard, 2 hot, 2 rounds
+      (spills and loads required): records, bytes and server bit for bit;
+    * (c) ``pop_1m_lazy_k32`` and ``churn_midround_async`` on the
+      scenarios' tiny VGG (a depth cut), 2 rounds each: the churn count
+      and the adaptive windows' sizes."""
+    out = {}
+
+    # (a)
+    s = dataclasses.replace(fl.get_scenario("pop_100k_diurnal"),
+                            telemetry="trace")
+    holder = {}
+
+    def go():
+        holder["res"] = fl.run_scenario(s, rounds=1,
+                                        model=models.vgg11_thinned(),
+                                        splits=splits, device="cuda")
+        return holder["res"]
+
+    engines = []
+    init0 = fl.FederatedEngine.__init__
+
+    def init(self, *a, **kw):
+        init0(self, *a, **kw)
+        engines.append(self)
+
+    fl.FederatedEngine.__init__ = init
+    try:
+        out["pop_100k_diurnal"] = run_path(
+            torch, mods, rounds_mod, "pop_100k_diurnal", go,
+            {"level_assign": 1, **sm_per_round(POP_COHORT)}, POP_COHORT, 2,
+            rounds_out)
+    finally:
+        fl.FederatedEngine.__init__ = init0
+    res = holder["res"]
+    stats = engines[0].local_train.store.stats()
+    spans = span_ms(res, ("store.spill", "store.load", "store.materialize",
+                          "uplink.intake", "local_train.cohort"))
+    rec = res.records[0]
+    out["pop_100k_diurnal"].update(store=stats, spans=spans,
+                                   sim_time_s=rec.sim_time_s,
+                                   participants=list(rec.participants))
+    print(f"  pop_100k_diurnal at full width, K = {POP_COHORT}: wall "
+          f"{rec.wall_s:.3f} s, up_bytes {rec.up_bytes}, sim_time_s "
+          f"{rec.sim_time_s:.3f}, store {stats}, host spans "
+          + ", ".join(f"{k} {v['ms']:.1f} ms in {v['count']}"
+                      for k, v in spans.items()))
+    if (stats["materializations"] < 1 or stats["spills"] < 1
+            or max(rec.participants) < splits.num_clients):
+        fail(f"pop_100k_diurnal: store {stats}, participants "
+             f"{rec.participants}")
+
+    # (b)
+    runs = {}
+    for backend in ("memory", "sharded"):
+        sb = dataclasses.replace(
+            fl.get_scenario("pop_100k_diurnal"), population=64,
+            cohort_size=8, store=backend, store_shard_size=4,
+            store_hot_shards=2)
+        eng = fl.FederatedEngine(models.vgg11_thinned(),
+                                 fl.build_protocol(sb, 2), splits,
+                                 engine_cfg=fl.build_engine(sb),
+                                 device="cuda")
+        runs[backend] = (eng, eng.run(2))
+    (em, rm), (es, rs_) = runs["memory"], runs["sharded"]
+    st = es.local_train.store.stats()
+    same = [(r.up_bytes, r.test_acc, r.participants, r.sim_time_s)
+            for r in rm.records] == [
+        (r.up_bytes, r.test_acc, r.participants, r.sim_time_s)
+        for r in rs_.records]
+    from repro_torch.tree import sorted_items
+    for part in ("params", "scales", "bn_state"):
+        for (p, a), (_, b) in zip(sorted_items(getattr(em.server, part)),
+                                  sorted_items(getattr(es.server, part))):
+            same = same and bits_equal(torch, a, b)
+    out["memory_vs_sharded"] = {
+        "store": st, "bitwise": same,
+        "records": [[r.round, r.up_bytes, r.test_acc, list(r.participants)]
+                    for r in rs_.records],
+        "walls_s": {b: [r.wall_s for r in runs[b][1].records]
+                    for b in runs}}
+    print(f"  memory against sharded store at full width (64 clients, "
+          f"cohorts of 8, 4 a shard, 2 hot, 2 rounds): bit for bit {same}, "
+          f"store {st}, walls {out['memory_vs_sharded']['walls_s']}")
+    if not same or st["spills"] < 1 or st["loads"] < 1:
+        fail(f"memory against sharded store: {out['memory_vs_sharded']}")
+
+    # (c)
+    for name in ("pop_1m_lazy_k32", "churn_midround_async"):
+        sc = fl.get_scenario(name)
+        model, data = fl.default_setting(sc.num_clients)
+        eng = fl.FederatedEngine(model, fl.build_protocol(sc, 2), data,
+                                 engine_cfg=fl.build_engine(sc),
+                                 device="cuda")
+        for mod in mods:
+            mod.reset_counters()
+        res = eng.run(2)
+        torch.cuda.synchronize()
+        sch = eng.scheduler
+        got = {"records": [[r.round, r.up_bytes, r.test_acc, r.sim_time_s,
+                            list(r.participants)] for r in res.records],
+               "store": eng.local_train.store.stats(),
+               "churned_total": getattr(sch, "churned_total", 0),
+               "window_sizes": getattr(sch, "batch_sizes", None),
+               "launches": launch_counts(*mods)}
+        out[name] = got
+        print(f"  {name} (the scenario's tiny VGG): {got}")
+        for r in res.records:
+            rounds_out.append([name, r.round, r.test_acc, r.train_loss,
+                               r.up_bytes, r.wall_s, r.down_bytes])
+            if not (math.isfinite(r.train_loss) and r.up_bytes > 0
+                    and r.participants):
+                fail(f"{name}: bad round record {r}")
+        if got["launches"]["level_assign"] < 1:
+            fail(f"{name}: no level_assign launch")
+    if out["churn_midround_async"]["churned_total"] < 1:
+        fail("churn_midround_async: no client churned")
+    return out
 
 
 def reference_tiny(torch):
@@ -4481,6 +4930,21 @@ def main() -> int:
                         rounds_out)
     t1 = phase("executors (exec_serial_k4, sharded_cohort_full)", t1)
 
+    # slice 13: the executor gap one step at a time, and the population
+    # axis (the cohort kernels at K = 32, virtual clients through the
+    # sharded store, churn, adaptive windows)
+    steps = step_check(torch, fl, models, splits)
+    t1 = phase("step check (exec_serial_k4, one step at a time)", t1)
+    s13_checks, s13_timings = cohort_kernel_phase(
+        torch, sm, la, models, cohort=POP_COHORT,
+        sm_shapes=((32, 128, 128), (32, 10, 128), (120, 128, 128)),
+        la_models=(("vgg11_thinned", VGG_LEAVES),))
+    checks += s13_checks
+    s13 = population_paths(torch, mods, rounds_mod, fl, models, splits,
+                           rounds_out)
+    t1 = phase("population axis (pop_100k_diurnal, memory against "
+               "sharded, pop_1m_lazy_k32, churn_midround_async)", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
@@ -4607,6 +5071,9 @@ def main() -> int:
         "per_client_launches_ms": la_timing["per_client_ms"],
         "per_client_launches_call_ms": la_timing["per_client_call_ms"],
         "cohort_kernel_phase": s12_timings["level_assign"],
+        "cohort_32_kernel_phase": s13_timings["level_assign"],
+        "launches_pop_100k_diurnal": path_total(s13["pop_100k_diurnal"],
+                                                "level_assign"),
         "launches_bidirectional_path_a":
             a_launches["run_federated bidirectional"],
         "launches_path_d": d_out["level_assign"],
@@ -4682,6 +5149,8 @@ def main() -> int:
                               for label, r in runs.items()},
         "cohort_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["forward"])
                                 for r in s12_timings["scaled_matmul"]],
+        "cohort_32_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["forward"])
+                                   for r in s13_timings["scaled_matmul"]],
         "resnet18_small": s10_timings["scaled_matmul"]})
     bwd = sm_timing["backward"]
     first = next((r for r in bwd if r["mnk"] == [32, 128, 128]
@@ -4705,6 +5174,9 @@ def main() -> int:
                               for label, r in runs.items()},
         "cohort_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["backward_dx_dw"])
                                 for r in s12_timings["scaled_matmul"]],
+        "cohort_32_kernel_phase": [
+            dict(k_mnk=r["k_mnk"], **r["backward_dx_dw"])
+            for r in s13_timings["scaled_matmul"]],
         "resnet18_small": s10_timings["scaled_matmul_backward"]})
     for k in kernels:
         if k["launches"] < 1:
@@ -4732,6 +5204,9 @@ def main() -> int:
         "paths_i_to_l": s10, "resnet_t_small_input": resnet_t,
         "paths_m_to_o": s11, "mobilenet_t_small_input": mobilenet_t,
         "executors": s12,
+        "step_check": {"verdict": steps["verdict"],
+                       "factor": steps["factor"], "steps": steps["steps"]},
+        "population": s13,
         "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))

@@ -102,6 +102,18 @@ class RoundOutput(NamedTuple):
     metrics: Any
 
 
+class RoundSteps:
+    """The local steps a client round is made of, shared by
+    ``client_round`` and its cohort form: ``w_step`` (one Adam step of W),
+    ``s_step`` (one step of the scales) and ``masks`` (the trainable and
+    scale masks of a params tree).  A round calls them through this
+    object, so replacing an attribute records or alters every step of
+    both routes."""
+
+    def __init__(self, w_step: Callable, s_step: Callable, masks: Callable):
+        self.w_step, self.s_step, self.masks = w_step, s_step, masks
+
+
 def _grad_tree(loss: torch.Tensor, tree: Any) -> Any:
     """d loss / d every leaf of ``tree`` (leaves require grad), as a tree."""
     grads = iter(torch.autograd.grad(loss, leaves(tree)))
@@ -194,32 +206,66 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
                                    device=torch.device(device)))
         return ServerState(params, scales, bn_state), persistent
 
+    # ------------------------------------------------------------- steps
+
+    # one local step, of one client (its loss a scalar) or of a cohort
+    # (every leaf and the images lead with K, the loss (K,) and its sum
+    # differentiated, so each client's gradient is its own)
+
+    def _grad(loss, tree):
+        return _grad_tree(loss if loss.ndim == 0 else torch.sum(loss), tree)
+
+    def w_step(params, scales0, bn, opt_state, x, y, t_mask):
+        """One Adam step of W on the batch ``x, y`` (S frozen, BN in
+        training mode) -> (params, bn, opt_state, loss, grads)."""
+        with torch.enable_grad():
+            p_req = _requiring_grad(params)
+            loss, new_bn = loss_fn(p_req, scales0, bn, x, y, True)
+            grads = _grad(loss, p_req)
+        if t_mask is not None:
+            grads = _mask_tree(grads, t_mask)
+        upd, opt_state = w_opt.update(grads, opt_state, params)
+        return (apply_updates(params, upd),
+                tree_map(torch.Tensor.detach, new_bn), opt_state,
+                loss.detach(), grads)
+
+    def s_step(params_hat, scales, bn1, sopt, x, y, s_mask):
+        """One step of the scales S on the batch (BN frozen, train=False;
+        W frozen by construction) -> (scales, scale_opt_state, grads)."""
+        with torch.enable_grad():
+            s_req = _requiring_grad(scales)
+            loss, _ = loss_fn(params_hat, s_req, bn1, x, y, False)
+            g = _mask_tree(_grad(loss, s_req), s_mask)
+        upd, sopt = s_opt.update(g, sopt, scales)
+        return apply_updates(scales, upd), sopt, g
+
+    def masks(params):
+        """(trainable mask or None, scale mask) of one client's params."""
+        return ((None if cfg.trainable_predicate is None
+                 else trainable_mask(params, cfg.trainable_predicate)),
+                scaling_lib.scale_mask(params, scale_pred))
+
+    # both routes take their steps through this namespace, so a check can
+    # record the states a round steps from (``chip_smoke.step_check``)
+    steps = RoundSteps(w_step, s_step, masks)
+
     # ------------------------------------------------------------- round
 
     def client_round(server: ServerState, persistent: ClientPersistent,
                      train_x, train_y, val_x, val_y,
                      batch_idx) -> RoundOutput:
         params0, scales0, bn0 = server
-        t_mask = (None if cfg.trainable_predicate is None
-                  else trainable_mask(params0, cfg.trainable_predicate))
-        s_mask = scaling_lib.scale_mask(params0, scale_pred)
+        t_mask, s_mask = steps.masks(params0)
         fine_mask = stages_lib.path_fine_mask(params0)
 
         # ---- 2. local training of W (S frozen) --------------------------
         params, bn, opt_state = params0, bn0, persistent.opt_state
         losses = []
         for idx in batch_idx:
-            with torch.enable_grad():
-                p_req = _requiring_grad(params)
-                loss, new_bn = loss_fn(p_req, scales0, bn, train_x[idx],
-                                       train_y[idx], True)
-                grads = _grad_tree(loss, p_req)
-            if t_mask is not None:
-                grads = _mask_tree(grads, t_mask)
-            upd, opt_state = w_opt.update(grads, opt_state, params)
-            params = apply_updates(params, upd)
-            bn = tree_map(torch.Tensor.detach, new_bn)
-            losses.append(loss.detach())
+            params, bn, opt_state, loss, _ = steps.w_step(
+                params, scales0, bn, opt_state, train_x[idx], train_y[idx],
+                t_mask)
+            losses.append(loss)
         params1, bn1 = params, bn
 
         # ---- 3. codec stages: delta + error feedback + sparsify + quant --
@@ -251,15 +297,9 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
             scales = best_s = scales0
             for epoch in range(1, cfg.scale_subepochs + 1):
                 for idx in batch_idx:
-                    with torch.enable_grad():
-                        s_req = _requiring_grad(scales)
-                        # BN frozen (train=False), W frozen by construction
-                        loss, _ = loss_fn(params_hat, s_req, bn1,
-                                          train_x[idx], train_y[idx], False)
-                        g = _grad_tree(loss, s_req)
-                    g = _mask_tree(g, s_mask)
-                    upd, sopt = s_opt.update(g, sopt, scales)
-                    scales = apply_updates(scales, upd)
+                    scales, sopt, _ = steps.s_step(
+                        params_hat, scales, bn1, sopt, train_x[idx],
+                        train_y[idx], s_mask)
                 perf = accuracy(params_hat, scales, bn1, val_x, val_y)
                 if bool(perf >= best_perf):
                     best_s, best_perf, best_epoch = scales, perf, epoch
@@ -302,9 +342,7 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
         params0, scales0, bn0 = servers
         k = train_x.shape[0]
         template = row(params0, 0)        # masks read one client's shapes
-        t_mask = (None if cfg.trainable_predicate is None
-                  else trainable_mask(template, cfg.trainable_predicate))
-        s_mask = scaling_lib.scale_mask(template, scale_pred)
+        t_mask, s_mask = steps.masks(template)
         fine_mask = stages_lib.path_fine_mask(template)
         rows = torch.arange(k, device=train_x.device)[:, None]
 
@@ -313,17 +351,10 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
         losses = []
         for t in range(batch_idx.shape[1]):
             idx = batch_idx[:, t]
-            with torch.enable_grad():
-                p_req = _requiring_grad(params)
-                loss, new_bn = loss_fn(p_req, scales0, bn, train_x[rows, idx],
-                                       train_y[rows, idx], True)
-                grads = _grad_tree(torch.sum(loss), p_req)
-            if t_mask is not None:
-                grads = _mask_tree(grads, t_mask)
-            upd, opt_state = w_opt.update(grads, opt_state, params)
-            params = apply_updates(params, upd)
-            bn = tree_map(torch.Tensor.detach, new_bn)
-            losses.append(loss.detach())
+            params, bn, opt_state, loss, _ = steps.w_step(
+                params, scales0, bn, opt_state, train_x[rows, idx],
+                train_y[rows, idx], t_mask)
+            losses.append(loss)
         params1, bn1 = params, bn
 
         # ---- 3. codec stages: delta + error feedback + sparsify + quant --
@@ -360,15 +391,9 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
             for epoch in range(1, cfg.scale_subepochs + 1):
                 for t in range(batch_idx.shape[1]):
                     idx = batch_idx[:, t]
-                    with torch.enable_grad():
-                        s_req = _requiring_grad(scales)
-                        loss, _ = loss_fn(params_hat, s_req, bn1,
-                                          train_x[rows, idx],
-                                          train_y[rows, idx], False)
-                        g = _grad_tree(torch.sum(loss), s_req)
-                    g = _mask_tree(g, s_mask)
-                    upd, sopt = s_opt.update(g, sopt, scales)
-                    scales = apply_updates(scales, upd)
+                    scales, sopt, _ = steps.s_step(
+                        params_hat, scales, bn1, sopt, train_x[rows, idx],
+                        train_y[rows, idx], s_mask)
                 perf = accuracy(params_hat, scales, bn1, val_x, val_y)
                 better = perf >= best_perf
                 best_s = tree_map(
@@ -403,6 +428,7 @@ def make_protocol(model: CNNModel, cfg: ProtocolConfig, steps_per_round: int):
         return accuracy(server.params, server.scales, server.bn_state, x, y)
 
     client_round.cohort = cohort_round
+    client_round.steps = steps
     return init, client_round, evaluate
 
 

@@ -13,13 +13,18 @@ FedBuff weight
 is normalised over the buffer, in float64.  Client latencies are lognormal
 per client and drive a simulated clock (``RoundRecord.sim_time_s``).
 
-The arrival-adaptive window (``adaptive_window``, sized from the cohort
-benchmark's measured per-call saving) belongs to the population item and
-is not ported.
+``adaptive_window`` replaces a fixed dispatch window by greedy merging:
+the next finisher joins the executor call while its marginal simulated
+wait is at most the per-call saving ``call_saving_s``.  The port takes
+that saving as given, or ``load_call_saving``'s default of 0.05 s: the
+reference derives it from its cohort benchmark (``BENCH_cohort.json``, a
+JAX run on a CPU, not a measurement of this port), which the port reads
+only when a path to such a file is passed.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -39,9 +44,41 @@ class AsyncConfig:
     # the earliest finisher train in ONE executor call (0.0 = one
     # completion at a time, ties included)
     dispatch_window: float = 0.0
-    # the arrival-adaptive window: not ported (EngineConfig.validate
-    # raises for it)
+    # the arrival-adaptive window: merge the next finisher while its gap to
+    # the previous one is at most the per-call saving (mutually exclusive
+    # with dispatch_window > 0)
     adaptive_window: bool = False
+    # simulated seconds one merged executor call saves; None: the default
+    # of load_call_saving()
+    call_saving_s: float | None = None
+
+
+def load_call_saving(path: str | None = None, default: float = 0.05) -> float:
+    """The simulated seconds one merged executor call saves, from a cohort
+    benchmark's async section (the reference's ``BENCH_cohort.json``
+    layout), with the reference's formula:
+
+        saving = (T_serial_agg - T_windowed_agg) / B / (1 - 1/m)
+
+    with B completions an aggregation and m the mean windowed batch size.
+    ``path=None``, a file that cannot be read, or a benchmark that shows
+    no saving gives ``default``; the port looks for no file itself."""
+    if path is None:
+        return default
+    try:
+        with open(path) as f:
+            bench = json.load(f)["async"]
+        t_serial = float(bench["no_wire"]["serial_completions"]
+                         ["steady_agg_s"])
+        t_windowed = float(bench["no_wire"]["windowed"]["steady_agg_s"])
+        sizes = bench["no_wire"]["windowed"]["batch_sizes"]
+        m = float(np.mean(sizes)) if sizes else 1.0
+        b = float(bench["concurrency"])
+    except (OSError, KeyError, ValueError, json.JSONDecodeError):
+        return default
+    if m <= 1.0 or b <= 0.0 or t_serial <= t_windowed:
+        return default
+    return (t_serial - t_windowed) / b / (1.0 - 1.0 / m)
 
 
 class BufferEntry(NamedTuple):

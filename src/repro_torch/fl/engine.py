@@ -20,14 +20,25 @@ may code the cohort on a thread or forkserver pool (``uplink_workers``,
 the decoded payloads into running accumulators (``fl.ingest``) instead
 of gathering them.  ``telemetry`` (``"off" | "metrics" | "trace"``, the
 port's ``obs``) records spans and per-round counters into
-``RoundRecord.telemetry`` without changing a record.
+``RoundRecord.telemetry`` without changing a record, and ``metrics_out``
+streams each round's snapshot to a JSONL file.
+
+The population axis (``fl.population``): ``population`` virtual clients
+over the splits' base shards (their data hashed onto the shards), their
+persistent state in a client-state store (``store``: the device tree in
+memory, or sharded on the host with spill-to-disk), cohorts streamed by a
+hash draw, and a ``traffic`` model (diurnal availability, device-class
+latencies, mid-round churn) gating the cohorts and driving the simulated
+clock.  Async windows may be sized adaptively
+(``AsyncConfig.adaptive_window``).
 
 Randomness: standalone runs draw the initial state, cohorts, latencies
 and batch orders from one ``torch.Generator`` seeded with ``seed``.  Runs
 held against the reference pass ``init_state`` (the reference's initial
 ``ServerState``/``ClientPersistent`` through ``repro_torch.convert``) and
 ``plan`` (sync: its per-round cohorts and batch indices; async: a
-``rounds.AsyncPlan``) instead.
+``rounds.AsyncPlan``) instead.  Streamed cohorts and traffic draws are
+hash functions of their seeds, the reference's ids in both packages.
 """
 from __future__ import annotations
 
@@ -47,6 +58,8 @@ from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.executors import EXECUTORS, make_executor
 from repro_torch.fl.ingest import IngestConfig, StreamingIngest
+from repro_torch.fl.population import (StoreConfig, TrafficConfig,
+                                       TrafficModel, make_store, make_view)
 from repro_torch.fl.rounds import (SCHEDULERS, Aggregate, CohortPlan,
                                    Downlink, Evaluate, LocalTrain,
                                    RoundIntake, ServerStep, Uplink,
@@ -55,7 +68,7 @@ from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig, make_server_opt
 from repro_torch.launch.mesh import device_count
 from repro_torch.obs import trace as obs_trace
-from repro_torch.runtime import not_ported, resolve_device
+from repro_torch.runtime import resolve_device
 from repro_torch.tree import leaves, row, tree_map
 
 
@@ -71,7 +84,7 @@ class RoundRecord:
     train_loss: float
     wall_s: float
     participants: tuple[int, ...] = ()
-    sim_time_s: float = 0.0   # simulated clock (with a channel; else 0)
+    sim_time_s: float = 0.0   # simulated clock (a channel or traffic; else 0)
     # the round's metrics snapshot (obs.MetricsRegistry.snapshot_round),
     # None with telemetry off; never part of a parity comparison
     telemetry: dict | None = None
@@ -125,14 +138,6 @@ class RunResult:
         return float(np.mean(vals)) if vals else float("nan")
 
 
-# fields of the reference's EngineConfig that the port does not run yet,
-# with their defaults and the port-queue item that will bring them
-_NOT_PORTED_FIELDS = {
-    "population": (None, "streaming ingest, population, telemetry"),
-    "metrics_out": (None, "streaming ingest, population, telemetry"),
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     sampling: SamplingConfig = dataclasses.field(
@@ -162,19 +167,14 @@ class EngineConfig:
     ingest: str = "gather"
     ingest_opts: IngestConfig = dataclasses.field(
         default_factory=IngestConfig)
+    # the population axes (fl.population)
+    population: int | None = None        # virtual clients (None: splits')
+    store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
+    traffic: TrafficConfig | None = None  # trace-driven arrivals, churn
     telemetry: str = "off"               # "off" | "metrics" | "trace"
-    # accepted only at the reference's defaults (not ported yet)
-    population: int | None = None
-    metrics_out: str | None = None
+    metrics_out: str | None = None       # per-round snapshot JSONL stream
 
     def validate(self, num_clients: int | None = None) -> None:
-        for name, (default, item) in _NOT_PORTED_FIELDS.items():
-            if getattr(self, name) != default:
-                raise not_ported(f"EngineConfig.{name}={getattr(self, name)!r}",
-                                 item)
-        if self.async_cfg.adaptive_window:
-            raise not_ported("AsyncConfig.adaptive_window",
-                             "streaming ingest, population, telemetry")
         if self.mode not in SCHEDULERS:
             raise ValueError(f"unknown engine mode: {self.mode!r}")
         if self.executor not in EXECUTORS:
@@ -228,13 +228,40 @@ class EngineConfig:
             raise ValueError("device_encode builds real payloads on device: "
                              "set measure_bytes=True")
         if (self.mode == "async" and self.uplink_workers > 1
-                and self.async_cfg.dispatch_window <= 0.0):
+                and self.async_cfg.dispatch_window <= 0.0
+                and not self.async_cfg.adaptive_window):
             raise ValueError(
-                "uplink_workers parallelises a batch of wire round trips; "
+                "uplink_workers parallelises a batch of wire round-trips; "
                 "with dispatch_window=0 the async scheduler transmits one "
-                "completion at a time, so a pool would do nothing: set "
-                "AsyncConfig.dispatch_window > 0 or leave uplink_workers "
-                "unset")
+                "completion at a time, so a pool would be a silent no-op — "
+                "set AsyncConfig.dispatch_window > 0 or adaptive_window "
+                "(window batches flow through the pooled intake) or leave "
+                "uplink_workers unset")
+        if self.async_cfg.adaptive_window:
+            if self.mode != "async":
+                raise ValueError(
+                    "AsyncConfig.adaptive_window sizes async dispatch "
+                    f"batches; it has no meaning for mode={self.mode!r}")
+            if self.async_cfg.dispatch_window > 0.0:
+                raise ValueError(
+                    "adaptive_window and a fixed dispatch_window are "
+                    "mutually exclusive — drop one")
+            cs = self.async_cfg.call_saving_s
+            if cs is not None and cs < 0.0:
+                raise ValueError("AsyncConfig.call_saving_s must be >= 0 "
+                                 "(simulated seconds per merged call)")
+        if self.population is not None:
+            if self.population < 1:
+                raise ValueError(
+                    f"population must be >= 1, got {self.population}")
+            if self.mode == "sync" and self.sampling.cohort_size is None:
+                raise ValueError(
+                    "a population axis means full participation would "
+                    "materialize every virtual client — set "
+                    "SamplingConfig.cohort_size (K << population)")
+        self.store.validate()
+        if self.traffic is not None:
+            self.traffic.validate()
         if self.uplink_executor not in ("thread", "process"):
             raise ValueError("uplink_executor must be 'thread' or 'process', "
                              f"got {self.uplink_executor!r}")
@@ -264,6 +291,9 @@ class EngineConfig:
             known = ", ".join(obs.TELEMETRY_MODES)
             raise ValueError(f"unknown telemetry mode: {self.telemetry!r} "
                              f"(known: {known})")
+        if self.metrics_out is not None and self.telemetry == "off":
+            raise ValueError("metrics_out streams per-round snapshots; it "
+                             "needs telemetry='metrics' or 'trace'")
 
 
 # ------------------------------------------------------------- byte helpers
@@ -302,12 +332,15 @@ class FederatedEngine:
                  *, seed: int = 42, engine_cfg: EngineConfig | None = None,
                  init_state=None, plan=None, device=None):
         engine_cfg = engine_cfg if engine_cfg is not None else EngineConfig()
-        engine_cfg.validate(splits.num_clients)
+        num_clients = (engine_cfg.population
+                       if engine_cfg.population is not None
+                       else splits.num_clients)
+        engine_cfg.validate(num_clients)
         self.device = resolve_device(device)
         self.config_name = cfg.name
         self.protocol_cfg = cfg
         splits = splits.to(self.device)
-        self.num_clients = splits.num_clients
+        self.num_clients = num_clients
 
         steps_per_round = max(1, splits.n_train // cfg.batch_size)
         init, client_round, evaluate = make_protocol(model, cfg,
@@ -321,13 +354,25 @@ class FederatedEngine:
         self.version = 0    # aggregations with survivors (async staleness)
         self.async_cfg = engine_cfg.async_cfg
         self.engine_cfg = engine_cfg
+        self.traffic = (TrafficModel(engine_cfg.traffic)
+                        if engine_cfg.traffic is not None else None)
         # the run's span recorder and metrics registry, ambient for the
         # duration of run() (off: the shared no-op bundle)
-        self.telemetry = obs.make_telemetry(engine_cfg.telemetry)
+        self.telemetry = obs.make_telemetry(
+            engine_cfg.telemetry, metrics_out=engine_cfg.metrics_out)
 
-        self.cohort = CohortPlan(engine_cfg.sampling, self.num_clients)
+        # the population axes: per-client state in a store, data through a
+        # view (the splits, or virtual clients hashed onto them), and
+        # streamed cohorts with a population or a traffic model
+        self.cohort = CohortPlan(
+            engine_cfg.sampling, self.num_clients,
+            streaming=engine_cfg.population is not None,
+            traffic=self.traffic)
         self.local_train = LocalTrain(
-            client_round, splits, persistent0, self.num_clients,
+            client_round,
+            make_view(splits, engine_cfg.population,
+                      seed=engine_cfg.sampling.stream_seed),
+            make_store(engine_cfg.store, persistent0, self.num_clients),
             cfg.batch_size, make_executor(engine_cfg.executor,
                                           mesh_shape=engine_cfg.mesh_shape,
                                           device=self.device))
@@ -387,6 +432,8 @@ class FederatedEngine:
         m.gauge("round.cohort", len(intake.contributions))
         m.gauge("round.survivors", len(intake.survivors))
         m.gauge("uplink.pool_tasks", self.uplink.pool_tasks)
+        for k, v in self.local_train.store.stats().items():
+            m.gauge(f"store.{k}", v)
 
     def run(self, rounds: int, *, verbose: bool = False) -> RunResult:
         records: list[RoundRecord] = []
@@ -437,6 +484,7 @@ class FederatedEngine:
                               + self.scheduler.log_line(rec, intake))
         finally:
             self.uplink.close()
+            tel.close()
         return RunResult(self.config_name, records, server=self.server,
                          telemetry=tel)
 

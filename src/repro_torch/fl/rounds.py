@@ -47,16 +47,18 @@ from repro_torch.comms import pool as comms_pool
 from repro_torch.comms import stages as stages_lib
 from repro_torch.comms.codecs import Int8BlockScaleCodec
 from repro_torch.core import delta as delta_lib
+from repro_torch.core import prand
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.core.protocol import ProtocolConfig, ServerState
 from repro_torch.data.federated import client_epoch_batches, epoch_batches
-from repro_torch.fl.async_buffer import (client_latencies,
+from repro_torch.fl.async_buffer import (client_latencies, load_call_saving,
                                          normalized_staleness_weights,
                                          weighted_mean_trees)
 from repro_torch.fl.executors import ClientExecutor
 from repro_torch.fl.sampling import (EmptyCohortError, SamplingConfig,
-                                     sample_available, sample_cohort)
+                                     sample_available, sample_cohort,
+                                     stream_cohort)
 from repro_torch.fl.server_opt import server_update
 from repro_torch.kernels.delta_apply import delta_apply_leaves
 from repro_torch.obs import metrics as obs_metrics
@@ -134,23 +136,63 @@ class RoundIntake:
 # ---------------------------------------------------------------- cohort plan
 
 class CohortPlan:
-    """Stage 1: who participates (materialized uniform or weighted
-    draws)."""
+    """Stage 1: who participates.  Two regimes:
 
-    def __init__(self, sampling: SamplingConfig, num_clients: int):
+    * **materialized**: uniform or weighted draws over the explicit index
+      range, from the scheduler's generator (full participation draws
+      nothing);
+    * **streaming**, with a population axis or a traffic model: the
+      hash-based :func:`~repro_torch.fl.sampling.stream_cohort`, a pure
+      function of ``(stream_seed, round)``, availability-filtered by the
+      traffic model's diurnal curve; it draws nothing from a generator and
+      never enumerates the population."""
+
+    def __init__(self, sampling: SamplingConfig, num_clients: int, *,
+                 streaming: bool = False, traffic=None):
         self.sampling = sampling
         self.num_clients = num_clients
         self.full = sampling.is_full(num_clients)
+        self.streaming = streaming or traffic is not None
+        self.traffic = traffic
 
     def select(self, gen: torch.Generator) -> np.ndarray:
-        if self.full:
-            return np.arange(self.num_clients)
-        return sample_cohort(gen, self.num_clients, self.sampling)
+        with span("cohort_plan.select", full=self.full):
+            if self.full:
+                return np.arange(self.num_clients)
+            return sample_cohort(gen, self.num_clients, self.sampling)
+
+    def select_stream(self, round_idx: int, now: float) -> np.ndarray:
+        """The streaming regime's cohort: hash-drawn, availability-
+        filtered.  With a traffic model the draw is not strict: an
+        availability trough may give a short (even empty) cohort, and the
+        scheduler advances its clock and draws again."""
+        with span("cohort_plan.select_stream", round=round_idx):
+            accept = None
+            if self.traffic is not None:
+                traffic, t = self.traffic, now
+                accept = lambda ids: traffic.available(ids, t, round_idx)
+            if self.full:
+                ids = np.arange(self.num_clients, dtype=np.int64)
+                if accept is not None:
+                    ids = ids[np.asarray(accept(ids), bool)]
+                return ids
+            weight_fn = None
+            if (self.sampling.strategy == "weighted"
+                    and self.sampling.weights is not None):
+                w = np.asarray(self.sampling.weights, np.float64)
+                peak = w.max()
+                weight_fn = lambda ids: w[ids] / peak
+            return stream_cohort(
+                self.sampling.stream_seed, round_idx, self.num_clients,
+                self.sampling.effective_size(self.num_clients),
+                weight_fn=weight_fn, accept_fn=accept,
+                strict=accept is None)
 
     def select_available(self, gen: torch.Generator, available: np.ndarray,
                          k: int) -> np.ndarray:
         """An async dispatch draw of ``k`` clients from the idle set."""
-        return sample_available(gen, available, k, self.sampling)
+        with span("cohort_plan.select_available", k=k):
+            return sample_available(gen, available, k, self.sampling)
 
 
 # ---------------------------------------------------------------- local train
@@ -158,21 +200,31 @@ class CohortPlan:
 class LocalTrain:
     """Stage 2: run ``client_round`` over a cohort.
 
-    Per-client persistent state is one client-stacked tree on the device
-    (the reference's in-memory store): the single-client template is
-    repeated over the clients, gathered by cohort index before the round
-    and scattered back after it."""
+    Per-client persistent state lives in a client-state store
+    (``fl.population``: the device tree in memory, or sharded on the host
+    with spill-to-disk), and client data comes through a view (the real
+    splits, or a virtual population hashed onto them).  A cohort's rows
+    are gathered from both before the round and its state scattered back
+    after it; under full participation a dense store hands the executor
+    its whole tree and takes the new one back."""
 
-    def __init__(self, client_round, splits, persistent0, num_clients: int,
-                 batch_size: int, executor: ClientExecutor):
+    def __init__(self, client_round, data, store, batch_size: int,
+                 executor: ClientExecutor):
         self.executor = executor
         self.executor.bind(client_round)
-        self.splits = splits
+        self.splits = data          # a SplitsView (the arrays pass through)
+        self.store = store
         self.batch_size = batch_size
-        self.n_train = splits.n_train
-        self.state = tree_map(
-            lambda x: x.expand((num_clients,) + tuple(x.shape)).clone(),
-            persistent0)
+        self.n_train = data.n_train
+
+    @property
+    def state(self):
+        """The whole client-stacked state (dense stores only)."""
+        return self.store.state
+
+    @state.setter
+    def state(self, state) -> None:
+        self.store.set_state(state)
 
     def batches(self, gen: torch.Generator, k: int) -> torch.Tensor:
         return client_epoch_batches(gen, k, self.n_train, self.batch_size)
@@ -180,23 +232,27 @@ class LocalTrain:
     def _run(self, idx, batch_idx: torch.Tensor, servers: list):
         """Rows ``idx`` through the executor, row i against ``servers[i]``
         (one shared snapshot takes ``run_shared``); their persistent state
-        scattered back -> stacked RoundOutput in ``idx`` order."""
-        dev = self.splits.client_x.device
-        sel = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=dev)
-        s = self.splits
-        args = (tree_map(lambda x: x[sel], self.state), s.client_x[sel],
-                s.client_y[sel], s.client_val_x[sel], s.client_val_y[sel],
-                batch_idx.to(dev))
+        written back -> stacked RoundOutput in ``idx`` order.  Every client
+        in order (full participation) on a dense store runs on the whole
+        stacked state, without a gather."""
+        n = self.store.num_clients
+        whole = (self.store.dense and len(idx) == n
+                 and np.array_equal(np.asarray(idx), np.arange(n)))
+        if whole:
+            cx, cy, cvx, cvy = self.splits.all()
+            pers = self.store.state
+        else:
+            cx, cy, cvx, cvy = self.splits.gather(idx)
+            pers = self.store.gather(idx)
+        args = (pers, cx, cy, cvx, cvy, batch_idx.to(cx.device))
         if all(srv is servers[0] for srv in servers[1:]):
             out = self.executor.run_shared(servers[0], *args)
         else:
             out = self.executor.run_stacked(servers, *args)
-
-        def scatter(full, rows):
-            full[sel] = rows
-            return full
-
-        self.state = tree_map(scatter, self.state, out.persistent)
+        if whole:
+            self.store.set_state(out.persistent)
+        else:
+            self.store.scatter(idx, out.persistent)
         self._record_update_metrics(out)
         return out
 
@@ -218,7 +274,8 @@ class LocalTrain:
 
     def train_cohort(self, idx: np.ndarray, batch_idx: torch.Tensor,
                      server: ServerState):
-        """One barrier round over the cohort ``idx`` -> stacked RoundOutput."""
+        """One barrier round over the cohort ``idx`` -> stacked
+        RoundOutput."""
         if len(idx) == 0:
             raise EmptyCohortError("train_cohort received an empty cohort")
         with span("local_train.cohort", n=len(idx)):
@@ -239,13 +296,21 @@ class LocalTrain:
         delta back into that client's residual, ``residual + delta``, so
         its mass goes out again (the scale-delta section has no residual
         and stays lost)."""
-        def add(r, d):
-            if not isinstance(d, torch.Tensor):   # a decoded numpy leaf
-                d = torch.tensor(np.asarray(d, np.float32), device=r.device)
-            r[client] = r[client] + d
-            return r
+        def as_tensor(d, like):
+            if isinstance(d, torch.Tensor):
+                return d.to(like.device)
+            return torch.tensor(np.asarray(d, np.float32), device=like.device)
 
-        tree_map(add, self.state.residual, delta)
+        if self.store.dense:
+            def add(r, d):
+                r[client] = r[client] + as_tensor(d, r)
+                return r
+
+            tree_map(add, self.store.state.residual, delta)
+            return
+        rows = self.store.gather([client])
+        self.store.scatter([client], rows._replace(residual=tree_map(
+            lambda r, d: r + as_tensor(d, r)[None], rows.residual, delta)))
 
 
 # ---------------------------------------------------------------- uplink
@@ -772,15 +837,23 @@ class SyncScheduler:
     Cohorts and batch orders come from the scheduler's ``torch.Generator``,
     or, for runs held against the reference, from ``plan``: one
     ``(cohort indices, (K, steps, batch) batch indices)`` pair per round,
-    as numpy arrays.
+    as numpy arrays.  In the streaming regime (a population axis or a
+    traffic model) the cohort is the hash draw
+    ``CohortPlan.select_stream``, whatever the plan says (a planned cohort
+    that differs raises); an availability trough that gives no client
+    advances the clock one step of the trace's 96 a day and draws again.
 
     With a channel model the simulated clock advances by the round's
     slowest ``down + up`` transfer (the download is the last broadcast's
-    size, read before this round's server step); each upload is then
-    dropped or not by its (round, client) draw.  Dropped bytes stay
-    charged, only the survivors aggregate, the whole cohort receives the
-    broadcast, and under error feedback each lost client's decoded delta
-    goes back into its residual."""
+    size, read before this round's server step); with a traffic model too
+    each participant's compute latency joins its legs, and without a
+    channel the clock waits for the slowest computer.  Each upload is then
+    dropped or not by its (round, client) draw.  A traffic model's churn
+    coin loses a participant mid-round: treated as a drop, but its bytes
+    are not charged (it never uploaded).  Dropped bytes stay charged, only
+    the survivors aggregate, the whole cohort receives the broadcast, and
+    under error feedback each lost client's decoded delta goes back into
+    its residual."""
 
     def bind(self, engine, gen: torch.Generator, plan=None) -> None:
         self.eng = engine
@@ -788,45 +861,97 @@ class SyncScheduler:
         self.plan = None if plan is None else list(plan)
         self.round_idx = 0
         self.sim_clock = 0.0
+        self.churned_total = 0
+
+    def _day_step(self) -> float:
+        traffic = self.eng.traffic
+        return (traffic.cfg.day_s if traffic is not None else 96.0) / 96.0
+
+    def _select_cohort(self) -> np.ndarray:
+        """The streaming cohort; the clock advances through empty
+        availability troughs (at most 1000 steps)."""
+        for _ in range(1000):
+            idx = self.eng.cohort.select_stream(self.round_idx,
+                                                self.sim_clock)
+            if len(idx):
+                return idx
+            self.sim_clock += self._day_step()
+        raise RuntimeError(
+            "sync scheduler stalled: no client passed the availability "
+            "filter after 1000 clock advances; the traffic trace is "
+            "pathologically thin")
 
     def next_round(self) -> RoundIntake:
         eng = self.eng
         self.round_idx += 1
+        planned = None
         if self.plan is not None:
             if self.round_idx > len(self.plan):
                 raise ValueError(f"the plan covers {len(self.plan)} rounds; "
                                  f"round {self.round_idx} was asked for")
-            idx, bidx = self.plan[self.round_idx - 1]
-            idx = np.asarray(idx)
-            bidx = torch.tensor(np.asarray(bidx), dtype=torch.long)
+            planned = self.plan[self.round_idx - 1]
+        if eng.cohort.streaming:
+            idx = self._select_cohort()
+            if planned is not None and not np.array_equal(
+                    np.asarray(planned[0]), idx):
+                raise ValueError(f"planned cohort {list(planned[0])} is not "
+                                 f"the streamed one {idx.tolist()}")
+        elif planned is not None:
+            idx = np.asarray(planned[0])
         else:
             idx = eng.cohort.select(self.gen)
+        if planned is not None:
+            bidx = torch.tensor(np.asarray(planned[1]), dtype=torch.long)
+        else:
             bidx = (eng.local_train.batches(self.gen, len(idx)) if len(idx)
                     else None)
         clients = [int(c) for c in idx]
+        cohort = len(clients)
         try:
             out = eng.local_train.train_cohort(idx, bidx, eng.server)
         except EmptyCohortError:
             # a zero-size cohort: an all-drop round, with no contributions
             # and no server step (the engine skips it without survivors);
-            # the clock moves 1 s, one step of the reference's 96-step day
-            self.sim_clock += 1.0
+            # the clock moves one step of a 96-step day
+            self.sim_clock += self._day_step()
             return RoundIntake([], [], receivers=0, sim_time=self.sim_clock)
         contribs = eng.uplink.intake(out, clients)
-        cohort = len(clients)
+
+        traffic = eng.traffic
         lost: list[int] = []
+        if traffic is not None and traffic.cfg.churn_rate > 0.0:
+            for i in range(cohort):
+                if traffic.churned(clients[i], self.round_idx):
+                    lost.append(i)
+                    contribs[i].payload_bytes = 0     # never uploaded
+            self.churned_total += len(lost)
         chan = eng.channel
         if eng.uplink.transmit and chan is not None:
             sizes = [c.payload_bytes for c in contribs]
-            self.sim_clock += chan.round_time(
-                clients, sizes, eng.broadcast_ref_bytes(), self.round_idx)
-            lost = [i for i in range(cohort)
-                    if chan.dropped(self.round_idx, clients[i])]
+            ref = eng.broadcast_ref_bytes()
+            if traffic is None:
+                self.sim_clock += chan.round_time(clients, sizes, ref,
+                                                  self.round_idx)
+            else:
+                self.sim_clock += max(
+                    (chan.down_time(c, ref, self.round_idx)
+                     + traffic.latency(c)
+                     + chan.up_time(c, n, self.round_idx)
+                     for c, n in zip(clients, sizes)), default=0.0)
+            lost.extend(i for i in range(cohort)
+                        if i not in lost
+                        and chan.dropped(self.round_idx, clients[i]))
+        elif traffic is not None:
+            # no channel: the barrier waits for the slowest computer
+            self.sim_clock += max((traffic.latency(c) for c in clients),
+                                  default=0.0)
         if lost and eng.protocol_cfg.error_feedback:
             for i in lost:
                 eng.local_train.reinject_residual(clients[i],
                                                   contribs[i].delta_params)
         survivors = [i for i in range(cohort) if i not in lost]
+        for c in contribs:
+            c.arrival_time = self.sim_clock
         preagg = None
         if eng.streaming_ingest:
             preagg, survivors = self._fold_streaming(contribs, survivors,
@@ -869,8 +994,10 @@ class SyncScheduler:
                 f"up={rec.up_bytes / 1e6:.3f}MB "
                 f"down={rec.down_bytes / 1e6:.3f}MB "
                 f"sparsity={rec.update_sparsity:.3f}")
-        if self.eng.channel is not None:
+        if self.eng.channel is not None or self.eng.traffic is not None:
             line += f" t_sim={rec.sim_time_s:.2f}s"
+        if self.churned_total:
+            line += f" churned={self.churned_total}"
         return line
 
 
@@ -878,11 +1005,13 @@ class SyncScheduler:
 class AsyncPlan:
     """The draws of an async run held against the reference: the client
     latency vector (seconds), each ``select_available`` draw in order
-    (sorted client arrays), and each trained member's ``(steps, batch)``
-    batch indices in training order."""
-    latencies: np.ndarray
+    (sorted client arrays), each trained member's ``(steps, batch)`` batch
+    indices in training order, and, for the streaming regime, the seed of
+    its hash-keyed latencies (the reference draws it from a JAX key)."""
+    latencies: np.ndarray | None
     draws: list
     batches: list
+    lat_seed: int | None = None
 
 
 @dataclasses.dataclass
@@ -891,6 +1020,8 @@ class _InFlight:
     start_version: int
     server: ServerState
     finish: float
+    seq: int = 0     # the dispatch counter, which keys the churn coin (a
+                     # client dispatched again draws a fresh one)
 
 
 class BufferedAsyncScheduler:
@@ -903,22 +1034,35 @@ class BufferedAsyncScheduler:
     finisher trains in ONE executor call (``LocalTrain.train_window``),
     each row against the server snapshot it started from.
     ``dispatch_window=0`` pops exactly one completion, ties broken by
-    client id.  Contributions enter the buffer in ``(arrival_time,
-    client)`` order and the clock is clamped so that recorded arrivals
-    never go backwards; a window that overfills the buffer aggregates the
-    whole buffer.  The replacements of a window are dispatched at the top
-    of the next pop, so those that follow an aggregation train from the
-    newest server version.  Staleness is the engine's ``version`` (which
-    rises only after a round with survivors) less the version a client
-    started from.
+    client id; ``adaptive_window`` takes finishers in (finish, client)
+    order while each one's gap to the one before is at most the per-call
+    saving (``call_saving_s``, or ``load_call_saving()``'s default).
+    Contributions enter the buffer in ``(arrival_time, client)`` order and
+    the clock is clamped so that recorded arrivals never go backwards; a
+    window that overfills the buffer aggregates the whole buffer.  The
+    replacements of a window are dispatched at the top of the next pop,
+    so those that follow an aggregation train from the newest server
+    version.  Staleness is the engine's ``version`` (which rises only
+    after a round with survivors) less the version a client started from.
 
     With a channel a dispatch starts after ``down_time`` of the current
-    broadcast (``broadcast_ref_bytes``, round 0) and an arrival is the
-    finish time plus ``up_time`` of the payload; async has no drops.
+    broadcast (``broadcast_ref_bytes``) and an arrival is the finish time
+    plus ``up_time`` of the payload; async has no drops.
 
-    Latencies, replacement draws and batch orders come from the
-    scheduler's ``torch.Generator``, or, held against the reference, from
-    an :class:`AsyncPlan`."""
+    In the streaming regime (a population axis or a traffic model) there
+    are no per-client arrays: replacements are hash draws
+    (``stream_cohort``) that exclude the in-flight set, and latencies come
+    from the traffic model or a lognormal keyed by client on
+    ``prand``.  A draw short in an availability trough is made up at the
+    next pop; with nobody in flight the clock advances one step of the
+    trace's 96 a day.  The traffic model's churn coin, keyed by dispatch,
+    drops a finisher before it uploads: its slot frees and a replacement
+    is queued; after 1000 fully churned windows in a row the buffer so far
+    is aggregated (an all-drop round when empty).
+
+    Latencies (or the streaming latency seed), replacement draws and
+    batch orders come from the scheduler's ``torch.Generator``, or, held
+    against the reference, from an :class:`AsyncPlan`."""
 
     def bind(self, engine, gen: torch.Generator, plan=None) -> None:
         self.eng = engine
@@ -928,19 +1072,48 @@ class BufferedAsyncScheduler:
         self._batches = None if plan is None else list(plan.batches)
         acfg = engine.async_cfg
         self.acfg = acfg
+        self.traffic = engine.traffic
+        self.stream = engine.cohort.streaming
         self.concurrency = min(acfg.concurrency, engine.num_clients)
         self.now = 0.0
-        self.latency = (np.asarray(plan.latencies) if plan is not None
-                        else client_latencies(gen, engine.num_clients, acfg))
-        self.available = set(range(engine.num_clients))
+        self.seq = 0       # dispatches issued (the churn coin's key)
+        self.draws = 0     # stream_cohort calls (the sampling key)
+        self.churned_total = 0
+        self.saving = 0.0
+        if acfg.adaptive_window:
+            self.saving = (acfg.call_saving_s if acfg.call_saving_s
+                           is not None else load_call_saving())
         self.in_flight: list[_InFlight] = []
-        for c in self._draw(self.concurrency):
-            self.available.discard(c)
-            self.in_flight.append(_InFlight(
-                c, 0, engine.server,
-                self._dispatch_delay(c) + float(self.latency[c])))
+        if self.stream:
+            self.latency = None
+            if plan is not None and plan.lat_seed is not None:
+                self.lat_seed = int(plan.lat_seed)
+            else:
+                self.lat_seed = int(torch.randint(0, 2 ** 31 - 1, (),
+                                                  generator=gen))
+            self.busy: set[int] = set()
+            for c in self._stream_draw(self.concurrency):
+                self._launch(int(c))
+        else:
+            self.latency = (np.asarray(plan.latencies) if plan is not None
+                            else client_latencies(gen, engine.num_clients,
+                                                  acfg))
+            self.available = set(range(engine.num_clients))
+            for c in self._draw(self.concurrency):
+                self.available.discard(c)
+                self.in_flight.append(_InFlight(
+                    c, 0, engine.server,
+                    self._dispatch_delay(c) + float(self.latency[c]),
+                    seq=self._next_seq()))
         self.pending_dispatch = 0
         self.batch_sizes: list[int] = []   # executor-call window sizes
+
+    # -- dispatch plumbing -------------------------------------------------
+
+    def _next_seq(self) -> int:
+        s = self.seq
+        self.seq += 1
+        return s
 
     def _draw(self, k: int) -> list[int]:
         available = np.array(sorted(self.available))
@@ -974,20 +1147,88 @@ class BufferedAsyncScheduler:
         return self.eng.channel.down_time(client,
                                           self.eng.broadcast_ref_bytes())
 
+    def _lat(self, client: int) -> float:
+        """Simulated compute seconds of one dispatch of ``client``."""
+        if self.traffic is not None:
+            return self.traffic.latency(client)
+        if self.latency is not None:
+            return float(self.latency[client])
+        # streaming without traffic: the AsyncConfig lognormal, keyed by
+        # client, whatever the population's size or order
+        if self.acfg.latency_sigma == 0.0:
+            return self.acfg.latency_mean
+        z = float(prand.normal(self.lat_seed, prand.TAG_LATENCY, client))
+        return self.acfg.latency_mean * float(np.exp(
+            self.acfg.latency_sigma * z))
+
+    def _stream_draw(self, k: int) -> np.ndarray:
+        """One streaming replacement draw (not strict: a trough may give
+        fewer than ``k``; the caller queues the rest)."""
+        if k <= 0:
+            return np.empty(0, np.int64)
+        eng = self.eng
+        accept = None
+        if self.traffic is not None:
+            traffic, now, rd = self.traffic, self.now, self.draws
+            accept = lambda ids: traffic.available(ids, now, rd)
+        idx = stream_cohort(
+            eng.engine_cfg.sampling.stream_seed, self.draws,
+            eng.num_clients, k, accept_fn=accept, exclude=self.busy,
+            strict=False)
+        self.draws += 1
+        return idx
+
+    def _launch(self, client: int) -> None:
+        self.busy.add(client)
+        self.in_flight.append(_InFlight(
+            client, self.eng.version, self.eng.server,
+            self.now + self._dispatch_delay(client) + self._lat(client),
+            seq=self._next_seq()))
+
     def _dispatch_one(self) -> None:
         eng = self.eng
         (nxt,) = self._draw(1)
         self.available.discard(nxt)
         self.in_flight.append(_InFlight(
             nxt, eng.version, eng.server,
-            self.now + self._dispatch_delay(nxt) + float(self.latency[nxt])))
+            self.now + self._dispatch_delay(nxt) + float(self.latency[nxt]),
+            seq=self._next_seq()))
+
+    def _dispatch(self, n: int) -> int:
+        """Dispatch up to ``n`` replacements -> how many launched (all
+        ``n`` but in an availability trough)."""
+        if n <= 0:
+            return 0
+        if not self.stream:
+            for _ in range(n):
+                self._dispatch_one()
+            return n
+        idx = self._stream_draw(n)
+        for c in idx:
+            self._launch(int(c))
+        return len(idx)
+
+    def _free(self, client: int) -> None:
+        if self.stream:
+            self.busy.discard(client)
+        else:
+            self.available.add(client)
 
     def _pop_window(self) -> list[_InFlight]:
         """The in-flight clients finishing within ``dispatch_window`` of the
         earliest finisher, in (finish, client) order; exactly one with a
-        window of 0."""
+        window of 0; with ``adaptive_window`` the finishers in that order
+        while each one's gap to the one before is at most the per-call
+        saving."""
         key = (lambda f: (f.finish, f.client))
-        if self.acfg.dispatch_window <= 0.0:
+        if self.acfg.adaptive_window:
+            order = sorted(self.in_flight, key=key)
+            window = [order[0]]
+            for e in order[1:]:
+                if e.finish - window[-1].finish > self.saving:
+                    break
+                window.append(e)
+        elif self.acfg.dispatch_window <= 0.0:
             window = [min(self.in_flight, key=key)]
         else:
             t0 = min(f.finish for f in self.in_flight)
@@ -998,14 +1239,53 @@ class BufferedAsyncScheduler:
             self.in_flight.remove(e)
         return window
 
+    def _intake_of(self, buffer: list[Contribution]) -> RoundIntake:
+        if self.eng.streaming_ingest:
+            return self._flush_streaming(buffer)
+        w = (normalized_staleness_weights([b.staleness for b in buffer],
+                                          self.acfg.staleness_exponent)
+             if buffer else None)
+        return RoundIntake(buffer, list(range(len(buffer))),
+                           receivers=self.concurrency, sim_time=self.now,
+                           weights=w)
+
     def next_round(self) -> RoundIntake:
         eng = self.eng
         buffer: list[Contribution] = []
+        stalls = churn_stalls = 0
         while True:
-            for _ in range(self.pending_dispatch):
-                self._dispatch_one()
-            self.pending_dispatch = 0
+            self.pending_dispatch -= self._dispatch(self.pending_dispatch)
+            if not self.in_flight:
+                # every slot waits out an availability trough (the
+                # traffic-gated streaming regime only)
+                stalls += 1
+                if stalls > 1000:
+                    raise RuntimeError(
+                        "async scheduler stalled: no client passed the "
+                        "availability filter after 1000 clock advances")
+                self.now += (self.traffic.cfg.day_s / 96.0
+                             if self.traffic is not None else 1.0)
+                continue
+            stalls = 0
             window = self._pop_window()
+            if self.traffic is not None and self.traffic.cfg.churn_rate > 0.0:
+                kept = []
+                for e in window:
+                    if self.traffic.churned(e.client, e.seq):
+                        # the dispatch vanishes before it uploads: its slot
+                        # frees and a replacement is queued
+                        self.churned_total += 1
+                        self._free(e.client)
+                        self.pending_dispatch += 1
+                    else:
+                        kept.append(e)
+                window = kept
+                if not window:
+                    churn_stalls += 1
+                    if churn_stalls > 1000:
+                        return self._intake_of(buffer)
+                    continue
+            churn_stalls = 0
             clients = [e.client for e in window]
             out = eng.local_train.train_window(
                 self._batch_rows(len(window)), clients,
@@ -1018,7 +1298,7 @@ class BufferedAsyncScheduler:
                 c.arrival_time = e.finish + (
                     eng.channel.up_time(e.client, c.payload_bytes)
                     if eng.channel is not None else 0.0)
-                self.available.add(e.client)
+                self._free(e.client)
             contribs.sort(key=lambda c: (c.arrival_time, c.client))
             for c in contribs:
                 self.now = max(self.now, c.arrival_time)
@@ -1026,14 +1306,7 @@ class BufferedAsyncScheduler:
             buffer.extend(contribs)
             self.pending_dispatch += len(window)
             if len(buffer) >= self.acfg.buffer_size:
-                if eng.streaming_ingest:
-                    return self._flush_streaming(buffer)
-                w = normalized_staleness_weights(
-                    [b.staleness for b in buffer],
-                    self.acfg.staleness_exponent)
-                return RoundIntake(buffer, list(range(len(buffer))),
-                                   receivers=self.concurrency,
-                                   sim_time=self.now, weights=w)
+                return self._intake_of(buffer)
 
     def _flush_streaming(self, buffer: list[Contribution]) -> RoundIntake:
         """Decode at flush: fold the buffered payloads in buffer order with
@@ -1070,11 +1343,14 @@ class BufferedAsyncScheduler:
                            sim_time=self.now, weights=w, preagg=preagg)
 
     def log_line(self, rec, intake: RoundIntake) -> str:
-        return (f"agg {rec.round:3d} acc={rec.test_acc:.3f} "
+        line = (f"agg {rec.round:3d} acc={rec.test_acc:.3f} "
                 f"t_sim={rec.sim_time_s:.2f}s "
                 f"staleness={[c.staleness for c in intake.contributions]} "
                 f"up={rec.up_bytes / 1e6:.3f}MB "
                 f"down={rec.down_bytes / 1e6:.3f}MB")
+        if self.churned_total:
+            line += f" churned={self.churned_total}"
+        return line
 
 
 SCHEDULERS = {"sync": SyncScheduler, "async": BufferedAsyncScheduler}

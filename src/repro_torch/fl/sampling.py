@@ -1,22 +1,30 @@
 """Client sampling: which K of C clients participate in a round.
 
-Port of ``repro.fl.sampling`` (materialized draws, uniform and weighted,
-and the cohort-row helpers the executors use: ``gather_clients``,
-``scatter_clients``, ``pad_clients``).  Draws come from an explicit
-``torch.Generator``, without replacement and returned sorted; parity runs
-pass the reference's draws instead (``FederatedEngine(plan=...)``).  The
-streaming draw over a virtual population (``stream_cohort``) belongs to
-the population item and is not ported.
+Port of ``repro.fl.sampling``.  Two regimes:
+
+* **materialized** draws, uniform and weighted, over an explicit index
+  range, from an explicit ``torch.Generator``, without replacement and
+  returned sorted; parity runs pass the reference's draws instead
+  (``FederatedEngine(plan=...)``);
+* **streaming** draws (:func:`stream_cohort`) over a *virtual* population
+  that never exists as an array: candidate ids come from the
+  counter-based hash stream ``prand.randint(n, seed, TAG_SAMPLE, round,
+  counter)``, filtered by optional weight and acceptance functions and an
+  exclusion set.  numpy only: the same arguments give the reference's ids
+  exactly.
+
+Also the cohort-row helpers the executors use: ``gather_clients``,
+``scatter_clients``, ``pad_clients``.
 """
 from __future__ import annotations
 
 import dataclasses
-
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch.core import prand
 from repro_torch.tree import tree_map
 
 
@@ -24,10 +32,13 @@ from repro_torch.tree import tree_map
 class SamplingConfig:
     """``cohort_size`` None (or >= num_clients) is full participation.
     ``strategy="weighted"`` draws clients in proportion to ``weights``, one
-    per client."""
+    per client.  ``stream_seed`` seeds the hash-based streaming draws of a
+    virtual population or a traffic model (``EngineConfig.population``,
+    ``traffic``); the materialized draws ignore it."""
     cohort_size: int | None = None
     strategy: str = "uniform"            # "uniform" | "weighted"
     weights: tuple[float, ...] | None = None
+    stream_seed: int = 0                 # streaming (hash-based) draws only
 
     def effective_size(self, num_clients: int) -> int:
         if self.cohort_size is None:
@@ -78,6 +89,68 @@ def sample_available(gen: torch.Generator, available: np.ndarray, k: int,
     else:
         idx = torch.randperm(len(available), generator=gen)[:k].numpy()
     return np.sort(available[idx])
+
+
+def stream_cohort(seed: int, round_idx: int, num_clients: int, k: int, *,
+                  weight_fn: Callable[[np.ndarray], np.ndarray] | None = None,
+                  accept_fn: Callable[[np.ndarray], np.ndarray] | None = None,
+                  exclude=(), strict: bool = True,
+                  max_blocks: int = 256) -> np.ndarray:
+    """Deterministic hash-based cohort draw over a virtual population.
+
+    Candidates ``prand.randint(num_clients, seed, TAG_SAMPLE, round_idx,
+    counter)`` come in vectorized blocks of ``max(4 k, 64)``; the first
+    ``k`` distinct accepted ids, sorted, are the cohort, a pure function
+    of ``(seed, round_idx)`` and the filters:
+
+    * ``weight_fn(ids) -> p``: weighted sampling by rejection, a candidate
+      kept when its coin ``prand.uniform(seed, TAG_WEIGHT, round_idx,
+      counter)`` is below ``p`` (relative weights, peak 1);
+    * ``accept_fn(ids) -> bool``: availability (a traffic model);
+    * ``exclude``: ids never drawn (async in-flight clients).
+
+    ``strict=False`` returns however many ids the draw budget found
+    (possibly none) instead of raising: a traffic-gated sync cohort may
+    shrink in an availability trough.  ``k >= num_clients`` takes the whole
+    range less the exclusions, filtered by ``accept_fn``."""
+    if k <= 0:
+        return np.empty(0, np.int64)
+    if k >= num_clients:
+        ids = np.arange(num_clients, dtype=np.int64)
+        if exclude:
+            ids = ids[~np.isin(ids, np.fromiter(exclude, np.int64,
+                                                len(exclude)))]
+        if accept_fn is not None:
+            ids = ids[np.asarray(accept_fn(ids), bool)]
+        return ids
+    chosen: list[int] = []
+    seen = set(int(c) for c in exclude)
+    block = max(4 * k, 64)
+    counter = 0
+    for _ in range(max_blocks):
+        ctr = np.arange(counter, counter + block, dtype=np.int64)
+        counter += block
+        cand = prand.randint(num_clients, seed, prand.TAG_SAMPLE,
+                             round_idx, ctr).astype(np.int64)
+        if weight_fn is not None:
+            p = np.asarray(weight_fn(cand), np.float64)
+            coin = prand.uniform(seed, prand.TAG_WEIGHT, round_idx, ctr)
+            cand = cand[coin < p]
+        if accept_fn is not None and len(cand):
+            cand = cand[np.asarray(accept_fn(cand), bool)]
+        for c in cand:
+            ci = int(c)
+            if ci not in seen:
+                seen.add(ci)
+                chosen.append(ci)
+                if len(chosen) == k:
+                    return np.sort(np.asarray(chosen, np.int64))
+    if strict:
+        raise RuntimeError(
+            f"stream_cohort found only {len(chosen)}/{k} acceptable clients "
+            f"after {max_blocks * block} draws (population {num_clients}); "
+            "availability/weights too thin for the requested cohort")
+    return np.sort(np.asarray(chosen, np.int64))
 
 
 def _index(idx, x: torch.Tensor) -> torch.Tensor:

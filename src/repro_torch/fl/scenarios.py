@@ -1,10 +1,11 @@
 """Scenario registry: named, reproducible federated settings.
 
-Port of ``repro.fl.scenarios``: 31 of the reference's 35 scenarios, all
+Port of ``repro.fl.scenarios``: 34 of the reference's 35 scenarios, all
 but ``sync_full_fedavg_raw`` on the FSFL protocol (Table-2 row ``fsfl``,
 whose cohort runs the ``level_assign`` kernel once a round, over all its
-clients' leaves).  The other 4 raise ``runtime.not_ported`` naming the
-port queue item they wait on (``NOT_PORTED``).  A scenario that names no
+clients' leaves).  The other one, ``dist_cohort_full``, raises
+``runtime.not_ported`` naming the port queue item it waits on
+(``NOT_PORTED``).  A scenario that names no
 executor trains its cohort, or an async window, in one batched call
 (``executor="vmap"``).
 
@@ -48,7 +49,13 @@ executor trains its cohort, or an async window, in one batched call
 * streaming ingest: ``stream_ingest_k8`` (each payload decoded and folded
   into running accumulators), ``stream_ingest_spec_k8`` (the speculative
   CABAC decoder) and ``stream_ingest_async_b4`` (FedBuff decoding its
-  buffer at the flush).
+  buffer at the flush);
+* the population axis: ``pop_100k_diurnal`` (10^5 virtual clients over
+  the base shards, cohorts of 32 streamed through the sharded store,
+  diurnal availability), ``pop_1m_lazy_k32`` (10^6 clients, only the
+  touched shards materialize) and ``churn_midround_async`` (async over
+  10^4 clients, 15% mid-round churn, adaptive dispatch windows at the
+  default per-call saving of 0.05 s unless ``call_saving_s`` is given).
 
     from repro_torch.fl import run_scenario
     result = run_scenario("sync_full_fedavg_fsfl", rounds=2)   # on CUDA
@@ -67,6 +74,8 @@ from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.engine import EngineConfig, RunResult, run_simulation
 from repro_torch.fl.executors import DIST_ITEM
 from repro_torch.fl.ingest import IngestConfig
+from repro_torch.fl.population import (DIURNAL_DEFAULT, StoreConfig,
+                                       TrafficConfig)
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig
 from repro_torch.models import cnn
@@ -84,6 +93,13 @@ class Scenario:
     cohort_size: int | None = None
     sampling_strategy: str = "uniform"
     sampling_weights: tuple[float, ...] | None = None
+    # the population axis (fl.population)
+    population: int | None = None   # virtual clients over the base shards
+    store: str = "memory"           # client-state backend ("memory"|"sharded")
+    store_shard_size: int = 64
+    store_hot_shards: int = 16
+    traffic: TrafficConfig | None = None  # trace-driven arrivals and churn
+    adaptive_window: bool = False   # async: arrival-adaptive dispatch batch
     server_opt: str = "fedavg"
     server_lr: float = 1.0
     server_momentum: float = 0.9
@@ -107,6 +123,7 @@ class Scenario:
     ingest: str = "gather"            # "gather" | "streaming"
     ingest_engine: str = "vectorized"  # streaming decode engine
     telemetry: str = "off"            # "off" | "metrics" | "trace"
+    metrics_out: str | None = None    # per-round metrics JSONL stream
 
 
 def _fc_only(path: str, leaf) -> bool:
@@ -136,7 +153,12 @@ def build_engine(s: Scenario) -> EngineConfig:
         async_cfg=AsyncConfig(buffer_size=s.buffer_size,
                               concurrency=s.concurrency,
                               staleness_exponent=s.staleness_exponent,
-                              dispatch_window=s.dispatch_window),
+                              dispatch_window=s.dispatch_window,
+                              adaptive_window=s.adaptive_window),
+        population=s.population,
+        store=StoreConfig(backend=s.store, shard_size=s.store_shard_size,
+                          max_hot_shards=s.store_hot_shards),
+        traffic=s.traffic,
         bidirectional=s.bidirectional,
         executor=s.executor,
         mesh_shape=s.mesh_shape,
@@ -150,6 +172,7 @@ def build_engine(s: Scenario) -> EngineConfig:
         ingest=s.ingest,
         ingest_opts=IngestConfig(decode_engine=s.ingest_engine),
         telemetry=s.telemetry,
+        metrics_out=s.metrics_out,
         # partial updates have no deltas outside the classifier, so the
         # wire leaves those leaves out entirely
         up_predicate=_fc_only if s.partial_updates else None)
@@ -197,11 +220,7 @@ def register(s: Scenario) -> Scenario:
 
 # the reference's scenarios that are not ported yet, with the port-queue
 # item each waits on
-NOT_PORTED = {
-    **{name: "streaming ingest, population, telemetry" for name in (
-        "pop_100k_diurnal", "pop_1m_lazy_k32", "churn_midround_async")},
-    "dist_cohort_full": DIST_ITEM,
-}
+NOT_PORTED = {"dist_cohort_full": DIST_ITEM}
 
 
 def get_scenario(name: str) -> Scenario:
@@ -348,6 +367,31 @@ register(Scenario("stream_ingest_async_b4",
                   "payload bytes, staleness-weighted folding at aggregation",
                   mode="async", buffer_size=4, concurrency=4,
                   ingest="streaming"))
+
+register(Scenario("pop_100k_diurnal",
+                  "10^5 virtual clients over 8 data shards, K=32 cohorts "
+                  "streamed through the sharded lazy store, diurnal "
+                  "availability with timezone spread gating every cohort",
+                  population=100_000, cohort_size=32, store="sharded",
+                  store_shard_size=16, store_hot_shards=8,
+                  traffic=TrafficConfig(diurnal=DIURNAL_DEFAULT,
+                                        day_s=240.0, timezone_spread=0.25,
+                                        latency_mean=2.0)))
+register(Scenario("pop_1m_lazy_k32",
+                  "a million-client population, K=32: peak memory stays "
+                  "O(cohort), only touched shards ever materialize, the LRU "
+                  "spills the rest to disk",
+                  population=1_000_000, cohort_size=32, store="sharded",
+                  store_shard_size=16, store_hot_shards=8))
+register(Scenario("churn_midround_async",
+                  "buffered async over 10^4 clients with 15% mid-round "
+                  "churn and an arrival-adaptive dispatch window (batch "
+                  "while the marginal wait beats the per-call saving)",
+                  mode="async", buffer_size=4, concurrency=8,
+                  population=10_000, store="sharded", store_shard_size=16,
+                  store_hot_shards=8, adaptive_window=True,
+                  traffic=TrafficConfig(churn_rate=0.15, latency_mean=2.0)))
+
 
 
 def run_scenario(scenario: str | Scenario, *, rounds: int | None = None,

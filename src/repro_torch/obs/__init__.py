@@ -22,8 +22,8 @@ from __future__ import annotations
 from typing import Any
 
 from repro_torch.obs import metrics, trace
-from repro_torch.obs.metrics import (MetricsRegistry, NOOP_METRICS,
-                                     NoopMetrics)
+from repro_torch.obs.metrics import (MetricsJsonlSink, MetricsRegistry,
+                                     NOOP_METRICS, NoopMetrics)
 from repro_torch.obs.trace import (NOOP, NoopRecorder, Span, SpanRecorder,
                                    export_chrome_trace, export_jsonl)
 
@@ -31,7 +31,7 @@ __all__ = [
     "trace", "metrics",
     "Telemetry", "make_telemetry", "TELEMETRY_MODES",
     "Span", "SpanRecorder", "NoopRecorder", "NOOP",
-    "MetricsRegistry", "NoopMetrics", "NOOP_METRICS",
+    "MetricsRegistry", "NoopMetrics", "NOOP_METRICS", "MetricsJsonlSink",
     "export_chrome_trace", "export_jsonl",
 ]
 
@@ -57,15 +57,17 @@ class _Activation:
 
 
 class Telemetry:
-    """One run's telemetry: a recorder and a registry.
+    """One run's telemetry: a recorder, a registry, an optional JSONL sink.
 
     ``round_snapshot`` is what the engine calls once per aggregation: it
     closes the metrics round (counter deltas, gauge values, histogram
-    summaries) and remembers the wall-clock position so Chrome counter tracks line
-    up with the span timeline.
+    summaries), streams the snapshot to the sink when there is one, and
+    remembers the wall-clock position so Chrome counter tracks line up
+    with the span timeline.
     """
 
-    def __init__(self, mode: str = "off", *, ring: int = trace.DEFAULT_RING):
+    def __init__(self, mode: str = "off", *, ring: int = trace.DEFAULT_RING,
+                 metrics_out: str | None = None):
         if mode not in TELEMETRY_MODES:
             known = ", ".join(TELEMETRY_MODES)
             raise ValueError(f"unknown telemetry mode: {mode!r} "
@@ -74,6 +76,8 @@ class Telemetry:
         self.recorder = trace.SpanRecorder(ring) if mode == "trace" else NOOP
         self.metrics = (MetricsRegistry() if mode in ("metrics", "trace")
                         else NOOP_METRICS)
+        self.sink = (MetricsJsonlSink(metrics_out)
+                     if metrics_out is not None and mode != "off" else None)
         self._counter_marks: list[dict[str, Any]] = []
 
     @property
@@ -87,6 +91,8 @@ class Telemetry:
         if not self.on:
             return None
         snap = self.metrics.snapshot_round()
+        if self.sink is not None:
+            self.sink.write(round_idx, snap)
         if self.mode == "trace":
             import time
             self._counter_marks.append({
@@ -122,13 +128,18 @@ class Telemetry:
             return 0
         return export_jsonl(self.recorder.snapshot(), path)
 
+    def close(self) -> None:
+        if self.sink is not None:
+            self.sink.close()
+
 
 _OFF = Telemetry("off")
 
 
-def make_telemetry(mode: str = "off", *,
-                   ring: int = trace.DEFAULT_RING) -> Telemetry:
-    """Build a bundle; ``"off"`` returns the shared no-op singleton."""
-    if mode == "off":
+def make_telemetry(mode: str = "off", *, ring: int = trace.DEFAULT_RING,
+                   metrics_out: str | None = None) -> Telemetry:
+    """Build a bundle; ``"off"`` without a sink returns the shared no-op
+    singleton."""
+    if mode == "off" and metrics_out is None:
         return _OFF
-    return Telemetry(mode, ring=ring)
+    return Telemetry(mode, ring=ring, metrics_out=metrics_out)

@@ -28,6 +28,7 @@ telemetry on or off.
 """
 from __future__ import annotations
 
+import json
 import threading
 from typing import Any
 
@@ -174,3 +175,27 @@ def gauge(name: str, v: float) -> None:
 def observe(name: str, v: float) -> None:
     if _active is not NOOP_METRICS:
         _active.observe(name, v)
+
+
+# ---------------------------------------------------------------- sink
+
+class MetricsJsonlSink:
+    """One JSON line a round snapshot, ``{"round": r, **snapshot}``: the
+    long-run stream (``EngineConfig.metrics_out``).  The file opens at the
+    first write, so a bundle with a sink path costs nothing until a round
+    snapshots."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = None
+
+    def write(self, round_idx: int, snap: dict[str, Any]) -> None:
+        if self._f is None:
+            self._f = open(self.path, "w")
+        self._f.write(json.dumps({"round": round_idx, **snap}) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None

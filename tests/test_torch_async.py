@@ -34,7 +34,8 @@
   the current broadcast (``broadcast_ref_bytes``): the raw model until
   the first aggregation, then the last compressed broadcast, in the
   reference's order and within 2% of its sizes.
-* The validation of async settings is the reference's.
+* The validation of async settings is the reference's, the adaptive
+  window's included.
 """
 import dataclasses
 
@@ -447,7 +448,20 @@ def test_async_validation_is_the_reference():
             build(engine, comms.ChannelConfig, engine.SamplingConfig,
                   async_buffer.AsyncConfig).validate(8)
         assert str(port_err.value) == str(ref_err.value)
-    with pytest.raises(NotImplementedError,
-                       match="streaming ingest, population, telemetry"):
-        engine.EngineConfig(mode="async", async_cfg=async_buffer.AsyncConfig(
-            adaptive_window=True)).validate(8)
+    # the adaptive window validates as the reference's
+    for acfg, mode in ((dict(adaptive_window=True), "sync"),
+                       (dict(adaptive_window=True, dispatch_window=0.5),
+                        "async"),
+                       (dict(adaptive_window=True, call_saving_s=-1.0),
+                        "async")):
+        with pytest.raises(ValueError) as ref_err:
+            ref_engine.EngineConfig(
+                mode=mode, async_cfg=ref_async.AsyncConfig(**acfg)
+            ).validate(8)
+        with pytest.raises(ValueError) as port_err:
+            engine.EngineConfig(
+                mode=mode, async_cfg=async_buffer.AsyncConfig(**acfg)
+            ).validate(8)
+        assert str(port_err.value) == str(ref_err.value)
+    engine.EngineConfig(mode="async", async_cfg=async_buffer.AsyncConfig(
+        adaptive_window=True)).validate(8)

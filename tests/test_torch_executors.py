@@ -3,7 +3,7 @@ reference's, on the CPU, on the tiny setting of ``tests/test_executors.py``
 (a 2-conv VGG on 480 images over 4 clients, cohorts of 3):
 
 * the registry, ``mesh_shape`` and scenario checks of the reference's
-  ``test_executors.py``, with the port's defaults (``"vmap"``) and its 31
+  ``test_executors.py``, with the port's defaults (``"vmap"``) and its 34
   registered scenarios;
 * ``gather_clients``, ``scatter_clients`` and ``pad_clients`` bitwise the
   reference's on the same numpy trees;
@@ -28,6 +28,11 @@ reference's, on the CPU, on the tiny setting of ``tests/test_executors.py``
   BN within 1e-12 (the grouped route sums in another order, and float64
   keeps that order below every quantization and top-k decision, so the
   batched round is held to the serial round's function itself);
+* one local step at a time (``chip_smoke.step_gaps``): from each state
+  the serial round steps from, the cohort route's step against the
+  serial one, within ``STEP_FACTOR`` of the control (the serial step with
+  its params one ulp up) in float32 and within 1e-12 in float64; a
+  grouped convolution with two clients' weights swapped fails it;
 * the port's vmap run against the reference's default (vmap) run of one
   round, under the same contract;
 * ``run_stacked`` against ``run_shared``, and async dispatch windows
@@ -37,6 +42,8 @@ reference's, on the CPU, on the tiny setting of ``tests/test_executors.py``
   against the kernel's launch on that row alone.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -184,7 +191,7 @@ def test_executor_registry():
 def test_batched_executor_is_the_default():
     assert engine.EngineConfig().executor == "vmap"
     assert scenarios.Scenario("x").executor == "vmap"
-    assert len(scenarios.SCENARIOS) == 31
+    assert len(scenarios.SCENARIOS) == 34
     assert scenarios.get_scenario("sharded_cohort_full").executor == "sharded"
     assert scenarios.NOT_PORTED["dist_cohort_full"] == executors.DIST_ITEM
     with pytest.raises(NotImplementedError, match=executors.DIST_ITEM):
@@ -591,6 +598,87 @@ def test_backends_bitwise_in_float64(n_samples, steps):
             _close(a.delta_params, b.delta_params, rtol=0, atol=0)
             _close(a.delta_scales, b.delta_scales, rtol=0, atol=0)
             _close(a.bn_state, b.bn_state, rtol=1e-12, atol=1e-15)
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _step_engine(dtype: str):
+    """``exec_serial_k4``'s setting on the scenario VGG, 1,280 images over
+    8 clients (3 W-steps and 2 x 3 S-steps a round), on the serial
+    executor; in float64 its state and images widened."""
+    model, data = scenarios.default_setting(8, n_samples=1280)
+    s = scenarios.get_scenario("exec_serial_k4")
+    cfg = scenarios.build_protocol(s, 1)
+    state = None
+    if dtype == "float64":
+        init = protocol.make_protocol(model, cfg, data.n_train // 32)[0]
+
+        def wide(t):
+            return (t.to(torch.float64) if isinstance(t, torch.Tensor)
+                    and t.is_floating_point() else t)
+
+        state = tuple(tree_map(wide, part) for part in init(
+            torch.Generator().manual_seed(SEED), CPU))
+        data = FederatedSplits(*(wide(getattr(data, f.name))
+                                 for f in dataclasses.fields(data)))
+    return engine.FederatedEngine(model, cfg, data, device="cpu",
+                                  init_state=state,
+                                  engine_cfg=scenarios.build_engine(s))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_one_step_cohort_route_against_the_control(dtype):
+    """``chip_smoke.step_gaps`` on the CPU: from each state the serial
+    route steps from (3 W-steps, 6 S-steps, 4 clients), one step of the
+    cohort route (the 4 clients in one grouped call) against one of the
+    serial route, and both again with their ReLU and max-pool routing
+    forced to the serial forward's.  In float32 it is held to
+    ``step_verdict``: the gradient gap and the count of stepped values
+    apart by more than 1e-6 at most ``STEP_FACTOR`` times the control's
+    (the serial step with the params one ulp up), with and without the
+    forced routing, and no routing decision flipped.  In float64 the
+    gradients within 1e-12 of their norm and no stepped value apart by
+    more than 1e-12; the grouped convolutions sum in another order, so a
+    float64 step is the serial one to its rounding (about 1e-15), not bit
+    for bit."""
+    smoke = _smoke()
+    if dtype == "float64":
+        smoke.STEP_PARAM_TOL = 1e-12
+    gaps = smoke.step_gaps(torch, _step_engine(dtype), 4)
+    assert [(g["kind"], g["step"]) for g in gaps] == (
+        [("w", t) for t in range(3)] + [("s", t) for t in range(6)])
+    verdict = smoke.step_verdict(gaps)
+    assert verdict["broken"] == verdict["broken_forced"] == [], verdict
+    assert all(g["flips"] == 0 for g in gaps)
+    if dtype == "float64":
+        assert max(g["gap"]["cohort"] for g in gaps) <= 1e-12
+        assert all(g["apart"]["cohort"] == 0 for g in gaps)
+
+
+def test_one_step_check_fails_a_faulty_grouped_convolution(monkeypatch):
+    """The faulty twin: the cohort route's first grouped convolution with
+    two clients' weight rows swapped breaks the rule at every W-step,
+    with its routing forced to the serial forward's too."""
+    smoke = _smoke()
+    conv0 = cnn.conv_apply
+
+    def swapped(p, x, stride=1, groups=1):
+        w = p["w"]
+        if w.ndim == 5 and w.shape[2] == 3:      # the first layer's
+            w = w[torch.tensor([1, 0] + list(range(2, w.shape[0])))]
+        return conv0({**p, "w": w}, x, stride, groups)
+
+    monkeypatch.setattr(cnn, "conv_apply", swapped)
+    verdict = smoke.step_verdict(
+        smoke.step_gaps(torch, _step_engine("float32"), 4))
+    assert {"w0", "w1", "w2"} <= set(verdict["broken_forced"]), verdict
+    assert verdict["worst_forced"]["gap"][0] > 1e3
 
 
 def _ref_plan(ref_splits, cfg, n_clients, cohort, rounds, seed=SEED):

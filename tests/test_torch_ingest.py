@@ -264,7 +264,7 @@ def test_ingest_config_and_engine_validation_are_the_reference():
                 dict(mode="async", uplink_workers=2)):
         with pytest.raises(ValueError):
             engine.EngineConfig(**bad).validate()
-    with pytest.raises(NotImplementedError, match="population"):
+    with pytest.raises(ValueError, match="metrics_out"):
         engine.EngineConfig(metrics_out="x.jsonl").validate()
     with pytest.raises(ValueError):     # a device codec in worker processes
         engine.FederatedEngine(
@@ -276,13 +276,11 @@ def test_ingest_config_and_engine_validation_are_the_reference():
 
 
 def test_other_scenarios_still_not_ported():
-    assert sorted(scenarios.NOT_PORTED) == [
-        "churn_midround_async", "dist_cohort_full", "pop_100k_diurnal",
-        "pop_1m_lazy_k32"]
+    assert sorted(scenarios.NOT_PORTED) == ["dist_cohort_full"]
     for name, item in scenarios.NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=item):
             scenarios.get_scenario(name)
-    assert len(scenarios.SCENARIOS) == 31
+    assert len(scenarios.SCENARIOS) == 34
     assert set(scenarios.SCENARIOS) | set(scenarios.NOT_PORTED) == set(
         ref_scenarios.list_scenarios())
 
