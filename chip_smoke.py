@@ -163,6 +163,18 @@ Phases (any failure exits non-zero):
      memory store against the sharded one bit for bit at full width with
      spills and loads; ``pop_1m_lazy_k32`` and ``churn_midround_async``
      on the scenarios' tiny VGG (churn count, adaptive window sizes);
+   * the multi-process runtime (``dist_phase``): ``dist_cohort_full`` in
+     one process bit for bit ``sharded_cohort_full``; two workers of one
+     ``torch.distributed`` job (gloo) on the one card
+     (``repro_torch.launch.dist_smoke``), ``executor="dist"``, at full
+     width (``sync_full_fedavg_fsfl``, 2 rounds) and the handoff setting
+     (cohorts of 2 of 8, ternary with error feedback, the sharded store,
+     4 rounds), each worker's records and server bit for bit this
+     process's sharded run on ``[cuda:0, cuda:0]``, 1 ``level_assign``
+     and 110/102 ``scaled_matmul`` launches a round in each worker,
+     handoffs in both, the all-gathers' host ms and bytes; and the FL
+     ingest server (``launch.ingest_serve``, K = 32, 2 passes) on the
+     card;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -228,7 +240,8 @@ processing takes a minute or more.
 
 It imports nothing of the JAX package.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits 1 and its last line
-is ``{"ok": false, "error": ...}`` naming what is missing.
+is ``{"ok": false, "error": ...}`` naming what is missing; a check that
+fails, or an error, ends it the same way.
 """
 from __future__ import annotations
 
@@ -279,6 +292,7 @@ PORT_SPANS = SPANS + ("downlink", "downlink.compress")
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    print(json.dumps({"ok": False, "error": msg}))
     sys.exit(1)
 
 
@@ -2629,6 +2643,125 @@ def population_paths(torch, mods, rounds_mod, fl, models, splits,
     return out
 
 
+DIST_TIMEOUT_S = 480     # the two workers' start, both runs and their exit
+
+
+def dist_phase(torch, fl, rounds_out) -> dict:
+    """The multi-process runtime on the card (slice 14,
+    ``repro_torch.dist``, ``repro_torch.launch.dist_smoke``):
+
+    * (a) ``dist_cohort_full`` in this process (no ``REPRO_DIST_*``: the
+      single-process context, the local mesh), 1 round on the scenario's
+      tiny VGG: records and server bit for bit ``sharded_cohort_full``'s
+      on ``[cuda:0]``;
+    * (b) two workers on the one card, fresh interpreters of one
+      ``torch.distributed`` job over gloo, each with its own CUDA
+      context, ``executor="dist"``, at full width (``dist_smoke``'s
+      ``full``: ``sync_full_fedavg_fsfl`` on ``vgg11_thinned``, 8
+      clients of 560 images, batch 32, nnc-cabac, 2 rounds): each
+      worker's records and server bit for bit this process's sharded run
+      on ``[cuda:0, cuda:0]`` (torch on one host thread on both sides),
+      each worker's launches a round 1 ``level_assign`` and 110/102
+      ``scaled_matmul`` (its block of 4 clients and the server's
+      evaluation); the round walls and the host ms and bytes of the
+      ``dist.all_gather`` spans (the executor's output fetch and the
+      store's gather);
+    * (c) in the same job, the handoff (``dist_smoke``'s ``handoff``: 8
+      clients, cohorts of 2, ternary with error feedback, 4 rounds,
+      behind the sharded store with private spill directories): records
+      bit for bit the sharded run's, handoffs in both workers, the
+      participants changing between rounds;
+    * (d) ``launch.ingest_serve.main`` with ``--k 32 --rounds 2`` on the
+      card: payloads/s and MB/s.
+
+    A worker that fails or records that differ fail the run."""
+    from repro_torch.launch import dist_smoke, ingest_serve
+    from repro_torch.tree import sorted_items
+
+    out = {}
+    # (a)
+    res = {name: fl.run_scenario(name, rounds=1, device="cuda")
+           for name in ("dist_cohort_full", "sharded_cohort_full")}
+    recs = {n: [(r.up_bytes, r.test_acc, r.train_loss, r.participants)
+                for r in v.records] for n, v in res.items()}
+    same = recs["dist_cohort_full"] == recs["sharded_cohort_full"]
+    a, b = res["dist_cohort_full"].server, res["sharded_cohort_full"].server
+    for part in ("params", "scales", "bn_state"):
+        for (_, x), (_, y) in zip(sorted_items(getattr(a, part)),
+                                  sorted_items(getattr(b, part))):
+            same = same and bits_equal(torch, x, y)
+    out["single_process"] = {"records": recs["dist_cohort_full"],
+                             "bitwise_sharded": same}
+    print(f"  dist_cohort_full in one process (the local mesh): "
+          f"{recs['dist_cohort_full']}, bit for bit sharded_cohort_full: "
+          f"{same}")
+    if not same:
+        fail(f"dist_cohort_full in one process parts from "
+             f"sharded_cohort_full: {recs}")
+
+    # (b), (c): the parent's sharded runs, then the job
+    mesh = dist_smoke.parent_mesh("cuda")
+    runs = ("full", "handoff")
+    parent = {name: dist_smoke.run_records(name, "sharded", "cuda",
+                                           mesh=mesh)
+              for name in runs}
+    for name, got in parent.items():
+        print(f"  parent {name} (sharded, mesh {[str(d) for d in mesh]}): "
+              f"records {got['records']}, walls {got['walls_s']}, "
+              f"launches {got['launches']}")
+    t0 = time.time()
+    outs = dist_smoke.spawn(dist_smoke.worker_argv(runs, "cuda"),
+                            timeout=DIST_TIMEOUT_S)
+    job_s = time.time() - t0
+    workers = []
+    for pid, (rc, stdout, stderr) in enumerate(outs):
+        if rc != 0:
+            print(stderr[-4000:], file=sys.stderr)
+            fail(f"dist worker {pid} exited {rc} after {job_s:.1f} s")
+        workers.append(dist_smoke.records_line(stdout))
+    bad = dist_smoke.compare(parent, workers)
+    if bad:
+        fail("dist workers part from the sharded run: " + "; ".join(bad))
+    # a worker's launches a round: its block's one cohort call and the
+    # server's evaluation
+    want = {"level_assign": 1, **sm_per_round(COHORT // dist_smoke.PROCS)}
+    for pid, got in enumerate(workers):
+        full, hand = got["full"], got["handoff"]
+        print(f"  worker {pid} full width (dist, {dist_smoke.PROCS} "
+              f"processes on one card): records {full['records']}, walls "
+              f"{full['walls_s']}, launches {full['launches']}, "
+              f"all_gather {full['all_gather']}")
+        print(f"  worker {pid} handoff: records {hand['records']}, store "
+              f"{hand['store']}, all_gather {hand['all_gather']}")
+        for rnd, counts in enumerate(full["launches"], 1):
+            if counts != want:
+                fail(f"dist worker {pid} round {rnd}: launches {counts}, "
+                     f"expected {want}")
+        if hand["store"]["handoffs"] < 1:
+            fail(f"dist worker {pid}: no client handed off")
+        for rnd, (rec, wall) in enumerate(zip(full["records"],
+                                              full["walls_s"]), 1):
+            rounds_out.append([f"dist worker {pid}", rnd, rec[1], rec[2],
+                               rec[0], wall])
+    parts = [tuple(r[3]) for r in parent["handoff"]["records"]]
+    if len(set(parts)) < 2:
+        fail(f"handoff: the participants never change: {parts}")
+    out.update(parent=parent, workers=workers, job_s=job_s,
+               mesh=[str(d) for d in mesh])
+    print(f"  dist job: {dist_smoke.PROCS} workers bit for bit the sharded "
+          f"run, {job_s:.1f} s from start to exit")
+
+    # (d)
+    best = ingest_serve.main(["--k", "32", "--rounds", "2"])
+    out["ingest_serve"] = {"payloads_per_s": best.payloads_per_s,
+                           "mb_per_s": best.mb_per_s,
+                           "accepted": best.accepted,
+                           "bytes": best.bytes, "device": device_line()}
+    print(f"  ingest_serve --k 32 --rounds 2 on the card: "
+          f"{out['ingest_serve']}")
+    return out
+
+
 def reference_tiny(torch):
     """``tests/test_executors.py``'s tiny setting, drawn with torch
     generators: a 2-conv VGG (widths 8, 16, dense 16, 4 classes) on 480
@@ -4945,6 +5078,12 @@ def main() -> int:
     t1 = phase("population axis (pop_100k_diurnal, memory against "
                "sharded, pop_1m_lazy_k32, churn_midround_async)", t1)
 
+    # slice 14: the multi-process runtime (two workers on the card) and
+    # the FL ingest server
+    s14 = dist_phase(torch, fl, rounds_out)
+    t1 = phase("dist phase (dist_cohort_full, two workers at full width, "
+               "the handoff, ingest_serve)", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
@@ -5074,6 +5213,9 @@ def main() -> int:
         "cohort_32_kernel_phase": s13_timings["level_assign"],
         "launches_pop_100k_diurnal": path_total(s13["pop_100k_diurnal"],
                                                 "level_assign"),
+        "launches_dist_workers": [
+            [r["level_assign"] for r in w["full"]["launches"]]
+            for w in s14["workers"]],
         "launches_bidirectional_path_a":
             a_launches["run_federated bidirectional"],
         "launches_path_d": d_out["level_assign"],
@@ -5147,6 +5289,9 @@ def main() -> int:
             "call_ms", "bound")} for r in fwd],
         "launches_per_path": {label: r["forward"]
                               for label, r in runs.items()},
+        "launches_dist_workers": [
+            [r["scaled_matmul forward"] for r in w["full"]["launches"]]
+            for w in s14["workers"]],
         "cohort_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["forward"])
                                 for r in s12_timings["scaled_matmul"]],
         "cohort_32_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["forward"])
@@ -5172,6 +5317,9 @@ def main() -> int:
             "library_ms", "call_ms", "bound", "alone")} for r in bwd],
         "launches_per_path": {label: r["backward"]
                               for label, r in runs.items()},
+        "launches_dist_workers": [
+            [r["scaled_matmul backward"] for r in w["full"]["launches"]]
+            for w in s14["workers"]],
         "cohort_kernel_phase": [dict(k_mnk=r["k_mnk"], **r["backward_dx_dw"])
                                 for r in s12_timings["scaled_matmul"]],
         "cohort_32_kernel_phase": [
@@ -5207,6 +5355,7 @@ def main() -> int:
         "step_check": {"verdict": steps["verdict"],
                        "factor": steps["factor"], "steps": steps["steps"]},
         "population": s13,
+        "dist": s14,
         "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))
@@ -5218,4 +5367,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as e:
+        # the traceback follows on stderr; the last line says the run failed
+        print(json.dumps({"ok": False, "error": repr(e)}))
+        raise

@@ -30,7 +30,10 @@ memory, or sharded on the host with spill-to-disk), cohorts streamed by a
 hash draw, and a ``traffic`` model (diurnal availability, device-class
 latencies, mid-round churn) gating the cohorts and driving the simulated
 clock.  Async windows may be sized adaptively
-(``AsyncConfig.adaptive_window``).
+(``AsyncConfig.adaptive_window``).  With ``executor="dist"`` in a
+multi-process job (``repro_torch.dist``) the store is wrapped in a
+``CrossHostClientStore``: each process keeps the clients its blocks
+train, and a gather hands rows off between processes.
 
 Randomness: standalone runs draw the initial state, cohorts, latencies
 and batch orders from one ``torch.Generator`` seeded with ``seed``.  Runs
@@ -184,7 +187,8 @@ class EngineConfig:
                 raise ValueError(
                     f"mesh_shape configures the sharded cohort mesh; it has "
                     f"no meaning for executor={self.executor!r}: drop it or "
-                    "set executor='sharded'")
+                    "set executor='sharded' (the 'dist' backend builds its "
+                    "mesh from the torch.distributed process topology)")
             if len(self.mesh_shape) != 1 or self.mesh_shape[0] < 1:
                 raise ValueError(
                     f"mesh_shape must be a 1-D positive shape (the cohort "
@@ -368,14 +372,24 @@ class FederatedEngine:
             engine_cfg.sampling, self.num_clients,
             streaming=engine_cfg.population is not None,
             traffic=self.traffic)
+        executor = make_executor(engine_cfg.executor,
+                                 mesh_shape=engine_cfg.mesh_shape,
+                                 device=self.device)
+        store = make_store(engine_cfg.store, persistent0, self.num_clients)
+        if (engine_cfg.executor == "dist"
+                and executor.ctx.process_count > 1):
+            # a multi-process mesh: each process keeps the state of the
+            # clients its blocks train, handed off between processes when
+            # sampling moves a client (repro_torch.dist.state)
+            from repro_torch.dist import CrossHostClientStore
+            store = CrossHostClientStore(store, executor.ctx,
+                                         executor.position_owners,
+                                         template=persistent0)
         self.local_train = LocalTrain(
             client_round,
             make_view(splits, engine_cfg.population,
                       seed=engine_cfg.sampling.stream_seed),
-            make_store(engine_cfg.store, persistent0, self.num_clients),
-            cfg.batch_size, make_executor(engine_cfg.executor,
-                                          mesh_shape=engine_cfg.mesh_shape,
-                                          device=self.device))
+            store, cfg.batch_size, executor)
         self.uplink = Uplink(cfg, engine_cfg, server)
         self.aggregate = Aggregate(self.device, engine_cfg.measure_bytes,
                                    engine_cfg.wire_schema == 2)

@@ -27,20 +27,23 @@ The backends:
   of the mesh size by repeating its last row (``sampling.pad_clients``),
   each contiguous block runs on its own device, and the outputs are
   gathered to the inputs' device with the padded rows dropped.
-
-The multi-process ``"dist"`` backend is not ported: it builds on the
-population store.
+* ``DistExecutor``: the sharded backend over a multi-process mesh
+  (``repro_torch.dist``): the mesh is every process's devices in process
+  order, the cohort is padded to a multiple of its size, each process
+  runs only the blocks of its own devices, and the outputs come back to
+  every process through one host all-gather a call, so the engine's
+  uplink and aggregation see the whole cohort everywhere.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.fl.sampling import pad_clients
 from repro_torch.launch.mesh import make_cohort_mesh
 from repro_torch.obs import trace as obs_trace
-from repro_torch.runtime import not_ported
 from repro_torch.tree import row, stack, tree_map
 
 
@@ -160,17 +163,96 @@ class ShardedExecutor(VmapExecutor):
                         *outs)
 
 
-EXECUTORS = ("serial", "vmap", "sharded", "dist")
+class DistExecutor(ShardedExecutor):
+    """The sharded cohort program on a multi-process mesh.
 
-# the port-queue item the multi-process backend waits on (ROADMAP.md)
-DIST_ITEM = "dist executor and population store"
+    Construction takes the process's ``repro_torch.dist.DistContext``
+    (from the ``REPRO_DIST_*`` environment; without one, the
+    single-process context, whose mesh is the local devices, so the
+    backend is then the sharded one on every visible device) and builds
+    the cohort mesh over every process's devices.  Three things differ
+    from :class:`ShardedExecutor`:
+
+    * **input**: each process runs only its own blocks
+      (:meth:`local_rows`); the stacked inputs are the same on every
+      process (the SPMD engine), so a block is a slice of rows the
+      process already holds;
+    * **output**: the blocks' outputs go to every process in one host
+      all-gather a call (``DistContext.all_gather_tree``, span
+      ``dist.all_gather`` with ``what="executor.fetch"``) and are put
+      back on the inputs' device in block order, the padded rows
+      dropped, so the uplink sees the whole cohort everywhere;
+    * **ownership**: :meth:`position_owners` gives the process whose
+      block trains each cohort position, the contract
+      ``repro_torch.dist.CrossHostClientStore`` partitions client state
+      by.
+
+    Each block runs the same call on the same rows as the sharded
+    backend's, so the records are bit for bit those of a single-process
+    sharded run on the same block layout."""
+
+    name = "dist"
+
+    def __init__(self, ctx=None, device: str | torch.device = "cuda"):
+        if ctx is None:
+            from repro_torch.dist import get_context
+            ctx = get_context()
+        self.ctx = ctx
+        mesh = ctx.cohort_mesh(device)
+        super().__init__(mesh=list(mesh))
+        # the mesh is in process order, each process's blocks contiguous;
+        # one all-gather of equal buffers needs equal block counts
+        self.owners = np.asarray(mesh.owners, np.int64)
+        counts = np.bincount(self.owners, minlength=ctx.process_count)
+        if len(set(counts.tolist())) != 1:
+            raise ValueError(f"every process needs as many devices; the "
+                             f"mesh gives the processes {counts.tolist()}")
+        self.local_blocks = int(counts[0])
+
+    def _per(self, n: int) -> int:
+        return -(-n // self.mesh_size)
+
+    def local_rows(self, n: int) -> tuple[int, int]:
+        """The ``[lo, hi)`` rows of the padded cohort of ``n`` this
+        process's blocks train."""
+        rows = self.local_blocks * self._per(n)
+        return self.ctx.process_index * rows, (
+            self.ctx.process_index + 1) * rows
+
+    def position_owners(self, n: int) -> np.ndarray:
+        """The process whose block trains each of ``n`` cohort positions,
+        the write-ownership contract of the cross-host store."""
+        if n <= 0:
+            return np.empty(0, np.int64)
+        return np.repeat(self.owners, self._per(n))[:n]
+
+    def _run(self, servers, pers, cx, cy, cvx, cvy, bidx):
+        n = int(cx.shape[0])
+        per = self._per(n)
+        trees = pad_clients((servers, pers, cx, cy, cvx, cvy, bidx),
+                            per * self.mesh_size)
+        home = cx.device
+        lo, hi = self.local_rows(n)
+        outs = []
+        for b in range(lo // per, hi // per):
+            block = tree_map(
+                lambda x: x[b * per:(b + 1) * per].to(self.mesh[b]), trees)
+            outs.append(self.cohort(*block))
+        mine = tree_map(lambda *ls: torch.cat([x.to(home) for x in ls]),
+                        *outs)
+        # every process's blocks, in process order (one process: its own)
+        every = self.ctx.all_gather_tree(mine, "executor.fetch")
+        return tree_map(lambda *ls: torch.cat(ls)[:n], *every)
+
+
+EXECUTORS = ("serial", "vmap", "sharded", "dist")
 
 
 def make_executor(name: str, *, mesh_shape: tuple[int, ...] | None = None,
                   device: str | torch.device = "cuda") -> ClientExecutor:
     """Build a backend by registry name (``EngineConfig.executor``);
     ``mesh_shape`` and ``device`` (the engine's) place the sharded
-    backend's mesh."""
+    backend's mesh, ``device`` the dist backend's."""
     if name == "serial":
         return SerialExecutor()
     if name == "vmap":
@@ -178,6 +260,6 @@ def make_executor(name: str, *, mesh_shape: tuple[int, ...] | None = None,
     if name == "sharded":
         return ShardedExecutor(mesh_shape=mesh_shape, device=device)
     if name == "dist":
-        raise not_ported(f"executor {name!r}", DIST_ITEM)
+        return DistExecutor(device=device)
     raise ValueError(f"unknown executor: {name!r} (known: "
                      f"{', '.join(EXECUTORS)})")

@@ -1,11 +1,9 @@
 """Scenario registry: named, reproducible federated settings.
 
-Port of ``repro.fl.scenarios``: 34 of the reference's 35 scenarios, all
+Port of ``repro.fl.scenarios``: all 35 of the reference's scenarios, all
 but ``sync_full_fedavg_raw`` on the FSFL protocol (Table-2 row ``fsfl``,
 whose cohort runs the ``level_assign`` kernel once a round, over all its
-clients' leaves).  The other one, ``dist_cohort_full``, raises
-``runtime.not_ported`` naming the port queue item it waits on
-(``NOT_PORTED``).  A scenario that names no
+clients' leaves).  A scenario that names no
 executor trains its cohort, or an async window, in one batched call
 (``executor="vmap"``).
 
@@ -31,6 +29,11 @@ executor trains its cohort, or an async window, in one batched call
   wire) and ``exec_serial_k4`` (the serial executor, cohorts of 4);
 * ``sharded_cohort_full``: the batched round over a 1-D mesh of every
   visible device, one block of the cohort a device;
+* ``dist_cohort_full``: the same over every device of every process of
+  a ``torch.distributed`` job (``repro_torch.dist``; a single process
+  runs it on its local devices), client state owned by the process that
+  trains it, records bit for bit the single-process sharded run's on the
+  same block layout;
 * the FedOpt servers and weighted sampling over cohorts of 4:
   ``sync_k4_fedadam``, ``sync_k4_fedavgm``, ``sync_k4_fedadagrad``,
   ``sync_weighted_k4``;
@@ -72,14 +75,12 @@ from repro_torch.core.protocol import ProtocolConfig, baseline_configs
 from repro_torch.data import federated, synthetic
 from repro_torch.fl.async_buffer import AsyncConfig
 from repro_torch.fl.engine import EngineConfig, RunResult, run_simulation
-from repro_torch.fl.executors import DIST_ITEM
 from repro_torch.fl.ingest import IngestConfig
 from repro_torch.fl.population import (DIURNAL_DEFAULT, StoreConfig,
                                        TrafficConfig)
 from repro_torch.fl.sampling import SamplingConfig
 from repro_torch.fl.server_opt import ServerOptConfig
 from repro_torch.models import cnn
-from repro_torch.runtime import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,14 +219,7 @@ def register(s: Scenario) -> Scenario:
     return s
 
 
-# the reference's scenarios that are not ported yet, with the port-queue
-# item each waits on
-NOT_PORTED = {"dist_cohort_full": DIST_ITEM}
-
-
 def get_scenario(name: str) -> Scenario:
-    if name in NOT_PORTED:
-        raise not_ported(f"scenario {name!r}", NOT_PORTED[name])
     try:
         return SCENARIOS[name]
     except KeyError:
@@ -290,6 +284,13 @@ register(Scenario("sharded_cohort_full",
                   "batched round in one block a device; ragged cohorts pad "
                   "to the mesh size)",
                   executor="sharded"))
+register(Scenario("dist_cohort_full",
+                  "cohort axis sharded across a torch.distributed "
+                  "multi-process mesh (repro_torch.dist; a single process "
+                  "runs it on its local devices) with cross-host "
+                  "client-state ownership: records bit for bit the "
+                  "single-process sharded run's",
+                  executor="dist"))
 register(Scenario("sync_k4_fedadam",
                   "cohorts of 4 of 8, FedAdam server optimizer",
                   cohort_size=4, server_opt="fedadam", server_lr=1e-2))

@@ -1,5 +1,36 @@
-"""Launchers of the port: the cohort mesh (``launch.mesh``).
+"""Launchers of the port: the cohort meshes, the multi-process runtime's
+smoke, and the FL serving front door.
 
-Port of ``repro.launch`` as far as the engine uses it; the production and
-multi-host meshes, the servers and the dry runs are not ported.
+Port of ``repro.launch`` as far as the federated engine goes:
+
+* ``launch.mesh``: the cohort mesh of the sharded executor and the
+  multi-process one of the dist executor;
+* ``launch.dist_smoke``: runs itself as a parent and two workers of a
+  ``torch.distributed`` job and checks that their records are equal;
+* ``launch.ingest_serve`` and ``launch.serve``: the FL ingest server (the
+  streaming decode-and-accumulate pipeline of ``fl.ingest``, reporting
+  payloads/s and MB/s); ``serve --arch`` is the transformer family's,
+  not ported.
+
+``require_dist()`` guards the entry points that need ``repro_torch.dist``
+and fails with an actionable message where it is absent or broken.
 """
+from __future__ import annotations
+
+DIST_MISSING_MSG = (
+    "the `repro_torch.dist` runtime failed to import; this entry point "
+    "needs it (the torch.distributed multi-process cohort runtime: see "
+    "ROADMAP.md and src/repro_torch/dist/).  The single-process federated "
+    "engine (repro_torch.fl.run_scenario, repro_torch.core.fsfl."
+    "run_federated) runs without it."
+)
+
+
+def require_dist():
+    """Import and return ``repro_torch.dist``; SystemExit with a friendly
+    message where the runtime is absent or broken in this checkout."""
+    try:
+        import repro_torch.dist
+    except ImportError:
+        raise SystemExit(DIST_MISSING_MSG) from None
+    return repro_torch.dist

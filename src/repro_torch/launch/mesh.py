@@ -3,8 +3,10 @@
 Port of ``repro.launch.mesh.make_cohort_mesh``: a 1-D mesh over the
 federated cohort axis.  Where the reference builds a ``jax`` mesh, the
 port's mesh is the list of ``torch.device``s the cohort's blocks run on,
-one block a device (``fl.executors.ShardedExecutor``).  The production and
-multi-host meshes are not ported.
+one block a device (``fl.executors.ShardedExecutor``).  The multi-process
+mesh (:func:`make_multihost_cohort_mesh`) is the same list over every
+process's devices, each entry with the process that owns it.  The
+production meshes belong to the transformer family and are not ported.
 """
 from __future__ import annotations
 
@@ -50,3 +52,42 @@ def make_cohort_mesh(mesh_shape: tuple[int, ...] | None = None,
                          f"but {len(devices)} {platform} devices are "
                          f"visible")
     return devices[:need]
+
+
+class CohortMesh(list):
+    """A cohort mesh over several processes: the devices, in process
+    order, and ``owners[i]``, the index of the process that owns entry
+    ``i`` (the same ``cuda:0`` may be two processes' entries).  As a list
+    it is the plain mesh, so a single process's equals
+    :func:`make_cohort_mesh`'s."""
+
+    def __init__(self, devices, owners):
+        super().__init__(devices)
+        self.owners = [int(o) for o in owners]
+        if len(self.owners) != len(self):
+            raise ValueError(f"{len(self)} mesh entries but "
+                             f"{len(self.owners)} owners")
+
+
+def make_multihost_cohort_mesh(device: str | torch.device = "cuda",
+                               ctx=None) -> CohortMesh:
+    """1-D cohort mesh spanning every local device of every process.
+
+    ``ctx`` is the process's ``repro_torch.dist.DistContext`` (by default
+    ``get_context()``); each process's local devices on ``device``'s
+    platform are gathered from all of them.  Raises where the mesh does
+    not cover every process of the job (a worker that did not join would
+    otherwise shard over its own devices only and part from the others).
+    In a single process it is exactly ``make_cohort_mesh(None, device)``.
+    """
+    if ctx is None:
+        from repro_torch.dist import get_context
+        ctx = get_context()
+    entries = ctx.global_devices(device)
+    procs = sorted({p for p, _ in entries})
+    if procs != list(range(ctx.process_count)):
+        raise RuntimeError(
+            f"multi-process cohort mesh covers processes {procs} but the "
+            f"job has {ctx.process_count}: the process group is not fully "
+            f"joined")
+    return CohortMesh([d for _, d in entries], [p for p, _ in entries])

@@ -3,8 +3,8 @@ reference's, on the CPU, on the tiny setting of ``tests/test_executors.py``
 (a 2-conv VGG on 480 images over 4 clients, cohorts of 3):
 
 * the registry, ``mesh_shape`` and scenario checks of the reference's
-  ``test_executors.py``, with the port's defaults (``"vmap"``) and its 34
-  registered scenarios;
+  ``test_executors.py``, with the port's defaults (``"vmap"``), its 35
+  registered scenarios and ``make_executor("dist")``;
 * ``gather_clients``, ``scatter_clients`` and ``pad_clients`` bitwise the
   reference's on the same numpy trees;
 * the cohort forms of the tiny VGG, the reduced ResNet and the reduced
@@ -62,6 +62,7 @@ from repro.fl import EngineConfig as RefEngineConfig
 from repro.fl import FederatedEngine as RefEngine
 from repro.fl import SamplingConfig as RefSamplingConfig
 from repro.fl import sampling as ref_sampling
+from repro.fl import scenarios as ref_scenarios
 from repro.models import cnn as ref_cnn
 from repro_torch import convert
 from repro_torch.comms import stages
@@ -183,19 +184,19 @@ def test_executor_registry():
     assert ShardedExecutor(mesh=["cpu", "cpu"]).mesh_size == 2
     with pytest.raises(ValueError, match="unknown executor"):
         make_executor("warp")
-    with pytest.raises(NotImplementedError, match=executors.DIST_ITEM):
-        make_executor("dist")
+    dist = make_executor("dist", device="cpu")
+    assert isinstance(dist, executors.DistExecutor)
+    assert dist.mesh == [CPU] and dist.ctx.process_count == 1
     assert executors.EXECUTORS == ("serial", "vmap", "sharded", "dist")
 
 
 def test_batched_executor_is_the_default():
     assert engine.EngineConfig().executor == "vmap"
     assert scenarios.Scenario("x").executor == "vmap"
-    assert len(scenarios.SCENARIOS) == 34
+    assert len(scenarios.SCENARIOS) == 35
     assert scenarios.get_scenario("sharded_cohort_full").executor == "sharded"
-    assert scenarios.NOT_PORTED["dist_cohort_full"] == executors.DIST_ITEM
-    with pytest.raises(NotImplementedError, match=executors.DIST_ITEM):
-        scenarios.get_scenario("dist_cohort_full")
+    assert scenarios.get_scenario("dist_cohort_full").executor == (
+        ref_scenarios.get_scenario("dist_cohort_full").executor) == "dist"
 
 
 def test_vmap_executor_needs_a_cohort_form():

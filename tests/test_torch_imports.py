@@ -43,7 +43,10 @@ def test_port_has_modules():
     "obs/metrics.py", "fl/ingest/__init__.py", "fl/ingest/stream.py",
     "checkpoint/__init__.py", "checkpoint/io.py",
     "fl/population/__init__.py", "fl/population/store.py",
-    "fl/population/traffic.py", "fl/population/virtual.py"])
+    "fl/population/traffic.py", "fl/population/virtual.py",
+    "dist/__init__.py", "dist/context.py", "dist/state.py",
+    "launch/__init__.py", "launch/mesh.py", "launch/dist_smoke.py",
+    "launch/ingest_serve.py", "launch/serve.py"])
 def test_walk_covers_the_main_path_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 

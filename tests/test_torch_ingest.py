@@ -276,13 +276,11 @@ def test_ingest_config_and_engine_validation_are_the_reference():
 
 
 def test_other_scenarios_still_not_ported():
-    assert sorted(scenarios.NOT_PORTED) == ["dist_cohort_full"]
-    for name, item in scenarios.NOT_PORTED.items():
-        with pytest.raises(NotImplementedError, match=item):
-            scenarios.get_scenario(name)
-    assert len(scenarios.SCENARIOS) == 34
-    assert set(scenarios.SCENARIOS) | set(scenarios.NOT_PORTED) == set(
-        ref_scenarios.list_scenarios())
+    """Kept under its first name: every one of the reference's 35
+    scenarios is registered now, ``dist_cohort_full`` the last."""
+    assert len(scenarios.SCENARIOS) == 35
+    assert set(scenarios.SCENARIOS) == set(ref_scenarios.list_scenarios())
+    assert not hasattr(scenarios, "NOT_PORTED")
 
 
 # ---------------------------------------------------------------- whole runs

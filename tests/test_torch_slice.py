@@ -56,6 +56,7 @@ from repro_torch import convert
 from repro_torch.data.federated import FederatedSplits
 from repro_torch.fl import engine, scenarios
 from repro_torch.kernels import delta_compress as dc
+from repro_torch.launch import serve
 from repro_torch.models import cnn
 
 
@@ -192,12 +193,13 @@ def _check_rounds(name, cfg, plan, n_test, ref_recs, port_recs,
 
 
 def test_unported_options_raise():
-    s = dataclasses.replace(scenarios.get_scenario("codec_int8_k4"),
-                            executor="dist")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scenarios.run_scenario(s, rounds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scenarios.get_scenario("dist_cohort_full")
+    """``serve --arch`` (the transformer family) is the option left; the
+    FL front door and the dist executor run."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md.*'transformer family'"):
+        serve.main(["--arch", "mamba2-370m"])
+    with pytest.raises(NotImplementedError, match="transformer family"):
+        serve.main(["--arch=gpt2", "--steps", "1"])
 
 
 def test_no_wire_round_applies_the_mean_reconstruction():
