@@ -175,6 +175,20 @@ Phases (any failure exits non-zero):
      handoffs in both, the all-gathers' host ms and bytes; and the FL
      ingest server (``launch.ingest_serve``, K = 32, 2 passes) on the
      card;
+   * the transformer family's serving path (``transformer_phase``, in
+     ``repro_torch.launch.arch_check``; no kernel of the port runs on
+     it): ``serve --arch <id> --device cuda`` for all ten reduced
+     architectures; each reduced config's ``forward_full`` on the card
+     against the CPU on the same params (within 1e-4 of the largest
+     magnitude, tokens equal but at ties); and gemma2-2b, mamba2-370m,
+     recurrentgemma-9b and whisper-small at full width, drawn on the
+     card, ``prefill(S)``'s last logits against ``prefill(S0)`` and S -
+     S0 teacher-forced decode steps within 1e-3 (gemma2-2b's replay
+     crossing its 4096-token window, recurrentgemma-9b's its 2048 window
+     and running its tail, whisper-small's 1536-frame encoder), with the
+     prefill and per-token decode times, the peak memory, and one
+     profiled decode step's launches and device-busy share, each beside
+     the card's name and power limit;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -636,16 +650,12 @@ def host_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 def device_ops(torch, fn) -> dict:
     """The device operations of one ``fn`` call, from a torch.profiler
-    trace of the card's activity: kernels, and copies and fills."""
-    from torch.profiler import ProfilerActivity, profile
+    trace of the card's activity (``obs.trace.device_trace``, retaken
+    where the profiler dropped records): kernels, and copies and fills."""
+    from repro_torch.obs.trace import device_trace
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)}
+    rows, _, _, _ = device_trace(fn)
+    names = {e.key: e.count for e in rows}
     copies = sum(c for n, c in names.items()
                  if n.startswith(("Memcpy", "Memset")))
     return {"kernels": sum(names.values()) - copies, "copies": copies,
@@ -5146,7 +5156,17 @@ def main() -> int:
                 bidi_int8, rounds=1, model=models.vgg11_thinned(),
                 splits=splits, device="cuda"),
             "bidi_int8_k4 (path C)", ("delta_apply", "int8_encode"))}
-    phase("profiled rounds", t1)
+    t1 = phase("profiled rounds", t1)
+
+    # slice 15: the transformer family's serving path (reduced serve runs,
+    # card against CPU, full-width prefill against replay).  It runs last:
+    # after its full-width runs torch.profiler drops device records, all of
+    # a short session's at times (``launch/profiler_fault.py``), and the
+    # traces above are short
+    from repro_torch.launch import arch_check
+    s15 = arch_check.transformer_phase(dev)
+    phase("transformer phase (serve --arch, card against CPU, full-width "
+          "prefill against replay)", t1)
 
     replaces = {"delta_compress": "src/repro/kernels/delta_compress.py:47",
                 "delta_compress_batch":
@@ -5356,6 +5376,7 @@ def main() -> int:
                        "factor": steps["factor"], "steps": steps["steps"]},
         "population": s13,
         "dist": s14,
+        "transformer": s15,
         "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,11 @@
+"""gemma2-9b [dense]: local+global alternating, logit softcap [arXiv:2408.00118]."""
+from repro_torch.models.transformer import ArchConfig
+
+CONFIG = ArchConfig(
+    name="gemma2-9b", family="dense",
+    n_layers=42, d_model=3584, n_heads=16, n_kv_heads=8, head_dim=256,
+    d_ff=14336, vocab=256000, act="gelu_tanh",
+    window=4096, local_global_period=2,      # odd layers global
+    attn_softcap=50.0, final_softcap=30.0, embed_scale=True,
+    citation="arXiv:2408.00118",
+)

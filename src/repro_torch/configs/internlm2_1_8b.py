@@ -1,0 +1,9 @@
+"""internlm2-1.8b [dense]: GQA [arXiv:2403.17297]."""
+from repro_torch.models.transformer import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b", family="dense",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab=92544,
+    citation="arXiv:2403.17297",
+)

@@ -3,7 +3,8 @@
 The reference's ``ServerState`` (params, scales, BN state) and
 ``ClientPersistent`` (residual, optimizer states, schedule step) arrive as
 trees of arrays (numpy, or anything ``np.asarray`` takes) and leave as
-trees of numpy arrays.  Structures are read by field name, so this module
+trees of numpy arrays; so do a transformer's ``init_params`` tree and its
+``DecodeCache``.  Structures are read by field name, so this module
 needs nothing of the reference package: dicts stay dicts, an optimizer
 state with ``mu``/``nu`` is Adam's, one with ``momentum`` is SGD's.
 """
@@ -63,3 +64,42 @@ def initial_state(server_ref, persistent_ref, device="cpu"):
     """``(ServerState, ClientPersistent)`` for ``FederatedEngine(init_state=)``."""
     return server_state(server_ref, device), client_persistent(persistent_ref,
                                                                device)
+
+
+def transformer_params(ref_params, cfg, device="cpu") -> dict:
+    """The reference's ``init_params`` tree for ``cfg`` -> the port's, on
+    ``device``.  Every key and shape must be those of the port's
+    ``init_params`` for the same config, or this raises ``ValueError``."""
+    from repro_torch.models.transformer import param_shapes
+    want = param_shapes(cfg)
+
+    def carry(ref, shapes, path):
+        if isinstance(shapes, dict):
+            if not isinstance(ref, dict) or set(ref) != set(shapes):
+                got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                raise ValueError(f"{path or 'params'}: keys {got}, want "
+                                 f"{sorted(shapes)}")
+            return {k: carry(ref[k], shapes[k], f"{path}/{k}" if path else k)
+                    for k in shapes}
+        arr = np.asarray(ref)
+        if tuple(arr.shape) != shapes:
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, want "
+                             f"{shapes}")
+        return torch.as_tensor(np.array(arr)).to(device)
+
+    return carry(ref_params, want, "")
+
+
+def decode_cache(ref_cache, device="cpu"):
+    """The reference's ``DecodeCache`` -> the port's (``pos`` a Python int,
+    the layers' tuples and dicts kept), on ``device``."""
+    from repro_torch.models.decode import DecodeCache
+
+    def carry(t):
+        if isinstance(t, dict):
+            return {k: carry(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(carry(v) for v in t)
+        return torch.as_tensor(np.array(t)).to(device)
+
+    return DecodeCache(int(np.asarray(ref_cache.pos)), carry(ref_cache.layers))

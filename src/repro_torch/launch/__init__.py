@@ -1,5 +1,5 @@
 """Launchers of the port: the cohort meshes, the multi-process runtime's
-smoke, and the FL serving front door.
+smoke, and the serving front doors.
 
 Port of ``repro.launch`` as far as the federated engine goes:
 
@@ -9,8 +9,11 @@ Port of ``repro.launch`` as far as the federated engine goes:
   ``torch.distributed`` job and checks that their records are equal;
 * ``launch.ingest_serve`` and ``launch.serve``: the FL ingest server (the
   streaming decode-and-accumulate pipeline of ``fl.ingest``, reporting
-  payloads/s and MB/s); ``serve --arch`` is the transformer family's,
-  not ported.
+  payloads/s and MB/s); ``serve --arch`` is the transformer family's
+  prefill and greedy decode (``models.decode``), at tp = 1;
+* ``launch.arch_check``: the transformer family's comparison rules and
+  the card phase of ``chip_smoke.py`` (card against CPU, full-width
+  prefill against replay, timings).
 
 ``require_dist()`` guards the entry points that need ``repro_torch.dist``
 and fails with an actionable message where it is absent or broken.

@@ -6,7 +6,9 @@ port's mesh is the list of ``torch.device``s the cohort's blocks run on,
 one block a device (``fl.executors.ShardedExecutor``).  The multi-process
 mesh (:func:`make_multihost_cohort_mesh`) is the same list over every
 process's devices, each entry with the process that owns it.  The
-production meshes belong to the transformer family and are not ported.
+reference's ``make_mesh`` and ``make_production_mesh`` belong to transformer
+tensor parallelism, not ported yet (ROADMAP.md, "transformer tensor
+parallel").
 """
 from __future__ import annotations
 

@@ -38,7 +38,7 @@ import torch
 
 __all__ = [
     "Span", "SpanRecorder", "NoopRecorder", "NOOP",
-    "get_recorder", "use_recorder", "span",
+    "get_recorder", "use_recorder", "span", "device_trace",
     "export_jsonl", "export_chrome_trace",
 ]
 
@@ -242,6 +242,58 @@ def span(name: str, **attrs):
         return _ProfiledSpan(_NOOP_SPAN, name)
     host = _active.span(name, **attrs)
     return _ProfiledSpan(host, name) if _profiling() else host
+
+
+# ------------------------------------------------------------ device trace
+
+_SENTINEL = "spin_kernel"     # the kernel of ``torch.cuda._sleep``
+_PAD_S = 0.5                  # host seconds inside each end of a session
+
+
+def device_trace(fn, tries: int = 10, need_all: bool = True):
+    """``fn()``'s device operations on the card from a ``torch.profiler``
+    session -> ``(rows, wall_ms, attempt, whole)``: the CUDA rows of
+    ``key_averages()`` (no user annotations), ``fn``'s host wall ms, which
+    attempt gave them, and whether the session kept every record.
+
+    After long stretches of device work the profiler (torch 2.11, CUDA
+    12.8, on an H100) drops device records, counting them "out of range"
+    of its capture window: some of a long session's, often all of a short
+    one's.  So ``fn`` runs between two spin kernels
+    (``torch.cuda._sleep``), half a second of host time inside each end
+    of the session.  A session that kept both spin kernels is whole; one that
+    lost either is taken again, up to ``tries`` times.  Then it raises,
+    unless ``need_all`` is false and some session kept records of
+    ``fn``: the last such is returned with ``whole`` false.  A reading
+    never goes missing unseen."""
+    from torch.profiler import ProfilerActivity, profile
+    last = None
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(_PAD_S)
+            torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(_PAD_S)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        spins = sum(e.count for e in rows if _SENTINEL in e.key)
+        rows = [e for e in rows if _SENTINEL not in e.key]
+        if spins == 2:
+            return rows, wall_ms, attempt, True
+        if rows:
+            last = (rows, wall_ms, attempt, False)
+    if last is not None and not need_all:
+        return last
+    raise RuntimeError(
+        f"torch.profiler dropped device records in {tries} sessions in a "
+        f"row (a {wall_ms:.1f} ms call)")
 
 
 # ---------------------------------------------------------------- exporters

@@ -46,9 +46,29 @@ def test_port_has_modules():
     "fl/population/traffic.py", "fl/population/virtual.py",
     "dist/__init__.py", "dist/context.py", "dist/state.py",
     "launch/__init__.py", "launch/mesh.py", "launch/dist_smoke.py",
-    "launch/ingest_serve.py", "launch/serve.py"])
+    "launch/ingest_serve.py", "launch/serve.py", "launch/arch_check.py",
+    "models/common.py", "models/mlp.py", "models/attention.py",
+    "models/moe.py", "models/ssm.py", "models/rglru.py",
+    "models/frontend.py", "models/transformer.py", "models/decode.py",
+    "configs/__init__.py", "configs/base.py", "configs/gemma2_2b.py",
+    "configs/mamba2_370m.py", "configs/recurrentgemma_9b.py",
+    "configs/whisper_small.py", "configs/vgg11_cifar.py"])
 def test_walk_covers_the_main_path_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+def test_configs_get_loads_the_ports_module():
+    """The registry builds its module name at run time, which the AST walk
+    cannot see: it must land under ``repro_torch.configs``."""
+    import sys
+
+    from repro_torch import configs
+    cfg = configs.get("gemma2-2b")
+    mod = sys.modules["repro_torch.configs.gemma2_2b"]
+    assert mod.CONFIG is cfg and mod.__file__.startswith(
+        str(ROOT / "src" / "repro_torch" / "configs"))
+    assert all(type(c).__module__ == "repro_torch.models.transformer"
+               for c in configs.all_configs().values())
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

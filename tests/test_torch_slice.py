@@ -192,14 +192,29 @@ def _check_rounds(name, cfg, plan, n_test, ref_recs, port_recs,
                                        err_msg=f"round {rnd} scales {k}")
 
 
-def test_unported_options_raise():
-    """``serve --arch`` (the transformer family) is the option left; the
-    FL front door and the dist executor run."""
+def test_unported_options_raise(capsys):
+    """``serve --arch`` runs the transformer family's serving path on the
+    CPU; an unknown arch fails as the reference's does (no config module
+    of that name); transformer tensor parallelism is the option left, and
+    a context that asks for it raises."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.models.common import ShardCtx
+
+    lines = serve.main(["--arch", "mamba2-370m", "--steps", "2",
+                        "--device", "cpu"])
+    printed = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("seq")]
+    assert printed == lines and [ln[:5] for ln in lines] == ["seq0:",
+                                                             "seq1:"]
+    assert all(len(eval(ln.split(":", 1)[1])) == 2 for ln in lines)
+    with pytest.raises(ModuleNotFoundError, match="repro.configs.gpt2"):
+        ref_serve.main(["--arch=gpt2", "--steps", "1"])
+    with pytest.raises(ModuleNotFoundError,
+                       match="repro_torch.configs.gpt2"):
+        serve.main(["--arch=gpt2", "--steps", "1", "--device", "cpu"])
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*'transformer family'"):
-        serve.main(["--arch", "mamba2-370m"])
-    with pytest.raises(NotImplementedError, match="transformer family"):
-        serve.main(["--arch=gpt2", "--steps", "1"])
+                       match="ROADMAP.md.*'transformer tensor parallel'"):
+        ShardCtx(tp_axis="model", tp_size=2)
 
 
 def test_no_wire_round_applies_the_mean_reconstruction():
