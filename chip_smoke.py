@@ -189,6 +189,25 @@ Phases (any failure exits non-zero):
      prefill and per-token decode times, the peak memory, and one
      profiled decode step's launches and device-busy share, each beside
      the card's name and power limit;
+   * transformer tensor parallelism (``tp_phase``, in
+     ``repro_torch.launch.tp_check``; no kernel of the port runs on it):
+     a job of two workers on the card (gloo, host-staged collectives),
+     each a shard of the ``model`` axis, drawing its shards one leaf at
+     a time; gemma2-2b, whisper-small, recurrentgemma-9b and mamba2-370m
+     at full width, each a ``forward_full`` and ``loss_fn`` on a
+     128-token prompt, the prompt fed one token at a time through
+     ``decode_step`` from ``init_cache``, then 16 greedy steps; gemma2-2b
+     and whisper-small held to tp = 1 on the card (run first in this
+     process and freed), recurrentgemma-9b and mamba2-370m to the same
+     workers on the CPU at 3 and 2 layers (a 32-token forward, 8 + 8
+     decode steps) and to a
+     second card run of the whole procedure, bit for bit, at full depth
+     (recurrentgemma-9b at ``tp_check.RG_DEPTH`` of its 38 layers); then four
+     workers on the reduced gemma2-2b and mixtral-8x22b (``ep_a2a``)
+     against tp = 1 and the reduced recurrentgemma-9b (4 sequence parts)
+     against the CPU, each a 32-token prompt and 8 greedy steps;
+     ms a token at tp = 2 and tp = 1, collectives a token and their host
+     ms, each worker's peak memory and the phase's wall;
 
    Each kernel is then held against its plain version on copies of the
    first buffers its path gave it (``int8_encode_leaves``: the first
@@ -5165,8 +5184,13 @@ def main() -> int:
     # traces above are short
     from repro_torch.launch import arch_check
     s15 = arch_check.transformer_phase(dev)
-    phase("transformer phase (serve --arch, card against CPU, full-width "
-          "prefill against replay)", t1)
+    t1 = phase("transformer phase (serve --arch, card against CPU, "
+               "full-width prefill against replay)", t1)
+    # slice 16: transformer tensor parallelism, two workers on the card at
+    # full width, then four at reduced size
+    from repro_torch.launch import tp_check
+    s16 = tp_check.tp_phase(dev)
+    phase("tp phase (tp = 2 at full width, tp = 4 reduced)", t1)
 
     replaces = {"delta_compress": "src/repro/kernels/delta_compress.py:47",
                 "delta_compress_batch":
@@ -5377,6 +5401,7 @@ def main() -> int:
         "population": s13,
         "dist": s14,
         "transformer": s15,
+        "tensor_parallel": s16,
         "repeatability": repeat,
         "small_input_card_vs_cpu": small, "profiled_rounds": prof}}))
     print(json.dumps({"kernels": kernels}))

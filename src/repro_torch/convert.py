@@ -71,23 +71,8 @@ def transformer_params(ref_params, cfg, device="cpu") -> dict:
     ``device``.  Every key and shape must be those of the port's
     ``init_params`` for the same config, or this raises ``ValueError``."""
     from repro_torch.models.transformer import param_shapes
-    want = param_shapes(cfg)
-
-    def carry(ref, shapes, path):
-        if isinstance(shapes, dict):
-            if not isinstance(ref, dict) or set(ref) != set(shapes):
-                got = sorted(ref) if isinstance(ref, dict) else type(ref)
-                raise ValueError(f"{path or 'params'}: keys {got}, want "
-                                 f"{sorted(shapes)}")
-            return {k: carry(ref[k], shapes[k], f"{path}/{k}" if path else k)
-                    for k in shapes}
-        arr = np.asarray(ref)
-        if tuple(arr.shape) != shapes:
-            raise ValueError(f"{path}: shape {tuple(arr.shape)}, want "
-                             f"{shapes}")
-        return torch.as_tensor(np.array(arr)).to(device)
-
-    return carry(ref_params, want, "")
+    _check_shapes(ref_params, param_shapes(cfg), "params")
+    return to_tensors(ref_params, device)
 
 
 def decode_cache(ref_cache, device="cpu"):
@@ -103,3 +88,186 @@ def decode_cache(ref_cache, device="cpu"):
         return torch.as_tensor(np.array(t)).to(device)
 
     return DecodeCache(int(np.asarray(ref_cache.pos)), carry(ref_cache.layers))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel shards of a tp = 1 tree
+# ---------------------------------------------------------------------------
+
+_ATTN = ("attn", "xattn")
+
+
+def _block(t, dim: int, parts: int, i: int):
+    n = t.shape[dim]
+    if n % parts:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"{parts} ways")
+    return t.narrow(dim, i * (n // parts), n // parts)
+
+
+def _sections(t, dim: int, sizes, cut: list):
+    """Split ``t`` along ``dim`` into sections of ``sizes``; cut each with
+    ``cut[k]`` (None keeps the section whole) and concatenate."""
+    out, off = [], 0
+    for n, c in zip(sizes, cut):
+        sec = t.narrow(dim, off, n)
+        out.append(sec if c is None else c(sec))
+        off += n
+    return torch.cat(out, dim=dim)
+
+
+def shard_leaf(path: tuple, t, cfg, plan, rank: int):
+    """Rank ``rank``'s shard of one leaf of a tp = 1 tree at ``plan``'s
+    sharding (the reference's per-shard layout).  ``path`` is the leaf's
+    keys from the root; a leaf under a layer stack keeps its leading
+    layer axis (every cut counts dims from the end)."""
+    tp, name = plan.tp, path[-1]
+    parent = path[-2] if len(path) > 1 else None
+    if tp == 1:
+        return t
+    if name in ("embed", "lm_head") and len(path) == 1:
+        pad = cfg.padded_vocab(tp) - t.shape[-2]
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad, t.shape[-1]))])
+        return _block(t, -2, tp, rank)
+    if parent in _ATTN:
+        spec = cfg.attn_spec(tp, plan.attn_replicated)
+        if spec.replicated:
+            raise ValueError("attn_replicated has no tp = 1 equivalent to "
+                             "split: its shards sum tp full projections")
+        if plan.decode_layout:
+            # wq, wk, wv: the heads of kv group rank // r; wo: the
+            # n_heads / tp q heads this rank keeps, rank * keep onwards
+            if name == "wo":
+                return _block(t, -1, tp, rank)
+            return _block(t, -2, spec.decode_kv_shards,
+                          rank // spec.decode_seq_parts)
+        if name == "wq":
+            return _block(t, -2, tp, rank)
+        if name == "wo":
+            return _block(t, -1, tp, rank)
+        return _block(t, -2, tp, rank) if spec.kv_sharded else t
+    if parent == "mlp":
+        return _block(t, -1 if name == "w_down" else -2, tp, rank)
+    if parent == "moe":
+        if name == "router":
+            return t
+        mspec = cfg.moe_spec()
+        dim = -1 if name == "w_down" else -2
+        if mspec.impl == "dense_tp":
+            return _block(t, dim, tp, rank)
+        E = mspec.n_experts
+        if tp % E:
+            raise ValueError(f"ep_a2a at tp {tp} needs tp % n_experts == 0 "
+                             f"({E} experts)")
+        ws = tp // E
+        return _block(_block(t, -3, E, rank // ws), dim, ws, rank % ws)
+    if parent == "ssm":
+        sspec = cfg.ssm_spec()
+        din, gn, H = sspec.d_inner, sspec.n_groups * sspec.d_state, \
+            sspec.n_heads
+
+        def mine(dim):
+            return lambda sec: _block(sec, dim, tp, rank)
+        if name == "in_proj":      # rows [z | x | B | C | dt]
+            return _sections(t, -2, (din, din, gn, gn, H),
+                             [mine(-2), mine(-2), None, None, mine(-2)])
+        if name in ("conv_w", "conv_b"):   # channels [x | B | C]
+            dim = -2 if name == "conv_w" else -1
+            return _sections(t, dim, (din, gn, gn), [mine(dim), None, None])
+        # out_proj's columns; A_log, D_skip, dt_bias, norm_g
+        return _block(t, -1, tp, rank)
+    if parent == "rec":
+        if name in ("w_a", "w_i"):         # the diagonal block
+            return _block(_block(t, -2, tp, rank), -1, tp, rank)
+        if name == "w_out":
+            return _block(t, -1, tp, rank)
+        if name in ("w_in_x", "w_in_g", "conv_w"):
+            return _block(t, -2, tp, rank)
+        return _block(t, -1, tp, rank)     # conv_b, b_a, b_i, lam
+    return t                               # norms: replicated
+
+
+_STACKS = ("layers", "superblocks", "tail", "enc_layers", "dec_layers")
+
+
+def _layout_dependent(path: tuple) -> bool:
+    """Whether a leaf's shard differs between the prefill and the decode
+    layout (the attention projections)."""
+    return len(path) > 1 and path[-2] in _ATTN
+
+
+def shard_transformer_params(full: dict, cfg, plan, rank: int) -> dict:
+    """Rank ``rank``'s shard of the tp = 1 tree ``full`` (the port's
+    ``init_params``, or one carried from the reference with
+    :func:`transformer_params`) at ``plan``'s sharding, in its layout
+    (``plan.decode_layout``): heads in contiguous blocks, ``d_ff`` and
+    expert slices, the SSM's ``in_proj`` and conv cut section by
+    section, the RG-LRU's (W x W) gates to their diagonal blocks, vocab
+    rows padded with zeros to ``padded_vocab(tp)``.  Each shard is a
+    copy: ``full`` may be freed.  Raises ``ValueError`` where ``full``
+    or the result has other shapes than ``init_params``'s."""
+    from repro_torch.models.transformer import SINGLE, param_shapes
+    _check_shapes(full, param_shapes(cfg, SINGLE), "full")
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        return shard_leaf(path, t, cfg, plan, rank).clone()
+
+    out = walk(full, ())
+    _check_shapes(out, param_shapes(cfg, plan), f"rank {rank}'s shard")
+    return out
+
+
+def _check_shapes(tree, shapes, what: str, path: str = "") -> None:
+    """Raise ``ValueError`` naming ``what`` and the path where ``tree``'s
+    keys or leaf shapes part from ``shapes``."""
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{what}, {path or 'the root'}: keys {got}, "
+                             f"want {sorted(shapes)}")
+        for k in shapes:
+            _check_shapes(tree[k], shapes[k], what,
+                          f"{path}/{k}" if path else k)
+    elif tuple(tree.shape) != shapes:
+        raise ValueError(f"{what}, {path}: shape {tuple(tree.shape)}, want "
+                         f"{shapes}")
+
+
+def init_shard_params(gen, cfg, plans, rank: int) -> list[dict]:
+    """Rank ``rank``'s shards, one for each plan of ``plans`` (the same
+    tp; say the prefill and the decode layout), of the tp = 1 tree that
+    ``init_params(gen, cfg)`` would draw, built one leaf at a time: each
+    layer's leaves are drawn whole and only their slices kept, so the
+    peak is the shards and one layer, not the full model.  The shards
+    equal ``shard_transformer_params(init_params(gen, cfg), cfg, plan,
+    rank)`` bit for bit (the same draws); a leaf whose cut is the same in
+    every layout is one tensor shared by the trees."""
+    from repro_torch.models.transformer import (SINGLE, init_params,
+                                                param_shapes)
+    plans = list(plans)
+    extra = [{} for _ in plans[1:]]
+
+    def keep(path, t):
+        for store, plan in zip(extra, plans[1:]):
+            if _layout_dependent(path):
+                store.setdefault(path, []).append(
+                    shard_leaf(path, t, cfg, plan, rank).clone())
+        return shard_leaf(path, t, cfg, plans[0], rank).clone()
+
+    first = init_params(gen, cfg, SINGLE, keep=keep)
+    trees = [first]
+    for store in extra:
+        def swap(t, path):
+            if isinstance(t, dict):
+                return {k: swap(v, path + (k,)) for k, v in t.items()}
+            got = store.get(path)
+            if got is None:
+                return t
+            return torch.stack(got) if path[0] in _STACKS else got[0]
+        trees.append(swap(first, ()))
+    for tree, plan in zip(trees, plans):
+        _check_shapes(tree, param_shapes(cfg, plan), f"rank {rank}'s shard")
+    return trees

@@ -1,10 +1,12 @@
-"""Launchers of the port: the cohort meshes, the multi-process runtime's
-smoke, and the serving front doors.
+"""Launchers of the port: the meshes, the multi-process runtime's smoke,
+and the serving front doors.
 
-Port of ``repro.launch`` as far as the federated engine goes:
+Port of ``repro.launch`` as far as the federated engine and the
+transformer's serving path go:
 
-* ``launch.mesh``: the cohort mesh of the sharded executor and the
-  multi-process one of the dist executor;
+* ``launch.mesh``: the transformer's process mesh (``make_mesh``,
+  ``make_production_mesh``), the cohort mesh of the sharded executor and
+  the multi-process one of the dist executor;
 * ``launch.dist_smoke``: runs itself as a parent and two workers of a
   ``torch.distributed`` job and checks that their records are equal;
 * ``launch.ingest_serve`` and ``launch.serve``: the FL ingest server (the
@@ -13,7 +15,9 @@ Port of ``repro.launch`` as far as the federated engine goes:
   prefill and greedy decode (``models.decode``), at tp = 1;
 * ``launch.arch_check``: the transformer family's comparison rules and
   the card phase of ``chip_smoke.py`` (card against CPU, full-width
-  prefill against replay, timings).
+  prefill against replay, timings);
+* ``launch.tp_check``: tensor-parallel jobs (one worker a shard of the
+  ``model`` axis) and the tp phase of ``chip_smoke.py``.
 
 ``require_dist()`` guards the entry points that need ``repro_torch.dist``
 and fails with an actionable message where it is absent or broken.

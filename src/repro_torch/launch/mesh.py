@@ -1,18 +1,116 @@
-"""The cohort mesh of the sharded executor.
+"""Meshes: the transformer's process mesh and the cohort mesh of the
+sharded executor.
 
-Port of ``repro.launch.mesh.make_cohort_mesh``: a 1-D mesh over the
-federated cohort axis.  Where the reference builds a ``jax`` mesh, the
-port's mesh is the list of ``torch.device``s the cohort's blocks run on,
-one block a device (``fl.executors.ShardedExecutor``).  The multi-process
-mesh (:func:`make_multihost_cohort_mesh`) is the same list over every
-process's devices, each entry with the process that owns it.  The
-reference's ``make_mesh`` and ``make_production_mesh`` belong to transformer
-tensor parallelism, not ported yet (ROADMAP.md, "transformer tensor
-parallel").
+Port of ``repro.launch.mesh``.
+
+* :func:`make_mesh` and :func:`make_production_mesh` build the mesh of
+  transformer tensor parallelism over the processes of one
+  ``torch.distributed`` job, one process a mesh entry, ranks laid out in
+  row-major order over the shape (as ``jax.make_mesh`` lays out its
+  devices).  The mesh is the port's own ranks and groups, not
+  ``torch.distributed.device_mesh``: a ``DeviceMesh`` of device type
+  ``cuda`` binds each rank to a card of its own, and the port's tp
+  workers share one card over gloo.  Every group (one per line of each
+  axis, and along each axis the blocks of ``r`` consecutive ranks that
+  stand for the reference's ``axis_index_groups``) is made once, by every
+  process, in the same order; each axis this process lies on is bound to
+  its name in ``models.common`` (``bind_axis``), where a ``ShardCtx``
+  naming it finds its group.
+* :func:`make_cohort_mesh`: a 1-D mesh over the federated cohort axis.
+  Where the reference builds a ``jax`` mesh, the port's mesh is the list
+  of ``torch.device``s the cohort's blocks run on, one block a device
+  (``fl.executors.ShardedExecutor``).  The multi-process mesh
+  (:func:`make_multihost_cohort_mesh`) is the same list over every
+  process's devices, each entry with the process that owns it.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import math
+
 import torch
+
+
+def production_shape(multi_pod: bool = False
+                     ) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axis names) of the production mesh: 16 x 16 = 256 chips a
+    pod; 2 pods = 512."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A mesh over the processes of one job, as the reference's
+    ``jax.sharding.Mesh`` over its devices: ``ranks`` (nested lists of
+    ``shape``) in place of ``devices``.  This process's groups are bound
+    to the axis names in ``models.common``."""
+    shape: tuple
+    axis_names: tuple
+    ranks: list
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def _job() -> tuple[int, int]:
+    """(rank, world size) of this process's job; (0, 1) outside one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_mesh(shape: tuple, axes: tuple) -> Mesh:
+    """The mesh of ``shape`` with axis names ``axes`` over this job's
+    processes (``prod(shape)`` of them; raises ``ValueError`` naming both
+    sizes otherwise), its groups made and its axes bound."""
+    from repro_torch.models import common
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} has {len(shape)} axes but "
+                         f"{len(axes)} names {axes}")
+    rank, world = _job()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} needs "
+                         f"{math.prod(shape)} processes but the job has "
+                         f"{world}")
+    coords_of = list(itertools.product(*(range(n) for n in shape)))
+    coords = coords_of[rank]
+    flat = {c: i for i, c in enumerate(coords_of)}
+    common.unbind_axes()
+    for a, (name, n) in enumerate(zip(axes, shape)):
+        others = [range(m) for b, m in enumerate(shape) if b != a]
+        mine, blocks = None, {}
+        for rest in itertools.product(*others):
+            line = [flat[rest[:a] + (i,) + rest[a:]] for i in range(n)]
+            group = _new_group(line) if n > 1 else None
+            if rank in line:
+                mine = group
+            for r in (d for d in range(2, n) if n % d == 0):
+                for b in range(n // r):
+                    block = line[b * r:(b + 1) * r]
+                    g = _new_group(block)
+                    if rank in block:
+                        blocks[r] = g
+        common.bind_axis(common.Axis(name, mine, coords[a], n, blocks))
+    return Mesh(shape, axes, torch.arange(world).reshape(shape).tolist())
+
+
+def _new_group(ranks: list[int]):
+    """``new_group(ranks)``: every process of the job must call it, in
+    the same order, whether it is in ``ranks`` or not."""
+    import torch.distributed as dist
+    return dist.new_group(ranks)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: (16, 16) ``("data", "model")``,
+    or (2, 16, 16) ``("pod", "data", "model")`` across two pods."""
+    return make_mesh(*production_shape(multi_pod))
 
 
 def device_count() -> int:

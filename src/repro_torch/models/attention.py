@@ -1,9 +1,23 @@
 """GQA attention: chunked online-softmax forward (train and prefill) and a
 cached one-token decode over a ring-buffer KV cache.
 
-Port of ``repro.models.attention`` at tp = 1: the decode cache has one
-sequence part (``decode_seq_parts`` is 1), so the reference's log-sum-exp
-combine across shards does not arise.
+Port of ``repro.models.attention``, per-shard code (see
+``common.ShardCtx``):
+
+* train and prefill: Megatron sequence parallelism.  The seq-sharded
+  residual stream is gathered, q, k, v are column-parallel over the
+  shard's heads, the output projection is row-parallel and its partial
+  sums are reduce-scattered back to the shard's sequence slice.  Where
+  the kv heads do not divide over tp, k and v are computed whole on every
+  shard and each shard attends with the kv groups its q heads belong to
+  (whole groups, or one group that several shards share).
+* decode: the KV cache is laid out (kv groups x sequence parts) over the
+  tp axis.  Each shard owns one kv-head group and 1/r of the ring, writes
+  a token only where it owns the slot, attends with every q head of its
+  group over its part, and the r partial results of a group are combined
+  with a log-sum-exp reduce within the group (the flash-decoding
+  analogue); each shard then keeps its own q heads for the row-parallel
+  output projection and its psum.
 
 Masking uses the finite ``NEG_INF = -1e30``, as the reference does: a kv
 chunk that masks a whole query row gives that row ``p = exp(0) = 1`` on
@@ -81,7 +95,9 @@ def init_attn(gen, spec: AttnParamsSpec, dtype=torch.float32):
 
 
 def init_decode_attn(gen, spec: AttnParamsSpec, dtype=torch.float32):
-    """Parameter shapes of the decode layout (at tp = 1 the same as
+    """Parameter shapes of the decode layout: the q heads of this shard's
+    kv group (``decode_q_local``), its kv heads, and ``wo`` over the
+    ``n_heads / tp`` q heads it keeps (at tp = 1 the same as
     ``init_attn``'s)."""
     hd, d = spec.head_dim, spec.d_model
     q_loc = spec.n_heads if spec.replicated else spec.decode_q_local
@@ -175,10 +191,11 @@ def attn_forward(params, x_sp, spec: AttnParamsSpec, ctx: ShardCtx, *,
                  mrope_sections=None, mrope_positions=None,
                  kv_override=None, q_chunk=512, kv_chunk=512,
                  return_kv: bool = False, defer_reduce: bool = False):
-    """Attention block body (no norms or residual).  x: (B, S, D).
+    """Sequence-parallel attention block body (no norms or residual).
 
-    kv_override: (k, v) for cross-attention, shaped (B, Sk, kv_local, hd).
-    Returns (B, S, D), and (k, v) if requested.
+    x_sp: (B, S/tp, D) seq-sharded ((B, S, D) at tp = 1).  kv_override:
+    (k, v) for cross-attention, shaped (B, Sk, kv_local, hd).  Returns
+    (B, S/tp, D), and (k, v) if requested.
     """
     x = common.sp_all_gather(x_sp, ctx)
     B, S, _ = x.shape
@@ -204,10 +221,28 @@ def attn_forward(params, x_sp, spec: AttnParamsSpec, ctx: ShardCtx, *,
         if kv_override is None:
             k = common.apply_rope(k, positions, rope_theta)
 
-    # group q heads with their kv heads (the reference's tp == 1 branch)
-    G = k.shape[2]
-    qg = q.reshape(B, S, G, spec.q_local // G, hd)
-    out = chunked_attention(qg, k, v, causal=causal, window=window,
+    # group q heads with their kv heads
+    if spec.kv_sharded or spec.replicated or ctx.tp == 1:
+        G = k.shape[2]
+        qg = q.reshape(B, S, G, spec.q_local // G, hd)
+        kg, vg = k, v
+    else:
+        # kv replicated, q column-parallel: the kv groups this shard's q
+        # heads [idx * q_local, (idx + 1) * q_local) belong to
+        idx = common.axis_index(ctx)
+        gsz = spec.group_size
+        if spec.q_local >= gsz:
+            # the local q heads span whole groups
+            G = spec.q_local // gsz
+            g0 = idx * G
+            qg = q.reshape(B, S, G, gsz, hd)
+        else:
+            # several shards share one group
+            G = 1
+            g0 = (idx * spec.q_local) // gsz
+            qg = q.reshape(B, S, 1, spec.q_local, hd)
+        kg, vg = k[:, :, g0:g0 + G], v[:, :, g0:g0 + G]
+    out = chunked_attention(qg, kg, vg, causal=causal, window=window,
                             attn_softcap=attn_softcap,
                             q_chunk=q_chunk, kv_chunk=kv_chunk)
     y = out.reshape(B, S, spec.q_local * hd) @ params["wo"].T
@@ -224,28 +259,37 @@ def attn_forward(params, x_sp, spec: AttnParamsSpec, ctx: ShardCtx, *,
 # ---------------------------------------------------------------------------
 
 def decode_groups(spec: AttnParamsSpec, ctx: ShardCtx):
-    """axis_index_groups of the within-group LSE combine: none at tp = 1."""
-    return None
+    """axis_index_groups of the within-group LSE combine, or None."""
+    if ctx.tp == 1 or spec.decode_seq_parts == 1:
+        return None
+    r = spec.decode_seq_parts
+    return [[g * r + j for j in range(r)] for g in range(ctx.tp // r)]
 
 
-def ring_write(cache_k, cache_v, k_new, v_new, pos: int):
-    """Write one token's k, v into the ring buffer at slot ``pos % S``, in
-    place.  The reference's slot, owner and clamped local slot at one
-    sequence part (``dynamic_update_slice`` clamps its start index)."""
+def ring_write(cache_k, cache_v, k_new, v_new, pos: int, part: int,
+               parts: int):
+    """Write one token's k, v into the ring buffer, in place, where this
+    shard owns the slot.  The ring has ``parts * S_loc`` slots, part
+    ``part`` holding slots ``[part * S_loc, (part + 1) * S_loc)``; the
+    token goes to slot ``pos % S`` (the reference's owner and clamped
+    local slot: ``dynamic_update_slice`` clamps its start index)."""
     S_loc = cache_k.shape[2]
-    slot = pos % S_loc
+    slot = pos % (parts * S_loc)
     owner = slot // S_loc
+    if part != owner:
+        return
     local_slot = min(max(slot - owner * S_loc, 0), S_loc - 1)
     cache_k[:, :, local_slot] = k_new
     cache_v[:, :, local_slot] = v_new
 
 
-def ring_valid(S_loc: int, pos: int, window, device) -> torch.Tensor:
-    """(S_loc,) bool: slot j holds a token to attend to.  The reference's
-    arithmetic on the slot index: ``j <= pos`` and ``j > pos - S``, within
-    ``window`` of ``pos``."""
-    g = torch.arange(S_loc, device=device)
-    valid = (g <= pos) & (g > pos - S_loc)
+def ring_valid(S_loc: int, pos: int, window, device, part: int,
+               parts: int) -> torch.Tensor:
+    """(S_loc,) bool: local slot j holds a token to attend to.  The
+    reference's arithmetic on the global slot index ``g = part * S_loc +
+    j``: ``g <= pos`` and ``g > pos - S``, within ``window`` of ``pos``."""
+    g = part * S_loc + torch.arange(S_loc, device=device)
+    valid = (g <= pos) & (g > pos - parts * S_loc)
     if window is not None:
         valid &= (pos - g) < window
     return valid
@@ -255,14 +299,19 @@ def decode_attn_forward(params, x, cache_k, cache_v, pos: int,
                         spec: AttnParamsSpec, ctx: ShardCtx, *, window=None,
                         attn_softcap=None, rope_theta=10000.0,
                         mrope_sections=None, cross_kv=None):
-    """One-token cached attention.
+    """One-token cached attention over a sequence-sharded KV cache.
 
-    x: (B, D); cache_k/v: (B, kv_dec_local, S, hd), written in place at
-    the ring slot of ``pos`` (the index of the token being generated).
-    Returns (y (B, D), cache_k, cache_v).
+    x: (B, D), replicated over tp; cache_k/v: (B, kv_dec_local, S_loc,
+    hd), written in place at the ring slot of ``pos`` (the index of the
+    token being generated) by the shard that owns it.  The params are in
+    the decode layout (``init_decode_attn``).  Returns (y (B, D),
+    replicated, cache_k, cache_v).
     """
     B, d = x.shape
     hd = spec.head_dim
+    r = spec.decode_seq_parts
+    idx = common.axis_index(ctx)
+    part = idx % r
     q = (x @ params["wq"].T).reshape(
         B, spec.n_heads if spec.replicated else spec.decode_q_local, hd)
     pos_b = torch.full((B, 1), pos, device=x.device)
@@ -281,9 +330,9 @@ def decode_attn_forward(params, x, cache_k, cache_v, pos: int,
                                        rope_theta)[:, 0]
         elif rope_theta is not None:
             k_new = common.apply_rope(k_new[:, None], pos_b, rope_theta)[:, 0]
-        ring_write(cache_k, cache_v, k_new, v_new, pos)
+        ring_write(cache_k, cache_v, k_new, v_new, pos, part, r)
         kq, vq = cache_k, cache_v
-        valid = ring_valid(cache_k.shape[2], pos, window, x.device)
+        valid = ring_valid(cache_k.shape[2], pos, window, x.device, part, r)
     else:
         kq, vq = cross_kv
         valid = None
@@ -298,6 +347,23 @@ def decode_attn_forward(params, x, cache_k, cache_v, pos: int,
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)
     o = torch.einsum("bghs,bgsd->bghd", p, vq.float())
+
+    groups = decode_groups(spec, ctx)
+    if groups is not None:
+        # log-sum-exp combine of the group's r sequence parts
+        m_g = common.pmax_tp(m, ctx, groups)
+        w = torch.exp(m - m_g)
+        l = common.psum_tp(l * w, ctx, groups)
+        o = common.psum_tp(o * w[..., None], ctx, groups)
     out = (o / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
-    y = out.reshape(B, -1) @ params["wo"].T
+    out = out.reshape(B, -1, hd)                       # (B, dec_q_local, hd)
+
+    if not spec.replicated and ctx.tp > 1:
+        # keep this shard's q-head slice: row-parallel wo, then psum
+        keep = spec.n_heads // ctx.tp
+        out = out[:, part * keep:(part + 1) * keep]
+        y = out.reshape(B, keep * hd) @ params["wo"].T
+        y = common.psum_tp(y, ctx)
+    else:
+        y = out.reshape(B, -1) @ params["wo"].T
     return y, cache_k, cache_v

@@ -1,14 +1,24 @@
 """Cached decoding (the serve path): cache init, prefill into the cache,
 one-token step.
 
-Port of ``repro.models.decode`` at tp = 1.  Cache layouts, as the
+Port of ``repro.models.decode``.  Cache layouts (per shard), as the
 reference's:
 
-  dense/moe/vlm : k, v (L, B, kv_heads, cache_len, hd)
-  ssm           : state (L, B, H, N, P) float32 + conv tail (L, B, K-1, C)
+  dense/moe/vlm : k, v (L, B, kv_dec_local, S_loc, hd), S_loc =
+                  cache_len / r (the decode plan's sequence parts)
+  ssm           : state (L, B, H_loc, N, P) float32 + conv tail
+                  (L, B, K-1, C_loc)
   hybrid        : {"super": one pair a pattern slot, stacked over the
-                  superblocks; "tail": one pair a tail layer, leading 1}
+                  superblocks; "tail": one pair a tail layer, leading 1};
+                  the RG-LRU state (.., B, W/tp)
   encdec        : {"self": decoder k, v; "cross": static encoder k, v}
+
+At tp > 1 the attention params are in the decode layout (``ShardPlan(tp,
+decode_layout=True)``), the MLP and MoE run on one token with contexts
+that are not sequence-parallel (their reduce a psum), and a prompt is fed
+one token at a time through :func:`decode_step` from :func:`init_cache`,
+as the reference serves it: :func:`prefill` builds the single-shard
+layout.
 
 ``DecodeCache.pos`` is a Python int (the next position to write), so the
 ring slot is known on the host.  ``decode_step`` writes the new token's
@@ -98,16 +108,16 @@ def init_cache(cfg: ArchConfig, plan: ShardPlan, batch: int, cache_len: int,
 # one-token decode step
 # ---------------------------------------------------------------------------
 
-_FLAT = ShardCtx(seq_parallel=False)
-
-
-def _ffn(lp, h2, cfg):
-    """The layer's MLP or MoE on one token a sequence: (B, D) -> (B, D)."""
+def _ffn(lp, h2, cfg, ctx):
+    """The layer's MLP or MoE on one token a sequence: (B, D) -> (B, D),
+    on the tp axis without sequence parallelism (the reference's
+    ``ShardCtx(ctx.tp_axis, ctx.tp_size, seq_parallel=False)``)."""
+    flat = ShardCtx(ctx.tp_axis, ctx.tp_size, seq_parallel=False)
     if "moe" in lp:
         y2, _ = moe.moe_forward(lp["moe"], h2[:, None, :], cfg.moe_spec(),
-                                _FLAT)
+                                flat)
         return y2[:, 0, :]
-    return mlp.mlp_forward(lp["mlp"], h2[:, None, :], _FLAT, cfg.act)[:, 0, :]
+    return mlp.mlp_forward(lp["mlp"], h2[:, None, :], flat, cfg.act)[:, 0, :]
 
 
 def _decode_dense_layer(lp, x, ck, cv, pos, cfg, spec, ctx, window,
@@ -124,14 +134,14 @@ def _decode_dense_layer(lp, x, ck, cv, pos, cfg, spec, ctx, window,
             lp["xattn"], hx, cross_kv[0], cross_kv[1], pos, spec, ctx,
             rope_theta=None, cross_kv=cross_kv)
         x = x + yx
-    return x + _ffn(lp, common.rms_norm(x, lp["ln2"]), cfg), ck, cv
+    return x + _ffn(lp, common.rms_norm(x, lp["ln2"]), cfg, ctx), ck, cv
 
 
 def _decode_recurrent_layer(lp, x, c, cfg, ctx):
     h = common.rms_norm(x, lp["ln1"])
     y, c2 = rglru.rglru_decode_step(lp["rec"], h, c, cfg.rglru_spec(), ctx)
     x = x + y
-    return x + _ffn(lp, common.rms_norm(x, lp["ln2"]), cfg), c2
+    return x + _ffn(lp, common.rms_norm(x, lp["ln2"]), cfg, ctx), c2
 
 
 def _put(stacked: tuple, i: int, values: tuple):
@@ -231,7 +241,14 @@ def _kv_to_cache(kv_stack, cache_kv, length: int):
 def prefill_hidden(params, tokens, cfg: ArchConfig, plan: ShardPlan,
                    ctx: ShardCtx, cache_len: int, **extras):
     """The full-sequence forward into a decode cache -> (final-normed
-    hidden states (B, S, D), DecodeCache at pos S)."""
+    hidden states (B, S, D), DecodeCache at pos S).  Single-shard layout,
+    as the reference's ``prefill``: at tp > 1 this raises; feed the
+    prompt through ``decode_step`` from ``init_cache``."""
+    if ctx.tp != 1:
+        raise ValueError(
+            f"prefill builds the single-shard cache layout and this context "
+            f"has tp = {ctx.tp}: feed the prompt one token at a time through "
+            f"decode_step from init_cache, as the reference serves tp > 1")
     x, _, collected = transformer.forward_full(
         params, tokens, cfg, plan, ctx, collect_cache=True, **extras)
     B, S = tokens.shape

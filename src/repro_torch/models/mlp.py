@@ -1,4 +1,7 @@
-"""Dense FFN (gated or plain).  Port of ``repro.models.mlp`` at tp = 1.
+"""Dense FFN (gated or plain), column- then row-parallel with
+sequence-parallel input and output.  Port of ``repro.models.mlp``: the
+params hold this shard's ``d_ff / tp`` slice; up and gate are
+column-parallel, down row-parallel, its partial sums reduce-scattered.
 
 ``jax.nn.gelu`` defaults to the tanh form, so the reference's ``"gelu"``
 and ``"gelu_tanh"`` are one function; here both are
@@ -36,7 +39,7 @@ def act_fn(name: str):
 
 def mlp_forward(params, x_sp, ctx: ShardCtx, act: str = "silu",
                 defer_reduce: bool = False):
-    """x: (B, S, D) -> (B, S, D)."""
+    """x_sp: (B, S/tp, D) -> (B, S/tp, D)."""
     x = common.sp_all_gather(x_sp, ctx)
     h = x @ params["w_up"].T
     if "w_gate" in params:

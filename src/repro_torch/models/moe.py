@@ -1,9 +1,16 @@
 """Mixture-of-Experts layer: top-k router with capacity-factor dispatch.
 
-Port of ``repro.models.moe``'s ``"dense_tp"`` plan at tp = 1: every expert
-on one device, dispatch and combine as einsums against a one-hot capacity
-tensor.  The ``"ep_a2a"`` plan runs only at tp > 1, where ``ShardCtx``
-raises; at tp = 1 the reference takes the dense plan for it too.
+Port of ``repro.models.moe``, per-shard code.  Two plans (``impl``):
+
+* ``"dense_tp"``: every shard holds every expert with the expert FFN dim
+  sharded over tp (column then row parallel, as the dense MLP); dispatch
+  and combine are einsums against a one-hot capacity tensor.
+* ``"ep_a2a"``: each shard holds one expert, its width split
+  ``tp // n_experts`` ways; needs ``tp % n_experts == 0``.  Routing is
+  replicated after the sequence gather, so no all-to-all is needed: each
+  shard runs its expert's token block, scatters it into its expert slot,
+  and the layer's one reduce sums the expert slots and the width
+  partials.  At tp = 1 it is the dense plan.
 
 Two behaviours of JAX are kept by hand:
 
@@ -37,11 +44,25 @@ class MoESpec:
     d_ff: int            # per-expert hidden (full, pre-sharding)
     capacity_factor: float = 1.25
     act: str = "silu"
-    impl: str = "dense_tp"   # | "ep_a2a" (the same layout at tp = 1)
+    impl: str = "dense_tp"   # | "ep_a2a"
+
+    def d_ff_local(self, tp: int) -> int:
+        if self.impl == "dense_tp":
+            assert self.d_ff % tp == 0, (self.d_ff, tp)
+            return self.d_ff // tp
+        # ep_a2a: full expert width, split by the surplus of tp over E
+        width_shards = max(1, tp // self.n_experts)
+        assert self.d_ff % width_shards == 0
+        return self.d_ff // width_shards
+
+    def experts_local(self, tp: int) -> int:
+        if self.impl == "dense_tp":
+            return self.n_experts
+        return max(1, self.n_experts // tp)
 
 
-def init_moe(gen, spec: MoESpec, dtype=torch.float32):
-    e, ffl = spec.n_experts, spec.d_ff
+def init_moe(gen, spec: MoESpec, tp: int, dtype=torch.float32):
+    e, ffl = spec.experts_local(tp), spec.d_ff_local(tp)
     scale_in = math.sqrt(1.0 / spec.d_model)
     scale_out = math.sqrt(1.0 / spec.d_ff)
     return {
@@ -94,7 +115,7 @@ def _dispatch_tensors(gate_vals, ids, T: int, cap: int, spec: MoESpec):
 
 
 def moe_forward(params, x_sp, spec: MoESpec, ctx: ShardCtx):
-    """x: (B, S, D) -> (y (B, S, D), aux_loss scalar)."""
+    """x_sp: (B, S/tp, D) -> (y (B, S/tp, D), aux_loss scalar)."""
     x = common.sp_all_gather(x_sp, ctx)
     B, S, D = x.shape
     T = B * S
@@ -108,11 +129,36 @@ def moe_forward(params, x_sp, spec: MoESpec, ctx: ShardCtx):
     p = torch.mean(probs, dim=0)
     aux = spec.n_experts * torch.sum(f * p)
 
-    expert_in = torch.einsum("tec,td->ecd", dispatch, xf)        # (E,C,D)
-    h = torch.einsum("ecd,efd->ecf", expert_in, params["w_gate"])
-    h = act_fn(spec.act)(h) * torch.einsum("ecd,efd->ecf", expert_in,
-                                           params["w_up"])
-    out = torch.einsum("ecf,edf->ecd", h, params["w_down"])
-    y = torch.einsum("tec,ecd->td", combine, out)
+    if spec.impl == "ep_a2a" and ctx.tp > 1:
+        y = _ep_a2a_forward(params, xf, dispatch, combine, spec, ctx)
+    else:
+        expert_in = torch.einsum("tec,td->ecd", dispatch, xf)    # (E,C,D)
+        h = torch.einsum("ecd,efd->ecf", expert_in, params["w_gate"])
+        h = act_fn(spec.act)(h) * torch.einsum("ecd,efd->ecf", expert_in,
+                                               params["w_up"])
+        out = torch.einsum("ecf,edf->ecd", h, params["w_down"])
+        y = torch.einsum("tec,ecd->td", combine, out)
     y = y.reshape(B, S, D).to(x.dtype)
     return common.sp_reduce_scatter(y, ctx), aux
+
+
+def _ep_a2a_forward(params, xf, dispatch, combine, spec: MoESpec,
+                    ctx: ShardCtx):
+    """The expert-parallel plan: this shard's expert (its width slice) on
+    the expert's token block, scattered into the expert's slot.  The
+    result is partial (one expert slot filled); the caller's reduce sums
+    the experts and the width partials in one collective."""
+    tp, E = ctx.tp, spec.n_experts
+    if tp % E:
+        raise ValueError(f"ep_a2a needs tp % n_experts == 0 (tp {tp}, "
+                         f"{E} experts); use dense_tp")
+    T, D = xf.shape
+    cap = dispatch.shape[2]
+    my_e = common.axis_index(ctx) // (tp // E)
+    h_in = torch.einsum("tc,td->cd", dispatch[:, my_e], xf)       # (C, D)
+    g = h_in @ params["w_gate"][0].T
+    u = h_in @ params["w_up"][0].T
+    out = (act_fn(spec.act)(g) * u) @ params["w_down"][0].T       # (C, D)
+    full = torch.zeros((E, cap, D), dtype=out.dtype, device=out.device)
+    full[my_e] = out
+    return torch.einsum("tec,ecd->td", combine, full)

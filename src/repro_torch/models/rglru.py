@@ -1,7 +1,7 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
 
-Port of ``repro.models.rglru`` at tp = 1.  Real-Gated Linear Recurrent
-Unit:
+Port of ``repro.models.rglru``, per-shard code.  Real-Gated Linear
+Recurrent Unit:
 
     r_t = sigmoid(W_a x_t + b_a)            (recurrence gate)
     i_t = sigmoid(W_x x_t + b_x)            (input gate)
@@ -13,6 +13,12 @@ The reference scans the sequence with ``jax.lax.associative_scan``; here
 same first-order linear combine.  The two sum in different orders, so
 they agree within a tolerance, not bit for bit.  ``jax.nn.gelu`` is the
 tanh form (``mlp.gelu``).
+
+Tensor parallelism: the width is sharded over tp (``width_local``); the
+gate matrices ``w_a`` and ``w_i`` are the shard's own (W/tp x W/tp), so
+at tp > 1 the model's gates are block-diagonal (not the tp = 1 function
+of the same full weights); ``w_out`` is row-parallel, its partial sums
+reduce-scattered (psummed in the decode step).
 """
 from __future__ import annotations
 
@@ -93,7 +99,7 @@ def rglru_scan(a, b, initial_h=None):
 
 def rglru_block_forward(params, x_sp, spec: RGLRUSpec, ctx: ShardCtx,
                         initial_state=None, return_state: bool = False):
-    """Griffin recurrent block.  x (B, S, D) -> (B, S, D)."""
+    """Griffin recurrent block.  x_sp (B, S/tp, D) -> (B, S/tp, D)."""
     x = common.sp_all_gather(x_sp, ctx)
     gate = gelu(x @ params["w_in_g"].T)
     u_raw = x @ params["w_in_x"].T
@@ -108,7 +114,7 @@ def rglru_block_forward(params, x_sp, spec: RGLRUSpec, ctx: ShardCtx,
 
 
 def rglru_decode_step(params, x, cache, spec: RGLRUSpec, ctx: ShardCtx):
-    """One-token step.  x (B, D); cache = (h (B, W), conv tail)."""
+    """One-token step.  x (B, D); cache = (h (B, W/tp), conv tail)."""
     h_prev, conv_tail = cache
     gate = gelu(x @ params["w_in_g"].T)
     u_raw = x @ params["w_in_x"].T                          # (B, W)

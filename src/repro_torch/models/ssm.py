@@ -1,9 +1,18 @@
 """Mamba-2 SSD block (state-space duality, arXiv:2405.21060).
 
-Port of ``repro.models.ssm`` at tp = 1.  Chunked SSD: within a chunk the
-quadratic form with the 1-semiseparable decay mask, across chunks the
-recurrent chunk states, so the cost is linear in the sequence.  The
-sequence must divide into chunks of ``spec.chunk``, as in the reference.
+Port of ``repro.models.ssm``, per-shard code.  Chunked SSD: within a
+chunk the quadratic form with the 1-semiseparable decay mask, across
+chunks the recurrent chunk states, so the cost is linear in the sequence.
+The sequence must divide into chunks of ``spec.chunk``, as in the
+reference.
+
+Tensor parallelism: the SSM heads are sharded over tp (``heads_local``);
+``in_proj`` holds this shard's rows of each section of ``[z | x | B | C |
+dt]``, with B and C (one group) replicated; ``out_proj`` is row-parallel,
+its partial sums reduce-scattered (psummed in the decode step).  The
+gated RMS norm normalises over the shard's own ``d_inner`` slice, as the
+reference's does, so a tp > 1 model is not the tp = 1 function of the
+same full weights.
 """
 from __future__ import annotations
 
@@ -129,7 +138,9 @@ def ssd_chunked(xbar, Bm, Cm, abar_log, spec: SSMSpec, initial_state=None):
 
 def ssm_forward(params, x_sp, spec: SSMSpec, ctx: ShardCtx,
                 initial_state=None, return_state: bool = False):
-    """x: (B, S, D) -> (B, S, D) [, (ssm state, conv tail)]."""
+    """x_sp: (B, S/tp, D) -> (B, S/tp, D) [, (ssm state, conv tail)].
+    The recurrence runs over the whole sequence, so the seq-parallel
+    stream is gathered first."""
     x = common.sp_all_gather(x_sp, ctx)
     Bsz, S, D = x.shape
     hl = params["A_log"].shape[0]
@@ -164,7 +175,7 @@ def ssm_forward(params, x_sp, spec: SSMSpec, ctx: ShardCtx,
 
 def ssm_decode_step(params, x, cache, spec: SSMSpec, ctx: ShardCtx):
     """One-token step.  x: (B, D); cache = (state (B,H,N,P), conv tail
-    (B, d_conv-1, C)) -> (y (B, D), new cache)."""
+    (B, d_conv-1, C)) -> (y (B, D), psummed over tp, new cache)."""
     state, conv_tail = cache
     Bsz, D = x.shape
     hl = params["A_log"].shape[0]

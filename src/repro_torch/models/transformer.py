@@ -1,13 +1,24 @@
 """Architecture assembler: dense, MoE, SSM, hybrid, enc-dec and VLM stacks
 from one ArchConfig.
 
-Port of ``repro.models.transformer`` at tp = 1.  Parameters are dict trees
-of tensors with the reference's keys; per-layer leaves are stacked on a
-leading layer axis under ``"layers"``, ``"superblocks"``, ``"tail"``,
-``"enc_layers"`` and ``"dec_layers"``, and each ``jax.lax.scan`` over
-layers is a Python loop over that axis.  Serving runs under
-``torch.inference_mode()``; the reference's ``jax.checkpoint`` around each
-layer (a training memory trade) has no counterpart.
+Port of ``repro.models.transformer``, per-shard code (see
+``common.ShardCtx``).  Parameters are dict trees of tensors with the
+reference's keys; per-layer leaves are stacked on a leading layer axis
+under ``"layers"``, ``"superblocks"``, ``"tail"``, ``"enc_layers"`` and
+``"dec_layers"``, and each ``jax.lax.scan`` over layers is a Python loop
+over that axis.  Serving runs under ``torch.inference_mode()``; the
+reference's ``jax.checkpoint`` around each layer (a training memory
+trade) has no counterpart.
+
+At tp > 1 (a ``ShardPlan(tp=k)`` and a context on a mesh axis of k
+processes): the embedding and LM head are vocab-parallel (Megatron): a
+shard holds ``padded_vocab(tp) / tp`` rows, the lookup is masked to the
+shard's rows and psummed, the loss is a vocab-parallel cross-entropy and
+the greedy token a vocab-parallel argmax.  ``forward_full`` runs the
+residual stream sequence-parallel: each shard keeps its S/tp slice
+between layers, and the final hidden states are gathered.  Decode takes
+the decode layout of the attention params (``ShardPlan(tp,
+decode_layout=True)``).
 
 Every weight matrix is (out_rows, in), used as ``x @ w.T``.
 """
@@ -24,7 +35,6 @@ from repro_torch.models.common import ShardCtx
 from repro_torch.models.moe import MoESpec
 from repro_torch.models.rglru import RGLRUSpec
 from repro_torch.models.ssm import SSMSpec
-from repro_torch.runtime import not_ported
 
 MOE_AUX_COEF = 0.01
 GLOBAL_WINDOW = 1 << 30  # "no window" sentinel
@@ -146,14 +156,10 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
-    """Static sharding decisions for one arch on one mesh: tp = 1 only."""
+    """Static sharding decisions for one arch on one mesh."""
     tp: int = 1
     attn_replicated: bool = False
     decode_layout: bool = False       # attention params in decode sharding
-
-    def __post_init__(self):
-        if self.tp > 1:
-            raise not_ported(f"a ShardPlan with tp={self.tp}", common.TP_ITEM)
 
     def ctx(self, tp_axis: str | None = None,
             seq_parallel: bool = True) -> ShardCtx:
@@ -238,7 +244,7 @@ def _init_layer(gen, cfg: ArchConfig, plan: ShardPlan, kind: str):
         p["lnx"] = zeros()
         p["xattn"] = attn_init(gen, spec, dt)
     if kind == "moe":
-        p["moe"] = moe.init_moe(gen, cfg.moe_spec(), dt)
+        p["moe"] = moe.init_moe(gen, cfg.moe_spec(), plan.tp, dt)
     else:
         p["mlp"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff // plan.tp,
                                 cfg.act != "gelu_plain", dt)
@@ -246,22 +252,37 @@ def _init_layer(gen, cfg: ArchConfig, plan: ShardPlan, kind: str):
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig,
-                plan: ShardPlan = SINGLE):
+                plan: ShardPlan = SINGLE, *, keep=None):
     """Random parameters drawn from ``gen`` on its device (the reference's
-    shapes and distributions; the values are the generator's)."""
+    shapes and distributions; the values are the generator's).
+
+    ``keep(path, leaf)``, when given, maps each leaf as it is drawn (a
+    layer's leaf, before stacking; ``path`` the tree's keys, the stack's
+    name first) to what is kept of it: ``convert.init_shard_params``
+    keeps a shard's slice of a full-width tree without holding the
+    tree."""
+    def kept(prefix, tree):
+        if keep is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: kept(prefix + (k,), v) for k, v in tree.items()}
+        return keep(prefix, tree)
+
     vl = cfg.padded_vocab(plan.tp) // plan.tp
     params: dict = {
-        "embed": common.embed_init(gen, vl, cfg.d_model, cfg.dtype),
+        "embed": kept(("embed",), common.embed_init(gen, vl, cfg.d_model,
+                                                    cfg.dtype)),
         "final_ln": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                 device=gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = common.embed_init(gen, vl, cfg.d_model, cfg.dtype)
+        params["lm_head"] = kept(("lm_head",), common.embed_init(
+            gen, vl, cfg.d_model, cfg.dtype))
 
-    def stack_of(kinds):
+    def stack_of(kinds, prefix):
         # layer by layer into preallocated stacks: a full-width stack is
         # tens of GB, and stacking finished layers would hold it twice
-        first = _init_layer(gen, cfg, plan, kinds[0])
+        first = kept(prefix, _init_layer(gen, cfg, plan, kinds[0]))
 
         def alloc(t):
             if isinstance(t, dict):
@@ -274,29 +295,33 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
         out = alloc(first)
         del first
         for i, kind in enumerate(kinds[1:], 1):
-            _assign(out, _init_layer(gen, cfg, plan, kind), i)
+            _assign(out, kept(prefix, _init_layer(gen, cfg, plan, kind)), i)
         return out
 
     if cfg.family in ("ssm", "moe"):
         kind = "ssm" if cfg.family == "ssm" else "moe"
-        params["layers"] = stack_of([kind] * cfg.n_layers)
+        params["layers"] = stack_of([kind] * cfg.n_layers, ("layers",))
     elif cfg.family == "hybrid":
         pat = cfg.hybrid_pattern
         n_super = cfg.n_layers // len(pat)
         tail = cfg.n_layers - n_super * len(pat)
         kinds = ["rglru" if k == "R" else "attn" for k in pat]
-        params["superblocks"] = {f"sub{j}": stack_of([kinds[j]] * n_super)
-                                 for j in range(len(pat))}
+        params["superblocks"] = {
+            f"sub{j}": stack_of([kinds[j]] * n_super,
+                                ("superblocks", f"sub{j}"))
+            for j in range(len(pat))}
         if tail:
             params["tail"] = stack_of([kinds[i % len(pat)]
-                                       for i in range(tail)])
+                                       for i in range(tail)], ("tail",))
     elif cfg.family == "encdec":
-        params["enc_layers"] = stack_of(["attn"] * cfg.encoder_layers)
-        params["dec_layers"] = stack_of(["cross"] * cfg.n_layers)
+        params["enc_layers"] = stack_of(["attn"] * cfg.encoder_layers,
+                                        ("enc_layers",))
+        params["dec_layers"] = stack_of(["cross"] * cfg.n_layers,
+                                        ("dec_layers",))
         params["enc_final_ln"] = torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                              device=gen.device)
     else:  # dense / vlm
-        params["layers"] = stack_of(["attn"] * cfg.n_layers)
+        params["layers"] = stack_of(["attn"] * cfg.n_layers, ("layers",))
     return params
 
 
@@ -323,12 +348,15 @@ def _assign(stacked, tree, i: int):
 
 def embed_lookup(params, tokens, cfg: ArchConfig, plan: ShardPlan,
                  ctx: ShardCtx):
-    """tokens (B, S) -> (B, S, D)."""
+    """tokens (B, S) -> (B, S, D), psum-complete across tp: each shard
+    looks up the tokens of its vocab rows, zero elsewhere."""
     vl = params["embed"].shape[0]
-    valid = (tokens >= 0) & (tokens < vl)
-    x = params["embed"][torch.clamp(tokens, 0, vl - 1).long()]
+    local = tokens - common.axis_index(ctx) * vl
+    valid = (local >= 0) & (local < vl)
+    x = params["embed"][torch.clamp(local, 0, vl - 1).long()]
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
+    x = common.psum_tp(x, ctx)
     if cfg.embed_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
                                         device=x.device)).to(x.dtype)
@@ -336,45 +364,75 @@ def embed_lookup(params, tokens, cfg: ArchConfig, plan: ShardPlan,
 
 
 def head_logits(x, params, cfg: ArchConfig):
-    """x (..., D) -> soft-capped float32 logits over the padded vocab."""
+    """x (..., D) -> soft-capped float32 logits over the padded vocab (at
+    tp > 1, over this shard's vocab rows)."""
     head = params.get("lm_head", params["embed"])
     return common.softcap((x @ head.T).float(), cfg.final_softcap)
 
 
 def vocab_parallel_xent(x, labels, params, cfg: ArchConfig, ctx: ShardCtx):
-    """x (B, S, D) full-seq activations -> mean token cross-entropy."""
-    logits = head_logits(x, params, cfg)                # (B, S, V)
+    """x (B, S, D) full-seq activations -> mean token cross-entropy, the
+    logits vocab-parallel (never gathered): a pmax shift, the psum of the
+    shards' exp-sums and of the label's logit (from the shard that holds
+    it)."""
+    logits = head_logits(x, params, cfg)                # (B, S, V/tp)
     vl = logits.shape[-1]
-    m = torch.amax(logits, dim=-1)
+    m = common.pmax_tp(torch.amax(logits, dim=-1), ctx)
     se = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
-    lab_valid = (labels >= 0) & (labels < vl)
+    se = common.psum_tp(se, ctx)
+    local_lab = labels - common.axis_index(ctx) * vl
+    lab_valid = (local_lab >= 0) & (local_lab < vl)
     lab_logit = torch.gather(
-        logits, -1, torch.clamp(labels, 0, vl - 1)[..., None].long())[..., 0]
-    lab_logit = torch.where(lab_valid, lab_logit, 0.0)
+        logits, -1, torch.clamp(local_lab, 0, vl - 1)[..., None].long()
+    )[..., 0]
+    lab_logit = common.psum_tp(torch.where(lab_valid, lab_logit, 0.0), ctx)
     nll = torch.log(se) + m - lab_logit
     return torch.mean(nll)
 
 
 def greedy_token(x, params, cfg: ArchConfig, ctx: ShardCtx):
-    """x (B, D) -> (greedy next token ids (B,) int32, their logits)."""
+    """x (B, D) -> (greedy next token ids (B,) int32, their logits), a
+    vocab-parallel argmax: the pmax of the shards' maxima, then the pmin
+    of the ids that reach it, so a tie across shards takes the lowest
+    id."""
     logits = head_logits(x, params, cfg)
+    vl = logits.shape[-1]
+    loc_max = torch.amax(logits, dim=-1)
     # torch.argmax returns the first maximum, as jnp.argmax does
-    return torch.argmax(logits, dim=-1).to(torch.int32), torch.amax(logits,
-                                                                    dim=-1)
+    loc_arg = torch.argmax(logits, dim=-1) + common.axis_index(ctx) * vl
+    if ctx.tp == 1:
+        return loc_arg.to(torch.int32), loc_max
+    g_max = common.pmax_tp(loc_max, ctx)
+    cand = torch.where(loc_max >= g_max, loc_arg,
+                       torch.iinfo(torch.int32).max).to(torch.int32)
+    return common.pmin_tp(cand, ctx), g_max
 
 
 # ===========================================================================
 # forward (training / prefill)
 # ===========================================================================
 
+def _slice_seq(x, ctx: ShardCtx):
+    """Full-seq (B, S, D) -> this shard's seq slice (B, S/tp, D)."""
+    if ctx.tp == 1 or not ctx.seq_parallel:
+        return x
+    S = x.shape[1]
+    if S % ctx.tp:
+        raise ValueError(f"sequence parallelism needs the sequence ({S}) "
+                         f"to divide by tp ({ctx.tp})")
+    n = S // ctx.tp
+    i = common.axis_index(ctx)
+    return x[:, i * n:(i + 1) * n]
+
+
 def _attn_layer(p, x, cfg, spec, ctx, window, positions=None,
                 mrope_positions=None, causal=True, cross_kv=None,
                 return_kv=False):
     if cfg.parallel_block and cross_kv is None and not return_kv \
             and "mlp" in p:
-        # PaLM-style parallel block: one normalised input feeds both
-        # branches, their outputs sum into one residual add
-        h = common.rms_norm(x, p["ln1"])
+        # PaLM-style parallel block: one gather feeds both branches, their
+        # partial outputs sum into one reduce-scatter
+        h = common.sp_all_gather(common.rms_norm(x, p["ln1"]), ctx)
         flat = dataclasses.replace(ctx, seq_parallel=False)
         ya = attention.attn_forward(
             p["attn"], h, spec, flat, positions=positions, causal=causal,
@@ -433,7 +491,9 @@ def forward_full(params, tokens, cfg: ArchConfig, plan: ShardPlan,
     enc_embeds: (B, enc_ctx, D) stub frontend output (encdec);
     patch_embeds (B, n_img, D) and patch_positions (B, n_img): VLM stub.
     The cache, when collected, has the reference's structure: per-layer
-    states stacked on a leading layer axis.
+    states stacked on a leading layer axis.  Between layers each shard
+    holds its S/tp slice of the residual stream; the returned x is whole
+    on every shard.
     """
     src = as_source(params)
     top = src.top()
@@ -443,6 +503,7 @@ def forward_full(params, tokens, cfg: ArchConfig, plan: ShardPlan,
         b_idx = torch.arange(x.shape[0], device=x.device)[:, None]
         x = x.clone()
         x[b_idx, patch_positions.long()] = patch_embeds.to(x.dtype)
+    x = _slice_seq(x, ctx)
 
     aux_total = 0.0
     cache = None
@@ -495,11 +556,12 @@ def forward_full(params, tokens, cfg: ArchConfig, plan: ShardPlan,
                 cache["tail"] = tail_sts
 
     elif cfg.family == "encdec":
-        enc = enc_embeds.to(cfg.dtype)
+        enc = _slice_seq(enc_embeds.to(cfg.dtype), ctx)
         for lp in layers_of(src, "enc_layers"):
             enc, _ = _attn_layer(lp, enc, cfg, spec, ctx, GLOBAL_WINDOW,
                                  causal=False)
-        enc = common.rms_norm(enc, top["enc_final_ln"])
+        enc = common.sp_all_gather(common.rms_norm(enc, top["enc_final_ln"]),
+                                   ctx)
         kvs = []
         for lp in layers_of(src, "dec_layers"):
             # cross k, v from the encoder output with this layer's xattn
@@ -531,7 +593,7 @@ def forward_full(params, tokens, cfg: ArchConfig, plan: ShardPlan,
         if collect_cache:
             cache = _stack_states(kvs)
 
-    x = common.rms_norm(x, top["final_ln"])
+    x = common.sp_all_gather(common.rms_norm(x, top["final_ln"]), ctx)
     return x, aux_total, cache
 
 

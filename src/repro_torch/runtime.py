@@ -1,16 +1,7 @@
-"""Device selection for the port's entry points, and the error of an
-option not ported yet."""
+"""Device selection for the port's entry points."""
 from __future__ import annotations
 
 import torch
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an option of the reference that is not ported yet raises;
-    ``item`` names its entry in the port queue of ROADMAP.md."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, port queue "
-        f"item {item!r})")
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -195,8 +195,8 @@ def _check_rounds(name, cfg, plan, n_test, ref_recs, port_recs,
 def test_unported_options_raise(capsys):
     """``serve --arch`` runs the transformer family's serving path on the
     CPU; an unknown arch fails as the reference's does (no config module
-    of that name); transformer tensor parallelism is the option left, and
-    a context that asks for it raises."""
+    of that name); a tensor-parallel context outside a joined job raises
+    at its first collective, naming the mesh axis that has no group."""
     from repro.launch import serve as ref_serve
     from repro_torch.models.common import ShardCtx
 
@@ -212,9 +212,11 @@ def test_unported_options_raise(capsys):
     with pytest.raises(ModuleNotFoundError,
                        match="repro_torch.configs.gpt2"):
         serve.main(["--arch=gpt2", "--steps", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*'transformer tensor parallel'"):
-        ShardCtx(tp_axis="model", tp_size=2)
+    from repro_torch.models import common
+    common.unbind_axes()
+    with pytest.raises(RuntimeError, match="mesh axis 'model'"):
+        common.sp_all_gather(torch.ones(2, 4, 3),
+                             ShardCtx(tp_axis="model", tp_size=2))
 
 
 def test_no_wire_round_applies_the_mean_reconstruction():

@@ -161,10 +161,22 @@ def test_softmax_xent():
 
 
 def test_tensor_parallel_context_raises():
-    with pytest.raises(NotImplementedError,
-                       match="'transformer tensor parallel'"):
-        p_common.ShardCtx(tp_axis="model", tp_size=2)
+    """A tp > 1 context is static (it builds, as the reference's does);
+    outside a joined job, with no mesh bound to its axis, its first
+    collective raises an error that names the missing group."""
+    p_common.unbind_axes()
+    ctx = p_common.ShardCtx(tp_axis="model", tp_size=2)
+    assert ctx.tp == 2
+    with pytest.raises(RuntimeError,
+                       match="no process group is bound to the mesh axis "
+                             "'model'.*make_mesh"):
+        p_common.psum_tp(torch.ones(3), ctx)
+    with pytest.raises(RuntimeError, match="axis 'model'"):
+        p_common.axis_index(ctx)
     assert p_common.ShardCtx(tp_axis=None, tp_size=2).tp == 1
+    x = torch.ones(2, 4, 3)
+    assert p_common.psum_tp(x, p_common.ShardCtx(tp_axis=None,
+                                                 tp_size=2)) is x
 
 
 # ------------------------------------------------------------ attention
