@@ -318,7 +318,8 @@ VGG_WEIGHTS = 10                 # leaves of two or more dimensions
 STEPS = 17                       # local steps a round: 560 images, batch 32
 SCALE_SUBEPOCHS = 2
 # host spans of the coding stack (repro_torch.obs.trace.span)
-SPANS = ("codec.encode_batch", "codec.decode_batch", "nnc.encode",
+SPANS = ("codec.encode", "codec.decode", "codec.encode_batch",
+         "codec.decode_batch", "nnc.encode",
          "nnc.decode", "cabac.pass1.state_scan", "cabac.pass2.range_encode")
 PORT_SPANS = SPANS + ("downlink", "downlink.compress")
 
@@ -954,10 +955,10 @@ def deterministic_cudnn(torch):
          torch.backends.cudnn.benchmark) = old
 
 
-def record_small_run(torch, fl, rounds_mod, name: str, device: str,
+def record_small_run(torch, fl, rounds_mod, scenario, device: str,
                      model=None, splits=None, forced=None, init_state=None,
                      plan=None):
-    """One run of scenario ``name`` through the serial executor on the
+    """One run of ``scenario`` through the serial executor on the
     tiny scenario VGG with 1,280
     samples (3 local steps per client), or on ``model`` and ``splits``,
     for 2 rounds on ``device``, with
@@ -995,7 +996,7 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str,
         return all(v.ndim <= 1 for _, v in items(tree))
 
     if model is None:
-        model, splits = fl.default_setting(fl.get_scenario(name).num_clients,
+        model, splits = fl.default_setting(scenario.num_clients,
                                            n_samples=SMALL_SAMPLES)
     log, steps = [], []     # steps: per client trained, its steps
     train0 = rounds_mod.LocalTrain.train_cohort
@@ -1108,8 +1109,6 @@ def record_small_run(torch, fl, rounds_mod, name: str, device: str,
     try:
         # the serial executor: its bind is where a client's steps are
         # recorded, one client at a time
-        scenario = (fl.get_scenario(name) if isinstance(name, str)
-                    else name)
         res = fl.run_scenario(dataclasses.replace(scenario,
                                                   executor="serial"),
                               rounds=SMALL_ROUNDS, model=model,
@@ -1495,23 +1494,26 @@ def print_forced(label: str, rounds: list[dict]) -> None:
                   f"their norm; causes: {', '.join(c['causes'])}")
 
 
-def small_input_check(torch, fl, rounds_mod, name: str,
-                      cpu_runs: dict) -> dict:
-    """Scenario ``name`` on the tiny VGG, 2 rounds from the same seed on
-    the card and on the CPU's plain path, held together by
+def small_input_check(torch, fl, rounds_mod, scenario, cpu_runs: dict,
+                      model=None, splits=None) -> dict:
+    """``scenario`` on the tiny VGG, or on ``model`` and ``splits``, 2
+    rounds from the same seed on the
+    card and on the CPU's plain path, held together by
     ``compare_small_runs``; fails on any failure it reports.  The card's
     run uses cuDNN's deterministic algorithms, so the verdict can be
     reproduced; the CPU run is kept in ``cpu_runs``."""
-    cfg = fl.build_protocol(fl.get_scenario(name), SMALL_ROUNDS)
+    name = scenario.name
+    cfg = fl.build_protocol(scenario, SMALL_ROUNDS)
     if name not in cpu_runs:
-        cpu_runs[name] = record_small_run(torch, fl, rounds_mod, name, "cpu")
+        cpu_runs[name] = record_small_run(torch, fl, rounds_mod, scenario,
+                                          "cpu", model, splits)
     cpu, cpu_log, n_test = cpu_runs[name]
     with deterministic_cudnn(torch):
-        card, card_log, _ = record_small_run(torch, fl, rounds_mod, name,
-                                             "cuda")
+        card, card_log, _ = record_small_run(torch, fl, rounds_mod, scenario,
+                                             "cuda", model, splits)
     report, failures = compare_small_runs(torch, cfg, name, cpu, cpu_log,
                                           card, card_log, n_test,
-                                          server_gain(fl, name))
+                                          server_gain(fl, scenario))
     print(f"small input {name}: {SMALL_ROUNDS} rounds, up_bytes "
           f"{report['up_bytes'][1]} on the card, {report['up_bytes'][0]} on "
           f"the CPU; down_bytes {report['down_bytes'][1]} on the card, "
@@ -3545,7 +3547,7 @@ def round_line(label: str, rnd: int, rec, rounds_out) -> None:
         fail(f"{label}: bad round record {rec}")
 
 
-def path_d(torch, la, sm, fl, codecs_mod, models, splits,
+def path_d(torch, la, sm, fl, models, splits,
            rounds_out) -> dict:
     """Path D, partial updates: 2 rounds of ``partial_fc_k4`` (nnc-cabac,
     cohorts of 4; only ``fc*`` trains and goes on the wire).  After each
@@ -3553,6 +3555,7 @@ def path_d(torch, la, sm, fl, codecs_mod, models, splits,
     values; every decoded payload is zero there; each payload is shorter
     than the same levels encoded under the spec without a send mask."""
     import dataclasses
+    from repro_torch.fl import rounds as rounds_mod
     from repro_torch.tree import sorted_items
     rounds, label = 2, "partial_fc_k4"
     s = fl.get_scenario(label)
@@ -3561,27 +3564,23 @@ def path_d(torch, la, sm, fl, codecs_mod, models, splits,
                              engine_cfg=fl.build_engine(s), device="cuda")
     params0 = {p: v.clone() for p, v in sorted_items(eng.server.params)}
     sizes, zeros = [], [0]
-    cls = codecs_mod.NncCabacCodec
-    enc0, dec0 = cls.encode_batch, cls.decode_batch
+    rt0 = rounds_mod.Uplink.roundtrip_all
 
-    def encode_batch(self, upds, spec, *, clients=None):
-        out = enc0(self, upds, spec, clients=clients)
-        full = enc0(self, upds, dataclasses.replace(spec, send_mask=None))
-        sizes.append([(len(a), len(b)) for a, b in zip(out, full)])
-        return out
-
-    def decode_batch(self, payloads, spec, *, clients=None):
-        decs = dec0(self, payloads, spec, clients=clients)
-        for dec in decs:
+    def roundtrip_all(self, upds, clients=None):
+        results = rt0(self, upds, clients)
+        full = self.codec.encode_batch(
+            upds, dataclasses.replace(self.spec, send_mask=None))
+        sizes.append([(n, len(b)) for (n, _), b in zip(results, full)])
+        for _, dec in results:
             for path, v in sorted_items(dec.params):
                 if not is_fc(path):
                     if v.any():
                         fail(f"{label}: a decoded payload is not zero at "
                              f"the frozen leaf {path}")
                     zeros[0] += 1
-        return decs
+        return results
 
-    cls.encode_batch, cls.decode_batch = encode_batch, decode_batch
+    rounds_mod.Uplink.roundtrip_all = roundtrip_all
     la.reset_counters()
     sm.reset_counters()
     recs, frozen = [], 0
@@ -3596,7 +3595,7 @@ def path_d(torch, la, sm, fl, codecs_mod, models, splits,
             if len(rec.participants) != 4:
                 fail(f"{label}: {len(rec.participants)} participants")
     finally:
-        cls.encode_batch, cls.decode_batch = enc0, dec0
+        rounds_mod.Uplink.roundtrip_all = rt0
     count = la.LAUNCHES["level_assign"]
     check_sm(sm, label, 4, rounds)
     if count != rounds:
@@ -3775,29 +3774,37 @@ def path_e(torch, dc, la, sm, fl, codecs_mod, device_mod, models, splits,
             "shape": [k, sum(p_sizes)]}
 
 
-def bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
+def bnwire_round(torch, la, sm, fl, models, splits,
                  rounds_out) -> dict:
     """One round of ``bnwire_v2_full`` (8 clients, nnc-cabac, schema v2):
     each payload is its v1 encode under a v1 spec with the header before
     and the 6,912-byte BN tail after; the server's BN state is bitwise the
     mean of the survivors' device BN rows."""
     import dataclasses
+    from repro_torch.fl import rounds as rounds_mod
     from repro_torch.tree import sorted_items
     label = "bnwire_v2_full"
     s = fl.get_scenario(label)
     eng = fl.FederatedEngine(models.vgg11_thinned(), fl.build_protocol(s, 1),
                              splits, engine_cfg=fl.build_engine(s),
                              device="cuda")
-    cls = codecs_mod.NncCabacCodec
-    enc0 = cls.encode_batch
+    rt0 = rounds_mod.Uplink.roundtrip_all
+    acc0 = rounds_mod.Uplink._account_payload
     train = eng.local_train.train_cohort
     seen = {}
+    sent = []
 
-    def encode_batch(self, upds, spec, *, clients=None):
-        out = enc0(self, upds, spec, clients=clients)
-        v1 = enc0(self, upds, dataclasses.replace(spec, bn=None, version=1))
-        seen["pairs"] = list(zip(out, v1))
-        return out
+    def account(self, payload):
+        sent.append(bytes(payload))
+        return acc0(self, payload)
+
+    def roundtrip_all(self, upds, clients=None):
+        sent.clear()
+        results = rt0(self, upds, clients)
+        v1 = self.codec.encode_batch(
+            upds, dataclasses.replace(self.spec, bn=None, version=1))
+        seen["pairs"] = list(zip(sent, v1, strict=True))
+        return results
 
     def spy_train(idx, *args):
         out = train(idx, *args)
@@ -3805,7 +3812,8 @@ def bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
         seen["bn"] = {p: v.clone() for p, v in sorted_items(out.bn_state)}
         return out
 
-    cls.encode_batch = encode_batch
+    rounds_mod.Uplink.roundtrip_all = roundtrip_all
+    rounds_mod.Uplink._account_payload = account
     eng.local_train.train_cohort = spy_train
     la.reset_counters()
     sm.reset_counters()
@@ -3813,7 +3821,8 @@ def bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
         rec = eng.run(1).records[0]
         torch.cuda.synchronize()
     finally:
-        cls.encode_batch = enc0
+        rounds_mod.Uplink.roundtrip_all = rt0
+        rounds_mod.Uplink._account_payload = acc0
     round_line(label, 1, rec, rounds_out)
     check_sm(sm, label, splits.num_clients, 1)
     if la.LAUNCHES["level_assign"] != 1:
@@ -3988,11 +3997,11 @@ def path_g(torch, la, sm, fl, data, models, rounds_out) -> dict:
             "participants": [list(r.participants) for r in recs]}
 
 
-def server_gain(fl, name: str) -> float:
-    """The most the scenario's server optimizer moves its update per unit
+def server_gain(fl, scenario) -> float:
+    """The most ``scenario``'s server optimizer moves its update per unit
     of mean delta: lr for FedAvg, lr / (1 - momentum) for FedAvgM, lr /
     eps for the adaptive ones."""
-    opt = fl.build_engine(fl.get_scenario(name)).server_opt
+    opt = fl.build_engine(scenario).server_opt
     if opt.name == "fedavg":
         return opt.lr
     if opt.name == "fedavgm":
@@ -4545,12 +4554,12 @@ def small_own_training(torch, fl, rounds_mod, model, splits,
     orders, so the count is reported, and the cap is held by the CPU's
     float64 comparison with the reference
     (tests/test_torch_cnn_families.py, tests/test_torch_mobilenet.py)."""
-    name = "sync_full_fedavg_fsfl"
-    cfg = fl.build_protocol(fl.get_scenario(name), SMALL_ROUNDS)
-    cpu_log = record_small_run(torch, fl, rounds_mod, name, "cpu", model,
-                               splits)[1]
+    scenario = fl.get_scenario("sync_full_fedavg_fsfl")
+    cfg = fl.build_protocol(scenario, SMALL_ROUNDS)
+    cpu_log = record_small_run(torch, fl, rounds_mod, scenario, "cpu",
+                               model, splits)[1]
     with deterministic_cudnn(torch):
-        card_log = record_small_run(torch, fl, rounds_mod, name, "cuda",
+        card_log = record_small_run(torch, fl, rounds_mod, scenario, "cuda",
                                     model, splits, forced=cpu_log)[1]
     rounds, failures = forced_round_check(torch, cfg, cpu_log, card_log)
     counted = [len(r["counted"]) for r in rounds]
@@ -5053,13 +5062,13 @@ def main() -> int:
     t1 = phase("path C (bidirectional, int8)", t1)
 
     # slice 8: partial updates, wire schema v2 and the channel
-    d_out = path_d(torch, la, sm, fl, codecs_mod, models, splits,
+    d_out = path_d(torch, la, sm, fl, models, splits,
                    rounds_out)
     t1 = phase("path D (partial updates, nnc-cabac)", t1)
     e_out = path_e(torch, dc, la, sm, fl, codecs_mod, device_mod, models,
                    splits, rounds_out)
     t1 = phase("path E (partial, int8, v2, lossy channel)", t1)
-    bn_out = bnwire_round(torch, la, sm, fl, codecs_mod, models, splits,
+    bn_out = bnwire_round(torch, la, sm, fl, models, splits,
                           rounds_out)
     t1 = phase("bnwire_v2_full round", t1)
 
@@ -5113,14 +5122,25 @@ def main() -> int:
     t1 = phase("dist phase (dist_cohort_full, two workers at full width, "
                "the handoff, ingest_serve)", t1)
 
+    # slice 17: the twins of examples/ and scripts/trace_smoke.py through
+    # their entry points, each held to a direct call
+    from repro_torch.launch import examples_check
+    cpu_runs = {}
+    s17 = examples_check.examples_phase(
+        dev, lambda: launch_counts(*mods),
+        lambda scenario, model, splits: small_input_check(
+            torch, fl, rounds_mod, scenario, cpu_runs, model, splits))
+    t1 = phase("examples phase (federated_cifar --full, codec_int8_k4, "
+               "quickstart, serve_decode, trace_smoke, multipod_train)", t1)
+
     timings = main_path_kernels(torch, dc, device_mod, captured)
     la_timing = la_main_path(torch, la, la_captured)
     da_timing = da_main_path(torch, da, da_captured)
     rs_timing = rs_main_path(torch, rs, rs_captured)
     sm_timing = sm_main_path(torch, sm, sm_captured)
     t1 = phase("main-path buffers", t1)
-    cpu_runs = {}
-    small = {name: small_input_check(torch, fl, rounds_mod, name, cpu_runs)
+    small = {name: small_input_check(torch, fl, rounds_mod,
+                                     fl.get_scenario(name), cpu_runs)
              for name in SMALL_SCENARIOS}
     model_t, splits_t = small_resnet_setting(torch, data, models)
     resnet_t = {
@@ -5370,6 +5390,19 @@ def main() -> int:
             dict(k_mnk=r["k_mnk"], **r["backward_dx_dw"])
             for r in s13_timings["scaled_matmul"]],
         "resnet18_small": s10_timings["scaled_matmul_backward"]})
+    # the examples phase's twins: launches a round, where they launch it
+    for k in kernels:
+        key = {"delta_compress": "delta_compress",
+               "level_assign": "level_assign",
+               "scaled_matmul": "scaled_matmul forward",
+               "scaled_matmul_backward": "scaled_matmul backward"
+               }.get(k["name"])
+        twins = {run: [r[key] for r in s17[run]["launches"]]
+                 for run in ("federated_cifar_full", "codec_int8_k4")
+                 if key is not None}
+        twins = {run: n for run, n in twins.items() if any(n)}
+        if twins:
+            k["launches_examples"] = twins
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")
@@ -5400,6 +5433,7 @@ def main() -> int:
                        "factor": steps["factor"], "steps": steps["steps"]},
         "population": s13,
         "dist": s14,
+        "examples": s17,
         "transformer": s15,
         "tensor_parallel": s16,
         "repeatability": repeat,

@@ -26,6 +26,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import numpy as np
 
 from repro_torch.core import quant as quant_lib
+from repro_torch.obs.trace import span
 from repro_torch.tree import LeafSpec, map_with_path, sorted_items, tree_map
 
 __all__ = ["ClientUpdate", "Codec", "Decoded", "LeafSpec", "WireSpec",
@@ -262,14 +263,16 @@ class Codec:
         return payload[1:len(payload) - tail], payload[len(payload) - tail:]
 
     def encode(self, upd: ClientUpdate, spec: WireSpec) -> bytes:
-        return self._frame(self._encode_body(upd, spec), upd, spec)
+        with span("codec.encode", codec=self.name):
+            return self._frame(self._encode_body(upd, spec), upd, spec)
 
     def decode(self, payload: bytes, spec: WireSpec) -> Decoded:
-        body, tail = self._deframe(payload, spec)
-        dec = self._decode_body(body, spec)
-        if spec.version == 1:
-            return dec
-        return dec._replace(bn=decode_bn(tail, spec))
+        with span("codec.decode", codec=self.name, nbytes=len(payload)):
+            body, tail = self._deframe(payload, spec)
+            dec = self._decode_body(body, spec)
+            if spec.version == 1:
+                return dec
+            return dec._replace(bn=decode_bn(tail, spec))
 
     def payload_sections(self, payload: bytes,
                          spec: WireSpec) -> dict[str, int]:
@@ -380,6 +383,10 @@ def get_codec(name: str) -> Codec:
             known = ", ".join(sorted(_REGISTRY))
             raise KeyError(f"unknown codec {name!r}; known: {known}") from None
     return _INSTANCES[name]
+
+
+def list_codecs() -> list[str]:
+    return sorted(_REGISTRY)
 
 
 def resolve_codec(codec: Any, quantize: bool = True) -> Codec:

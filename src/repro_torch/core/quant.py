@@ -71,6 +71,25 @@ def dequantize(q: torch.Tensor, step_size: float) -> torch.Tensor:
     return q.to(torch.float32) * f32(step_size, q)
 
 
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization -> ``(q, scale)``, int8
+    ``q`` with ``x ~= q * scale``.  Without ``scale`` it is the max-abs
+    over 127, a float32 0-d tensor on ``x``'s device (1 for a zero tensor,
+    so no 0/0)."""
+    if scale is None:
+        amax = torch.max(torch.abs(x))
+        scale = torch.where(amax > 0, amax / f32(127.0, amax),
+                            f32(1.0, amax)).to(torch.float32)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
 def _mask_or_false(tree: Any, fine_mask: Any | None) -> Any:
     return tree_map(lambda _: False, tree) if fine_mask is None else fine_mask
 

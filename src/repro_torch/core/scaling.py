@@ -23,6 +23,14 @@ def default_predicate(path: str, leaf: torch.Tensor) -> bool:
     return leaf.ndim >= 2
 
 
+def path_str(key_path) -> str:
+    """``/``-joined keys of a key path: dict keys and tuple indices as
+    they are, or the ``key``/``idx`` of key-path entries (the paths
+    ``tree.items`` yields)."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in key_path)
+
+
 def init_scales(params: Any,
                 predicate: ScalePredicate = default_predicate) -> Any:
     """Ones-initialised scales tree (paper: S <- 1)."""
@@ -70,3 +78,15 @@ def apply_scales_tree(params: Any, scales: Any, cohort: bool = False) -> Any:
     with the cohort axis."""
     return tree_map(lambda w, s: w if at_matmul(w, s, cohort)
                     else apply_scale(w, s), params, scales)
+
+
+def bake_scales(params: Any, scales: Any) -> tuple[Any, Any]:
+    """Fold every scale into its weight and reset the scales to 1 (a
+    server-side option) -> ``(baked params, ones)``."""
+    baked = tree_map(apply_scale, params, scales)
+    return baked, tree_map(torch.ones_like, scales)
+
+
+def masked_update(scales: Any, updates: Any, mask: Any) -> Any:
+    """Apply updates only where the mask marks a real scale leaf."""
+    return tree_map(lambda s, u, m: s + u if m else s, scales, updates, mask)

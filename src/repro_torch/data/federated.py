@@ -11,6 +11,7 @@ gives the reference's client index sets bit for bit.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -128,3 +129,19 @@ def client_epoch_batches(gen: torch.Generator, num_clients: int, n: int,
     """(C, num_batches, batch_size) independent shuffles per client."""
     return torch.stack([epoch_batches(gen, n, batch_size)
                         for _ in range(num_clients)])
+
+
+def host_batch_iterator(x, y, batch_size: int, seed: int = 0
+                        ) -> Iterator[tuple]:
+    """Endless ``(x, y)`` batches on the host for a launcher's training
+    loop: each pass over the data a fresh permutation from numpy's
+    ``default_rng(seed)`` (the reference's draws, so the same batches),
+    the tail short of a batch dropped.  ``x`` and ``y`` are numpy arrays
+    or tensors."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    while True:
+        perm = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            idx = perm[i:i + batch_size]
+            yield x[idx], y[idx]

@@ -52,3 +52,29 @@ def make_image_dataset(gen: torch.Generator, task: ImageTask,
     imgs = torch.where(flip[:, None, None, None], imgs.flip(2), imgs)
     imgs = (imgs - imgs.mean()) / (imgs.std(correction=0) + 1e-6)
     return imgs.to(torch.float32), labels
+
+
+def make_markov_lm(gen: torch.Generator, vocab: int, num_seqs: int,
+                   seq_len: int, branching: int = 4):
+    """Order-1 Markov token sequences: each token has ``branching`` likely
+    successors, a learnable LM task with a floor of about
+    log2(``branching``) bits a token.  -> ``(inputs, targets)``, both
+    (num_seqs, seq_len) int64, the inputs the targets shifted right by one
+    behind each sequence's start token."""
+    successors = torch.randint(0, vocab, (vocab, branching), generator=gen)
+    start = torch.randint(0, vocab, (num_seqs,), generator=gen)
+    choice = torch.randint(0, branching, (num_seqs, seq_len), generator=gen)
+    return _markov_walk(successors, start, choice)
+
+
+def _markov_walk(successors: torch.Tensor, start: torch.Tensor,
+                 choice: torch.Tensor):
+    """Walk each sequence from ``start``: token t is
+    ``successors[token t-1, choice[:, t]]``."""
+    tok, toks = start, []
+    for t in range(choice.shape[1]):
+        tok = successors[tok, choice[:, t]]
+        toks.append(tok)
+    toks = torch.stack(toks, dim=1)
+    inputs = torch.cat([start[:, None], toks[:, :-1]], dim=1)
+    return inputs, toks

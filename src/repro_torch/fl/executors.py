@@ -46,6 +46,10 @@ from repro_torch.launch.mesh import make_cohort_mesh
 from repro_torch.obs import trace as obs_trace
 from repro_torch.tree import row, stack, tree_map
 
+# the cohort axis: the leading axis of every stacked tree, the one the
+# sharded backends split into blocks over the mesh
+COHORT_AXIS = "clients"
+
 
 def _broadcast(server: Any, k: int) -> Any:
     """One server snapshot as K rows, each its own copy."""

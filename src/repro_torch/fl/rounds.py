@@ -19,9 +19,10 @@ Two scheduling policies drive the same stage instances:
   executor call (``LocalTrain.train_window``).
 
 ``Uplink`` puts every cohort member's update on the wire and aggregates
-only what decodes: per client through ``Codec.encode_batch`` (for
-``int8-blockscale`` one kernel launch per client; the level codecs take
-the cohort's levels to the host first), or, under
+only what decodes: per client through ``Codec.encode``/``decode``, or,
+with ``uplink_batch``, through ``Codec.encode_batch``/``decode_batch``
+(for ``int8-blockscale`` one kernel launch per client either way; the
+level codecs take the cohort's levels to the host first), or, under
 ``EngineConfig.device_encode``, through ``Codec.encode_cohort`` (one
 device program and one device-to-host copy per cohort).
 
@@ -82,6 +83,11 @@ def stack_trees(trees: list[Any], device: torch.device) -> Any:
         return torch.tensor(x, device=device)  # decoded, read-only numpy
 
     return tree_map(lambda *ls: torch.stack([leaf(x) for x in ls]), *trees)
+
+
+def client_slice(tree: Any, i: int) -> Any:
+    """Client ``i``'s row of a stacked tree, as host numpy arrays."""
+    return tree_map(lambda x: x[i].detach().cpu().numpy(), tree)
 
 
 def raw_bytes_per_client(params: Any) -> int:
@@ -486,11 +492,15 @@ class Uplink:
     def roundtrip_all(self, upds: list[comms.ClientUpdate],
                       clients: list[int] | None = None):
         """Encode and decode every update -> ``(payload bytes, Decoded)``
-        pairs in submission order.  Without a pool, one batch call over
-        the cohort; with ``workers > 1``, one task a client, or, with
-        ``uplink_batch``, one a contiguous chunk."""
+        pairs in submission order.  Without ``uplink_batch``, one
+        ``_roundtrip`` a client (in a pool task each with ``workers > 1``);
+        with it, one batch call over the cohort, or one a contiguous chunk
+        with ``workers > 1``."""
         comms.check_batch_clients(clients, len(upds), "updates")
-        if self.workers <= 1 or len(upds) <= 1:
+        pooled = self.workers > 1 and len(upds) > 1
+        if not self.batch and not pooled:
+            return [self._roundtrip(u) for u in upds]
+        if not pooled:
             return self._roundtrip_batch(upds, clients)
         ex = self._executor()
         thread = self.executor_kind == "thread"
@@ -830,7 +840,28 @@ class Evaluate:
 
 # ---------------------------------------------------------------- scheduler
 
-class SyncScheduler:
+class RoundScheduler:
+    """Policy deciding who trains when and what one aggregation consumes.
+
+    A scheduler is bound to a :class:`~repro_torch.fl.engine.
+    FederatedEngine` and drives the engine's own ``CohortPlan``,
+    ``LocalTrain`` and ``Uplink``; it never aggregates or steps the server
+    itself: it returns a :class:`RoundIntake`, and the engine runs
+    ``Aggregate``, ``ServerStep``, ``Downlink`` and ``Evaluate``."""
+
+    def bind(self, engine, gen: torch.Generator, plan=None) -> None:
+        raise NotImplementedError
+
+    def next_round(self) -> RoundIntake:
+        raise NotImplementedError
+
+    def log_line(self, rec, intake: RoundIntake) -> str:
+        """The verbose line of one aggregation, from its record and
+        intake: the reference's line, field for field."""
+        raise NotImplementedError
+
+
+class SyncScheduler(RoundScheduler):
     """Cohort barrier: one cohort per aggregation, everyone against the
     same server snapshot.
 
@@ -992,7 +1023,6 @@ class SyncScheduler:
         line = (f"round {rec.round:3d} acc={rec.test_acc:.3f} "
                 f"cohort={len(intake.survivors)}/{len(intake.contributions)} "
                 f"up={rec.up_bytes / 1e6:.3f}MB "
-                f"down={rec.down_bytes / 1e6:.3f}MB "
                 f"sparsity={rec.update_sparsity:.3f}")
         if self.eng.channel is not None or self.eng.traffic is not None:
             line += f" t_sim={rec.sim_time_s:.2f}s"
@@ -1024,7 +1054,7 @@ class _InFlight:
                      # client dispatched again draws a fresh one)
 
 
-class BufferedAsyncScheduler:
+class BufferedAsyncScheduler(RoundScheduler):
     """FedBuff buffer: M concurrent clients, one aggregation every B
     arrivals with staleness weights; per-client latencies drive a
     simulated clock.
@@ -1346,8 +1376,7 @@ class BufferedAsyncScheduler:
         line = (f"agg {rec.round:3d} acc={rec.test_acc:.3f} "
                 f"t_sim={rec.sim_time_s:.2f}s "
                 f"staleness={[c.staleness for c in intake.contributions]} "
-                f"up={rec.up_bytes / 1e6:.3f}MB "
-                f"down={rec.down_bytes / 1e6:.3f}MB")
+                f"up={rec.up_bytes / 1e6:.3f}MB")
         if self.churned_total:
             line += f" churned={self.churned_total}"
         return line

@@ -227,6 +227,10 @@ def get_scenario(name: str) -> Scenario:
         raise KeyError(f"unknown scenario {name!r}; known: {known}") from None
 
 
+def list_scenarios() -> list[str]:
+    return sorted(SCENARIOS)
+
+
 register(Scenario("sync_full_fedavg_fsfl",
                   "seed-parity setting: all clients, FedAvg server, FSFL "
                   "protocol"))

@@ -21,7 +21,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.optim import Optimizer, adagrad, adam, sgd, yogi
+from repro_torch.optim import (Optimizer, adagrad, adam, apply_updates, sgd,
+                               yogi)
 from repro_torch.tree import tree_map
 
 
@@ -53,3 +54,10 @@ def server_update(opt: Optimizer, opt_state: Any, mean_delta: Any,
                   params: Any = None) -> tuple[Any, Any]:
     """One server-optimizer step -> (updates to add, new state)."""
     return opt.update(tree_map(torch.neg, mean_delta), opt_state, params)
+
+
+def server_step(opt: Optimizer, params: Any, opt_state: Any,
+                mean_delta: Any) -> tuple[Any, Any]:
+    """Apply one server-optimizer step -> (new params, new state)."""
+    updates, opt_state = server_update(opt, opt_state, mean_delta, params)
+    return apply_updates(params, updates), opt_state

@@ -188,21 +188,29 @@ def _launches() -> dict:
 def run_records(name: str, executor: str = "dist", device="cuda", *,
                 mesh: list | None = None, inputs: dict | None = None,
                 on_engine=None) -> dict:
-    """Run ``RUNS[name]`` in this process through ``executor`` on
-    ``device`` (``"sharded"`` needs ``mesh``, the explicit block layout)
-    with torch on ``THREADS`` threads; ``inputs[name]`` may hold its
-    ``splits``, ``init_state`` and ``plan``; ``on_engine(engine)`` sees
-    the engine before it runs.  -> its records and readings."""
+    """:func:`record_run` of ``RUNS[name]``, with ``inputs[name]`` (its
+    ``splits``, ``init_state`` and ``plan``) where ``inputs`` holds it."""
+    return record_run(RUNS[name], executor, device, mesh=mesh,
+                      over=(inputs or {}).get(name, {}), on_engine=on_engine)
+
+
+def record_run(run: Run, executor: str = "dist", device="cuda", *,
+               mesh: list | None = None, over: dict | None = None,
+               on_engine=None) -> dict:
+    """Run ``run`` in this process through ``executor`` on ``device``
+    (``"sharded"`` needs ``mesh``, the explicit block layout) with torch
+    on ``THREADS`` threads; ``over`` may replace its ``splits``,
+    ``init_state`` and ``plan``; ``on_engine(engine)`` sees the engine
+    before it runs.  -> its records and readings."""
     from repro_torch.fl import FederatedEngine
     from repro_torch.fl.executors import ShardedExecutor
     from repro_torch.kernels import level_assign as la
     from repro_torch.kernels import scaled_matmul as sm
 
-    run = RUNS[name]
     sharded = executor == "sharded"
     if sharded and mesh is None:
         raise ValueError("the sharded run needs its mesh")
-    over = (inputs or {}).get(name, {})
+    over = over or {}
     before = torch.get_num_threads()
     # the data too: its generation's CPU ops may round otherwise
     torch.set_num_threads(THREADS)
@@ -277,7 +285,7 @@ class Job:
     :meth:`wait` collects them."""
 
     def __init__(self, argv: list[str], procs: int = PROCS):
-        port = free_port()
+        self.port = port = free_port()
         base = {k: v for k, v in os.environ.items()
                 if not k.startswith("REPRO_DIST_")}
         base["PYTHONPATH"] = os.pathsep.join(

@@ -18,7 +18,8 @@ Device bridging: the port has no compiled programs to name, so the
 device side is ``torch.profiler``.  While a profiler session records,
 every span is also a ``torch.profiler.record_function`` annotation, so
 the coder's and stages' host intervals appear in its timeline and
-``key_averages()`` (one span function, no separate device variant).
+``key_averages()`` (one span function: :data:`device_span`, the
+reference's name for a span on the device timeline, is the same one).
 
 Exporters: :func:`export_jsonl` writes one JSON object per span per line;
 :func:`export_chrome_trace` writes Chrome trace-event JSON ("X" complete
@@ -38,7 +39,7 @@ import torch
 
 __all__ = [
     "Span", "SpanRecorder", "NoopRecorder", "NOOP",
-    "get_recorder", "use_recorder", "span", "device_trace",
+    "get_recorder", "use_recorder", "span", "device_span", "device_trace",
     "export_jsonl", "export_chrome_trace",
 ]
 
@@ -242,6 +243,11 @@ def span(name: str, **attrs):
         return _ProfiledSpan(_NOOP_SPAN, name)
     host = _active.span(name, **attrs)
     return _ProfiledSpan(host, name) if _profiling() else host
+
+
+# The reference's span that also marks the device timeline: ``span``
+# already does, as a ``record_function`` while a profiler records.
+device_span = span
 
 
 # ------------------------------------------------------------ device trace

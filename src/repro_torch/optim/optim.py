@@ -154,3 +154,20 @@ def adagrad(lr: LR, eps: float = 1e-8) -> Optimizer:
 
 def apply_updates(params: Any, updates: Any) -> Any:
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum over the leaves of their float32 squares, summed
+    leaf after leaf."""
+    total = sum(torch.sum(torch.square(x.to(torch.float32)))
+                for x in leaves(tree))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
+    norm = global_norm(grads)
+    # a tensor divided by a tensor: ``float / tensor`` would multiply by
+    # the reciprocal
+    top = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
+    scale = torch.clamp(top / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads)

@@ -46,3 +46,14 @@ def cawr(peak: float, period: int, t_mult: float = 1.0,
         return peak * (min_factor + (1.0 - min_factor) * cos)
 
     return fn
+
+
+def make(name: str, peak: float, total_steps: int,
+         period: int | None = None):
+    if name in ("none", "constant"):
+        return constant(peak)
+    if name == "linear":
+        return linear(peak, total_steps)
+    if name == "cawr":
+        return cawr(peak, period or max(total_steps // 15, 1))
+    raise ValueError(f"unknown schedule {name!r}")

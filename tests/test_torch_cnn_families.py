@@ -699,7 +699,8 @@ def own_training(ref, ref_runs, smoke):
                 cnn.dense_apply = _dense_scaled_twice(dense)
             try:
                 port = smoke.record_small_run(
-                    torch, fl, rounds, SCENARIO, "cpu", RUNS[name][0](cnn),
+                    torch, fl, rounds, fl.get_scenario(SCENARIO), "cpu",
+                    RUNS[name][0](cnn),
                     _port_splits(ref, run), forced=log,
                     init_state=convert.initial_state(run.server0, run.pers0),
                     plan=run.plan)

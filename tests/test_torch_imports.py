@@ -47,7 +47,11 @@ def test_port_has_modules():
     "dist/__init__.py", "dist/context.py", "dist/state.py",
     "launch/__init__.py", "launch/mesh.py", "launch/dist_smoke.py",
     "launch/ingest_serve.py", "launch/serve.py", "launch/arch_check.py",
-    "launch/tp_check.py", "convert.py", "runtime.py",
+    "launch/tp_check.py", "launch/trace_smoke.py",
+    "launch/examples_check.py", "examples/__init__.py",
+    "examples/quickstart.py", "examples/federated_cifar.py",
+    "examples/multipod_train.py", "examples/serve_decode.py",
+    "convert.py", "runtime.py",
     "models/common.py", "models/mlp.py", "models/attention.py",
     "models/moe.py", "models/ssm.py", "models/rglru.py",
     "models/frontend.py", "models/transformer.py", "models/decode.py",

@@ -54,6 +54,12 @@ def smoke():
     return module
 
 
+def _record(smoke, name, device, *args, **kwargs):
+    return smoke.record_small_run(torch, fl, rounds_mod,
+                                  fl.get_scenario(name), device, *args,
+                                  **kwargs)
+
+
 def _compare(smoke, name, base, run):
     cfg = fl.build_protocol(fl.get_scenario(name), smoke.SMALL_ROUNDS)
     return smoke.compare_small_runs(torch, cfg, name, base[0], base[1],
@@ -62,8 +68,8 @@ def _compare(smoke, name, base, run):
 
 @pytest.mark.parametrize("name", ["sync_full_fedavg_fsfl", "bidi_sync_full"])
 def test_run_against_itself_passes(smoke, name):
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
-    again = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    base = _record(smoke, name, "cpu")
+    again = _record(smoke, name, "cpu")
     report, failures = _compare(smoke, name, base, again)
     assert failures == []
     assert report["flips"] == report["params_off"] == 0
@@ -75,7 +81,7 @@ def test_run_against_itself_passes(smoke, name):
 @pytest.mark.parametrize("name", ["sync_full_fedavg_fsfl", "bidi_sync_full",
                                   "device_encode_int8"])
 def test_dense_layer_that_scales_twice_fails(smoke, name, monkeypatch):
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    base = _record(smoke, name, "cpu")
     dense = cnn.dense_apply
 
     def twice(p, x, s=None):
@@ -84,7 +90,7 @@ def test_dense_layer_that_scales_twice_fails(smoke, name, monkeypatch):
         return dense({"w": p["w"] * s[:, None], "b": p["b"]}, x, s)
 
     monkeypatch.setattr(cnn, "dense_apply", twice)
-    faulty = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    faulty = _record(smoke, name, "cpu")
     monkeypatch.undo()
     report, failures = _compare(smoke, name, base, faulty)
     assert failures
@@ -102,9 +108,9 @@ def test_dense_products_summed_in_float64_pass(smoke, name, monkeypatch):
     """On one CPU thread (the module's, the float order of the
     convolutions fixed), round 2 has one client whose training takes
     another discrete decision."""
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    base = _record(smoke, name, "cpu")
     monkeypatch.setattr(cnn, "dense_apply", _dense_float64)
-    other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    other = _record(smoke, name, "cpu")
     monkeypatch.undo()
     report, failures = _compare(smoke, name, base, other)
     assert failures == []
@@ -140,9 +146,8 @@ def test_forced_run_against_itself_passes(smoke):
     steps recorded."""
     name = "sync_full_fedavg_fsfl"
     train0 = rounds_mod.LocalTrain.train_cohort
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
-    again = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu",
-                                   forced=base[1])
+    base = _record(smoke, name, "cpu")
+    again = _record(smoke, name, "cpu", forced=base[1])
     assert rounds_mod.LocalTrain.train_cohort is train0
     rounds, failures = _forced(smoke, name, base, again)
     assert failures == []
@@ -158,7 +163,7 @@ def test_forced_rounds_count_every_client_of_a_faulty_model(smoke, name,
     step (round 2): the count of clients apart is over ``MAX_COUNTED``
     in both rounds.  Each carries a cause, so the cause alone cannot tell
     a fault from float noise; the count does."""
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    base = _record(smoke, name, "cpu")
     dense = cnn.dense_apply
 
     def twice(p, x, s=None):
@@ -167,8 +172,7 @@ def test_forced_rounds_count_every_client_of_a_faulty_model(smoke, name,
         return dense({"w": p["w"] * s[:, None], "b": p["b"]}, x, s)
 
     monkeypatch.setattr(cnn, "dense_apply", twice)
-    faulty = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu",
-                                    forced=base[1])
+    faulty = _record(smoke, name, "cpu", forced=base[1])
     monkeypatch.undo()
     rounds, _ = _forced(smoke, name, base, faulty)
     for r in rounds:
@@ -181,10 +185,9 @@ def test_forced_dense_products_summed_in_float64_stay_in_bounds(
     """The tiny VGG's float noise, each round from the same start: at most
     one client a round apart, and every bound held."""
     name = "sync_full_fedavg_fsfl"
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    base = _record(smoke, name, "cpu")
     monkeypatch.setattr(cnn, "dense_apply", _dense_float64)
-    other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu",
-                                   forced=base[1])
+    other = _record(smoke, name, "cpu", forced=base[1])
     monkeypatch.undo()
     rounds, failures = _forced(smoke, name, base, other)
     assert failures == []
@@ -202,14 +205,12 @@ def test_reduced_resnet_convolutions_in_float64_part_only_for_causes(
     from repro_torch import data, models
     model, splits = smoke.small_resnet_setting(torch, data, models)
     name = "sync_full_fedavg_fsfl"
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu", model,
-                                  splits)
+    base = _record(smoke, name, "cpu", model, splits)
     conv = torch.nn.functional.conv2d
     monkeypatch.setattr(
         torch.nn.functional, "conv2d",
         lambda x, w, *a, **k: conv(x.double(), w.double(), *a, **k).float())
-    other = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu", model,
-                                   splits, forced=base[1])
+    other = _record(smoke, name, "cpu", model, splits, forced=base[1])
     monkeypatch.undo()
     rounds, failures = _forced(smoke, name, base, other)
     smoke.print_forced("resnet_t, convolutions in float64", rounds)
@@ -240,8 +241,7 @@ def test_recording_leaves_the_stages_as_they_were(smoke):
                 protocol._grad_tree, protocol.apply_updates)
 
     before = stages()
-    _, log, _ = smoke.record_small_run(torch, fl, rounds_mod,
-                                       "device_encode_int8", "cpu")
+    _, log, _ = _record(smoke, "device_encode_int8", "cpu")
     assert before == stages()
     # 4 clients a round, 2 sub-epochs of 3 scale steps each
     assert [len(x["scale_steps"]) for x in log] == [4, 4]
@@ -276,7 +276,8 @@ def test_card_check_passes_ten_runs_in_a_row(smoke, cuda, route, name,
         monkeypatch.setattr(cnn, "dense_apply", ROUTES[route])
     cpu_runs = {}
     for _ in range(10):
-        smoke.small_input_check(torch, fl, rounds_mod, name, cpu_runs)
+        smoke.small_input_check(torch, fl, rounds_mod,
+                                fl.get_scenario(name), cpu_runs)
 
 
 @pytest.mark.gpu
@@ -285,12 +286,12 @@ def test_card_check_passes_ten_runs_in_a_row(smoke, cuda, route, name,
 def test_card_runs_with_default_cudnn_pass(smoke, cuda, route, name,
                                           monkeypatch):
     """cuDNN's default algorithms differ from run to run: 10 samples."""
-    base = smoke.record_small_run(torch, fl, rounds_mod, name, "cpu")
+    base = _record(smoke, name, "cpu")
     if ROUTES[route]:
         monkeypatch.setattr(cnn, "dense_apply", ROUTES[route])
     failed = []
     for rep in range(10):
-        run = smoke.record_small_run(torch, fl, rounds_mod, name, "cuda")
+        run = _record(smoke, name, "cuda")
         report, failures = _compare(smoke, name, base, run)
         causes = [(r["round"], c["client"], c["causes"])
                   for r in report["rounds"] for c in r["clients"]
